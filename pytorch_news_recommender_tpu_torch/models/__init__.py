@@ -1,0 +1,25 @@
+"""Model registry. The port has the ``nrms`` family so far; the JAX package's
+other families are listed in ``ROADMAP.md`` as still to port."""
+
+from __future__ import annotations
+
+from pytorch_news_recommender_tpu_torch.config import ModelConfig
+from pytorch_news_recommender_tpu_torch.models.common import RecModel
+from pytorch_news_recommender_tpu_torch.models.nrms import NRMS
+
+_REGISTRY = {"nrms": NRMS}
+
+
+def available_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def build_model(cfg: ModelConfig) -> RecModel:
+    """The family ``cfg.name`` with uninitialized parameters (call
+    ``reset_parameters(generator)`` or load a state dict)."""
+    name = cfg.name.lower()
+    if name not in _REGISTRY:
+        raise NotImplementedError(
+            f"model family {cfg.name!r} is not ported to PyTorch yet "
+            f"(ported: {available_models()}); see ROADMAP.md")
+    return _REGISTRY[name](cfg)
