@@ -2,22 +2,36 @@
 
     python3 chip_smoke.py
 
-Builds the fused encoder kernel from ``pytorch_news_recommender_tpu_torch/
-ops/csrc``, holds it against its plain PyTorch version at the serving
-shapes in float32 and bfloat16, then serves NRMS at full width (D=300, 10
-heads, query dim 200, title 20, history 50, bf16) over HTTP on a seeded
-synthetic corpus of 65,238 news (the news count of MIND-small), in both
-corpus-cache modes, and checks a sample of the served answers against a
-recomputation through the plain version. Prints timings tagged with the
-card's name and power limit, the kernel line as JSON, and ends with
-``{"ok": true, "device": {...}}``. Any failed phase raises; there is no
-result without a CUDA card.
+1. Builds the kernels from ``pytorch_news_recommender_tpu_torch/ops/csrc``
+   (the fused encoder forward, its backward and the weight-gradient
+   reduction; ninja compiles the sources in parallel).
+2. Holds the forward kernel against its plain PyTorch version at the
+   serving shapes in float32 and bfloat16.
+3. Serves NRMS at full width (D=300, 10 heads, query dim 200, title 20,
+   history 50, bf16) over HTTP on a seeded synthetic corpus of 65,238 news
+   (the news count of MIND-small), in both corpus-cache modes, and checks a
+   sample of the served answers against the plain version.
+4. Times the serving paths.
+5. Holds the backward and weight-gradient kernels, and the forward with
+   dropout and the ``o1`` residual, against their plain versions at the
+   training step's shapes, float32 and bfloat16, dropout 0 and 0.2.
+6. Trains NRMS at the JAX package's default configuration (batch 512, bf16
+   activations, f32 parameters, dropout 0.2, dedup and a length split at 12
+   words) on a synthetic corpus with MIND's mean title length: one step
+   through the kernels against the same step through the plain version,
+   then 40 steps, then an evaluation through the two-tower path.
+
+Prints timings tagged with the card's name and power limit, the kernels'
+line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
+phase raises; there is no result without a CUDA card.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import http.client
+import itertools
 import json
 import math
 import subprocess
@@ -31,7 +45,12 @@ N_NEWS = 65_238          # MIND-small's news count; the table adds the pad row
 VOCAB = 32_000
 D, H, Q = 300, 10, 200
 SHAPES = [(4096, 20), (32, 50), (1, 50)]   # corpus chunk, score_many batch, single user
+# the training step's encoder calls: short news block, long news block, users
+TRAIN_SHAPES = [(4096, 12), (4096, 20), (512, 50)]
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# backward kernel vs plain version, max|a - b| / max|b| per output
+BWD_TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+TRAIN_STEPS = 40
 # a served score may differ from the plain recomputation by this share of the
 # sample's largest |score|: bf16 vectors, kernel vs plain rounding points;
 # int8 rows add up to amax/254 per element on top
@@ -46,7 +65,7 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def encoder_inputs(seed, M, L, dtype):
+def encoder_inputs(seed, M, L, dtype, scales=(0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1)):
     """Seeded masked tokens (rows of 0..L real tokens) and encoder weights."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, L + 1, size=M)
@@ -57,8 +76,7 @@ def encoder_inputs(seed, M, L, dtype):
     mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
     x = rng.normal(size=(M, L, D)) * mask[..., None]
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D, Q), (Q,), (Q,)]
-    w = [rng.normal(size=s) * c for s, c in
-         zip(shapes, [0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1])]
+    w = [rng.normal(size=s) * c for s, c in zip(shapes, scales)]
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
     return ([t(x).to(dtype), t(mask)] + [t(a).to(dtype) for a in w],
             torch.as_tensor(lens > 0, device=DEVICE))
@@ -75,6 +93,33 @@ def bound(M, L, itemsize):
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bwd_bound(M, L, itemsize=2):
+    """Backward bound: 6·L·D·(3D+D+Q) + 10·H·L²·dh FLOP per item (the
+    projections for the recompute, dx and the weight gradients, and the
+    attention products) over the bf16 peak; bytes are g, x, o1 and the mask
+    in, dx and the weight gradients out."""
+    flops = M * (6 * L * D * (3 * D + D + Q) + 10 * H * L * L * (D // H))
+    wgrads = (D * 3 * D + 3 * D + D * D + D + D * Q + 2 * Q) * 4
+    nbytes = M * D * 4 + 3 * M * L * D * itemsize + M * L * 4 + wgrads
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def wgrad_bound(R, K, N, itemsize_a):
+    """Weight-gradient bound: 2·R·K·N FLOP over the float32 peak (b is
+    float32), bytes a and b in, the [K, N] sum out."""
+    flops = 2 * R * K * N
+    nbytes = R * K * itemsize_a + R * N * 4 + K * N * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_err(a, b):
+    """max|a - b| / max|b| in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
 def cuda_ms(fn, iters):
@@ -114,6 +159,191 @@ def check_kernel(FE):
             print(f"kernel vs plain {str(dtype):15s} M={M:5d} L={L}: "
                   f"max|err| {err:.3g} (tol {tol})", flush=True)
     return errs, times
+
+
+def check_backward(FE):
+    """Phase 5: the forward with dropout and the o1 residual, the backward
+    and the weight-gradient kernels against their plain versions at the
+    training step's shapes, two dtypes, dropout 0 and 0.2. Returns the worst
+    errors and the timings (bf16, dropout 0.2)."""
+    # pooling weights large enough that the tanh bends: the bias gradient
+    # dab = -aq sum_l ds_l t_l^2 is otherwise all rounding
+    scales = (0.05, 0.01, 0.05, 0.01, 0.3, 0.5, 0.1)
+    errs = {"bwd_abs": 0.0, "bwd_rel": 0.0}
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.2):
+            for M, L in TRAIN_SHAPES:
+                args, valid = encoder_inputs(M * 7 + L, M, L, dtype, scales)
+                x, mask, w = args[0], args[1], args[2:]
+                g = torch.as_tensor(np.random.default_rng(M + L).normal(size=(M, D)),
+                                    dtype=torch.float32, device=DEVICE)
+                out, o1 = FE.fused_news_encoder(*args, num_heads=H, dropout_rate=rate,
+                                                seed=1234, save_o1=True)
+                torch.cuda.synchronize()
+                ref, ref_o1 = FE.fused_news_encoder_reference(
+                    *args, num_heads=H, dropout_rate=rate, seed=1234, save_o1=True)
+                tol = TOLS[dtype]
+                torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                                           rtol=tol, atol=tol)
+                # o1 on the real tokens; in bf16 the kernel rounds the
+                # attention where the TPU kernel does and the plain version
+                # where the jnp chain does, so single elements may differ by
+                # a few bf16 steps: held to the tensor's scale
+                real = mask > 0
+                o1_err = rel_err(o1[real], ref_o1[real])
+                assert o1_err < BWD_TOLS[dtype], (str(dtype), rate, M, L, o1_err)
+                assert torch.all(out[~valid] == 0), "an all-pad item must pool to 0"
+                got = FE.fused_news_encoder_bwd(g, x, mask, o1, *w, num_heads=H,
+                                                dropout_rate=rate, seed=1234)
+                torch.cuda.synchronize()
+                expect = FE.fused_news_encoder_bwd_reference(
+                    g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234)
+                each = {name: rel_err(a, b) for name, a, b in zip(
+                    ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "daw", "dab", "daq"), got, expect)}
+                worst = max(each.values())
+                assert worst < BWD_TOLS[dtype], (str(dtype), rate, M, L, each)
+                assert torch.all(got[0][~valid] == 0), "an all-pad item must get zero dx"
+                if dtype == torch.bfloat16:
+                    errs["bwd_rel"] = max(errs["bwd_rel"], worst)
+                    errs["bwd_abs"] = max(errs["bwd_abs"], *(
+                        float((a.float() - b.float()).abs().max()) for a, b in zip(got, expect)))
+                if dtype == torch.bfloat16 and rate > 0:
+                    times[(M, L)] = (
+                        cuda_ms(lambda: FE.fused_news_encoder_bwd(
+                            g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234), 5),
+                        cuda_ms(lambda: FE.fused_news_encoder_bwd_reference(
+                            g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234), 5))
+                    if (M, L) == TRAIN_SHAPES[1]:
+                        times["fwd_train"] = cuda_ms(lambda: FE.fused_news_encoder(
+                            *args, num_heads=H, dropout_rate=rate, seed=1234, save_o1=True), 10)
+                print(f"backward kernel vs plain {str(dtype):15s} dropout {rate} M={M:5d} "
+                      f"L={L}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); forward with "
+                      f"dropout + o1 ok", flush=True)
+    # the weight-gradient reduction at its largest product, dWqkv = x^T dqkv
+    R = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.normal(size=(R, D)), dtype=torch.bfloat16, device=DEVICE)
+    b = torch.as_tensor(rng.normal(size=(R, 3 * D)) * 1e-3, dtype=torch.float32,
+                        device=DEVICE)
+    got = FE.weight_grad(a, b)
+    torch.cuda.synchronize()
+    plain = FE.weight_grad_reference(a, b)
+    errs["wgrad"] = rel_err(got, plain)
+    errs["wgrad_abs"] = float((got - plain).abs().max())
+    assert errs["wgrad"] < 1e-4, errs["wgrad"]
+    assert torch.equal(got, FE.weight_grad(a, b)), "weight_grad is not deterministic"
+    at32 = a.float().t()
+    times["wgrad"] = (cuda_ms(lambda: FE.weight_grad(a, b), 10),
+                      cuda_ms(lambda: FE.weight_grad_reference(a, b), 10),
+                      cuda_ms(lambda: torch.mm(at32, b), 10), (R, D, 3 * D))
+    print(f"weight_grad vs plain (R={R}, K={D}, N={3 * D}, bf16 x f32): max rel err "
+          f"{errs['wgrad']:.3g} (tol 1e-4), deterministic", flush=True)
+    return errs, times
+
+
+@contextlib.contextmanager
+def plain_towers(FE):
+    """The towers through the plain version on the card (autograd
+    differentiates it), for the comparison step of phase 6 only."""
+    from pytorch_news_recommender_tpu_torch.models import layers
+    kernel = layers.fused_news_encoder
+    layers.fused_news_encoder = FE.fused_news_encoder_reference
+    try:
+        yield
+    finally:
+        layers.fused_news_encoder = kernel
+
+
+def loss_and_grads(trainer, state, batch, seed):
+    """One training forward and backward (no update) -> (loss, grads)."""
+    from pytorch_news_recommender_tpu_torch.train.loop import softmax_ce_loss
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    b = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    scores = model(b, trainer.news_feats, deterministic=False,
+                   generator=torch.Generator().manual_seed(seed))
+    loss = softmax_ce_loss(scores)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def train_run(FE):
+    """Phase 6: NRMS training at the JAX package's default configuration
+    through Trainer.run_step and Trainer.evaluate."""
+    from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
+    from pytorch_news_recommender_tpu_torch.data import synthetic
+    from pytorch_news_recommender_tpu_torch.data.loader import (
+        DEFAULT_UNIQUE_BUCKETS, train_batches,
+    )
+    from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer
+
+    cfg = Config(data=DataConfig(dataset="synthetic"))
+    bs = cfg.train.batch_size
+    t0 = time.perf_counter()
+    ds = synthetic.generate(cfg.data, seed=1, n_news=N_NEWS, vocab_size=VOCAB,
+                            n_train=TRAIN_STEPS * bs, n_dev=512, title_len=(11.5, 4))
+    trainer = Trainer(cfg, ds, device=DEVICE)
+    state = trainer.init_state(seed=0)
+    print(f"training set-up: {time.perf_counter() - t0:.1f} s ({TRAIN_STEPS * bs} "
+          f"impressions, batch {bs}, dropout {cfg.model.dropout}, "
+          f"{cfg.model.compute_dtype})", flush=True)
+    host = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
+                         unique_buckets=DEFAULT_UNIQUE_BUCKETS,
+                         length_split=trainer._length_split)
+    first = next(host)
+    assert "short_mark" in first, "the batch must use both the short and the long block"
+
+    # one step through the kernels against the same step through the plain version
+    lk, gk = loss_and_grads(trainer, state, first, 7)
+    with plain_towers(FE):
+        lp, gp = loss_and_grads(trainer, trainer.init_state(seed=0), first, 7)
+    names = [n for n, _ in state.model.named_parameters()]
+    assert sorted(gk) == sorted(gp) == sorted(names), "a parameter got no gradient"
+    assert all(float(gk[n].abs().max()) > 0 for n in names), "a zero gradient"
+    scale = max(float(g.abs().max()) for g in gp.values())
+    grad_err = max(float((gk[n] - gp[n]).abs().max()) for n in names) / scale
+    loss_err = abs(lk - lp) / abs(lp)
+    assert loss_err < 0.01 and grad_err < 2e-2, (lk, lp, grad_err)
+    print(f"train step kernel vs plain (unique {first['unique_ids'].shape[0]}, short "
+          f"{first['short_mark'].shape[0]}): loss {lk:.5f} vs {lp:.5f} (rel {loss_err:.3g}, "
+          f"tol 0.01); grads max err {grad_err:.3g} of the largest gradient (tol 2e-2); "
+          f"every tower weight and the word table get a gradient", flush=True)
+
+    # the main path: run_step over prefetched batches, then evaluate
+    for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd, FE.weight_grad):
+        fn.launches = 0
+    generator = torch.Generator().manual_seed(cfg.train.seed + 1)
+    losses, step_ms, widths = [], [], []
+    torch.cuda.synchronize()
+    for batch in device_prefetch(itertools.chain([first], host), DEVICE):
+        t0 = time.perf_counter()
+        state, m = trainer.run_step(state, batch, generator)
+        losses.append(float(m["loss"]))   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        widths.append((batch["unique_ids"].shape[0], batch["short_mark"].shape[0]
+                       if "short_mark" in batch else 0))
+    assert len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses)), losses
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    assert last10 < first10, (first10, last10)
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(state)
+    eval_s = time.perf_counter() - t0
+    launches = {"fwd": FE.fused_news_encoder.launches,
+                "bwd": FE.fused_news_encoder_bwd.launches,
+                "wgrad": FE.weight_grad.launches}
+    assert all(launches.values()), launches
+    assert np.isfinite(metrics["auc"]) and metrics["n_impressions"] == 512, metrics
+    print(f"trained {TRAIN_STEPS} steps: loss first 10 {first10:.4f} -> last 10 "
+          f"{last10:.4f}; unique news per step {np.mean([w for w, _ in widths]):.0f} "
+          f"(short block {np.mean([s for _, s in widths]):.0f}); dev AUC "
+          f"{metrics['auc']:.4f} over 512 impressions (eval {eval_s:.2f} s); launches "
+          f"{launches}", flush=True)
+    return launches, step_ms, bs
 
 
 def word_dict(n_words):
@@ -269,7 +499,7 @@ def main() -> int:
     FE.build()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 2. kernel vs plain
+    # 2. forward kernel vs plain
     errs, times = check_kernel(FE)
 
     # 3. serving end to end, at full width
@@ -286,13 +516,13 @@ def main() -> int:
     FE.fused_news_encoder.launches = 0
     rec = serve_run(cfg, ds, params, "native", FE, rng)
     serve_run(cfg, ds, params, "int8", FE, rng)
-    launches = FE.fused_news_encoder.launches
+    serve_launches = FE.fused_news_encoder.launches
     per_encode = math.ceil(ds.news.n_news / cfg.train.eval_encode_chunk)
-    assert launches >= 2 * per_encode, (launches, per_encode)
-    print(f"fused_encoder_fwd launches on the serving path: {launches} "
+    assert serve_launches >= 2 * per_encode, (serve_launches, per_encode)
+    print(f"fused_encoder_fwd launches on the serving path: {serve_launches} "
           f"({per_encode} per corpus encode)", flush=True)
 
-    # 4. timings
+    # 4. serving timings
     chunk = cfg.train.eval_encode_chunk
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -313,20 +543,65 @@ def main() -> int:
     for (M, L), (k_ms, p_ms) in times.items():
         print(f"{tag} fused_encoder_fwd bf16 M={M} L={L}: kernel {k_ms:.4f} ms/launch, "
               f"plain {p_ms:.4f} ms, bound {bound(M, L, 2)[0]:.4f} ms", flush=True)
+    del rec
+
+    # 5. backward and weight-gradient kernels vs plain
+    bwd_errs, bwd_times = check_backward(FE)
+
+    # 6. training at full width
+    train_launches, step_ms, bs = train_run(FE)
+    steps = len(step_ms)
+    p50, p99 = float(np.percentile(step_ms, 50)), float(np.percentile(step_ms, 99))
+    print(f"{tag} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
+          f"{p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s", flush=True)
+    print(f"{tag} fused_encoder_fwd bf16 M={TRAIN_SHAPES[1][0]} L={TRAIN_SHAPES[1][1]} "
+          f"with dropout 0.2 + o1: {bwd_times['fwd_train']:.4f} ms/launch", flush=True)
+    for M, L in TRAIN_SHAPES:
+        k_ms, p_ms = bwd_times[(M, L)]
+        print(f"{tag} fused_encoder_bwd bf16 dropout 0.2 M={M} L={L}: kernels "
+              f"{k_ms:.4f} ms/call (incl. 7 weight_grad), plain {p_ms:.4f} ms, bound "
+              f"{bwd_bound(M, L)[0]:.4f} ms; {train_launches['bwd'] / steps:.1f} calls "
+              f"per step", flush=True)
+    w_ms, wp_ms, wl_ms, (R, K, N) = bwd_times["wgrad"]
+    print(f"{tag} weight_grad R={R} K={K} N={N}: kernel {w_ms:.4f} ms, plain "
+          f"{wp_ms:.4f} ms, torch.mm {wl_ms:.4f} ms, bound "
+          f"{wgrad_bound(R, K, N, 2)[0]:.4f} ms; {train_launches['wgrad'] / steps:.1f} "
+          f"launches per step", flush=True)
 
     k_ms, p_ms = times[SHAPES[0]]
     b_ms, b_by = bound(*SHAPES[0], 2)
-    print(json.dumps({"kernels": [{
-        "name": "fused_encoder_fwd", "route": "cuda",
-        "source": "pytorch_news_recommender_tpu_torch/ops/csrc/fused_encoder.cu",
-        "replaces": "pytorch_news_recommender_tpu/ops/pallas/fused_encoder.py:149",
-        "launches": launches,
-        "max_abs_err": max(v for k, v in errs.items() if "bfloat16" in k[0]),
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
-        "shape": {"M": SHAPES[0][0], "L": SHAPES[0][1], "D": D, "H": H, "Q": Q,
-                  "dtype": "bfloat16"},
-    }]}), flush=True)
+    bk_ms, bp_ms = bwd_times[TRAIN_SHAPES[1]]
+    bb_ms, bb_by = bwd_bound(*TRAIN_SHAPES[1])
+    wb_ms, wb_by = wgrad_bound(R, K, N, 2)
+    src = "pytorch_news_recommender_tpu_torch/ops/csrc/"
+    tpu = "pytorch_news_recommender_tpu/ops/pallas/fused_encoder.py:"
+    print(json.dumps({"kernels": [
+        {"name": "fused_encoder_fwd", "route": "cuda", "source": src + "fused_encoder.cu",
+         "replaces": tpu + "149",
+         "launches": serve_launches + train_launches["fwd"],
+         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"]},
+         "max_abs_err": max(v for k, v in errs.items() if "bfloat16" in k[0]),
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None,
+         "shape": {"M": SHAPES[0][0], "L": SHAPES[0][1], "D": D, "H": H, "Q": Q,
+                   "dtype": "bfloat16"},
+         "train_ms": bwd_times["fwd_train"]},
+        {"name": "fused_encoder_bwd", "route": "cuda", "source": src + "fused_encoder_bwd.cu",
+         "replaces": tpu + "261",
+         "launches": train_launches["bwd"],
+         "max_abs_err": bwd_errs["bwd_abs"], "max_rel_err": bwd_errs["bwd_rel"],
+         "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
+         "library_ms": None,
+         "shape": {"M": TRAIN_SHAPES[1][0], "L": TRAIN_SHAPES[1][1], "D": D, "H": H, "Q": Q,
+                   "dtype": "bfloat16", "dropout": 0.2}},
+        {"name": "encoder_weight_grad", "route": "cuda",
+         "source": src + "fused_encoder_bwd.cu", "replaces": tpu + "432",
+         "launches": train_launches["wgrad"],
+         "max_abs_err": bwd_errs["wgrad_abs"],
+         "ms": w_ms, "plain_ms": wp_ms, "bound_ms": wb_ms, "bound_by": wb_by,
+         "library_ms": wl_ms,
+         "shape": {"R": R, "K": K, "N": N, "dtype": "bfloat16 x float32"}},
+    ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

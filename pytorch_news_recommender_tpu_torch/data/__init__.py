@@ -1,1 +1,2 @@
-"""Data containers, the synthetic corpus and the serving tokenizer (numpy)."""
+"""Data containers, the synthetic corpus, the serving tokenizer, batching
+(numpy) and the device prefetch."""

@@ -4,6 +4,8 @@ encoder + dot-product scoring (port of the JAX package's
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from pytorch_news_recommender_tpu_torch.config import ModelConfig
@@ -24,7 +26,8 @@ class NRMS(RecModel):
         self.news_encoder = NewsEncoder(
             n_words=cfg.n_words, word_embed_size=cfg.word_embed_size,
             num_heads=cfg.num_attention_heads, query_dim=cfg.query_vector_dim,
-            compute_dtype=cd)
+            compute_dtype=cd, dropout=cfg.dropout,
+            freeze_embeddings=cfg.freeze_word_embeddings)
         self.user_encoder = UserEncoder(
             model_dim=cfg.word_embed_size, num_heads=cfg.user_heads_num,
             query_dim=cfg.query_vector_dim, compute_dtype=cd)
@@ -39,10 +42,13 @@ class NRMS(RecModel):
         return self.user_encoder(browsed_vecs, mask)
 
     # ---- RecModel contract ----
-    def encode_news_feats(self, feats: Batch) -> torch.Tensor:
-        return self.news_encoder(feats["title"])
+    def encode_news_feats(self, feats: Batch, deterministic: bool = True,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+        return self.news_encoder(feats["title"], deterministic, generator)
 
     def score_impression(self, batch, browsed_ids, cand_ids, browsed_vecs,
-                         cand_vecs, news_feats=None) -> torch.Tensor:
+                         cand_vecs, news_feats=None,
+                         deterministic: bool = True) -> torch.Tensor:
         user_vec = self.encode_user(browsed_vecs, (browsed_ids != 0).float())
         return dot_product_scores(user_vec, cand_vecs, cand_ids != 0)

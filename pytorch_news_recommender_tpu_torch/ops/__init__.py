@@ -1,1 +1,1 @@
-"""Attention math (plain PyTorch) and the fused encoder kernel's wrapper."""
+"""Attention math (plain PyTorch) and the fused encoder kernels' wrappers."""

@@ -54,17 +54,17 @@ def scaled_dot_product_attention(
     return _mm32("...qk,...kd->...qd", probs.to(v.dtype), v).to(v.dtype)
 
 
-def multi_head_self_attention(
+def self_attention_heads(
     x: torch.Tensor,
     wqkv: torch.Tensor,
     bqkv: torch.Tensor,
-    wo: torch.Tensor,
-    bo: torch.Tensor,
     num_heads: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Multi-head self-attention over ``x: [..., L, D]`` with ``wqkv: [D,
-    3D]`` (fused Q|K|V, used as ``x @ W``) and ``wo: [D, D]``."""
+    """The heads' attention output over ``x: [..., L, D]``, concatenated
+    and before the output projection (``[..., L, D]`` in ``x``'s dtype: the
+    fused encoder's ``o1``), with ``wqkv: [D, 3D]`` (fused Q|K|V, used as
+    ``x @ W``)."""
     *lead, L, D = x.shape
     dh = D // num_heads
     qkv = _mm32("...ld,de->...le", x, wqkv).to(x.dtype) + bqkv
@@ -76,7 +76,22 @@ def multi_head_self_attention(
     hmask = None if mask is None else mask[..., None, :]  # broadcast over heads
     out = scaled_dot_product_attention(
         split_heads(q), split_heads(k), split_heads(v), hmask)
-    out = out.movedim(-3, -2).reshape(*lead, L, D)
+    return out.movedim(-3, -2).reshape(*lead, L, D)
+
+
+def multi_head_self_attention(
+    x: torch.Tensor,
+    wqkv: torch.Tensor,
+    bqkv: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-head self-attention over ``x: [..., L, D]``: the heads of
+    :func:`self_attention_heads`, then the output projection ``wo: [D,
+    D]``."""
+    out = self_attention_heads(x, wqkv, bqkv, num_heads, mask)
     return _mm32("...ld,de->...le", out, wo).to(x.dtype) + bo
 
 

@@ -2,14 +2,16 @@
 //
 // Replaces the TPU kernel `_encoder_kernel` (called through
 // `fused_news_encoder`) in the JAX package's ops/pallas/fused_encoder.py,
-// for serving: no dropout, no saved attention output.
+// with its in-kernel inverted dropout and its optional o1 residual.
 //
 // What it computes, per news item m of x [M, L, D] with token mask [M, L]:
 //   qkv = x @ Wqkv + bqkv                        (f32 accumulation)
 //   q  *= 1/sqrt(dh); q, k, v rounded to T       (T = input dtype)
 //   per head: s = q k^T + (mask_i * mask_j - 1) * 1e9
 //             e = exp(s - rowmax) rounded to T, o1 = (e @ v) / rowsum(e)
-//   o1 rounded to T; o2 = o1 @ Wo + bo           (f32)
+//   o1 rounded to T (written out when asked: the backward's residual)
+//   o2 = o1 @ Wo + bo                            (f32)
+//   training: o2 = keep ? o2 / (1 - rate) : 0, the hashed mask of common.cuh
 //   a = tanh(T(o2) @ aw + ab) @ aq, masked to -1e9, softmax over the item
 //   out = sum_l w_l o2_l, 0 for an item with no real token, rounded to T
 // These are the TPU kernel's rounding points, so bf16 results stay close to
@@ -33,94 +35,14 @@
 // on the CUDA cores in f32 (odd widths: D=300, dh=30, Q=200 fit no tensor
 // core tile without padding); wgmma with zero-padded tiles is the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRows = 4;  // rows of a thread's tile in the block products
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and widened back to f32
-template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
 // Floats of shared memory one block uses; the carve-up is in the kernel.
 __host__ __device__ inline long smem_floats(int L, int D, int H, int Q) {
   const int Rp = round4(L), W1 = round4(D > Q ? D : Q), dh = D / H;
   return (long)Rp * D + (long)Rp * W1 + 3L * Rp * dh + (long)L * L + 3L * Rp;
-}
-
-// C[r][n] = sum_k A[r][k] * B[k][col(n)] for r < Rp, n < N, accumulated in
-// f32 and handed to epi(r, n, C[r][n], C[r][n+1]). A lies in shared memory
-// (row stride lda, a multiple of 4); B in global memory (row stride ldb).
-// Needs Rp % 4 == 0, K % 4 == 0, N even, and col(n + 1) == col(n) + 1 for
-// even n. kRoundA rounds each A value to T first.
-template <typename T, bool kRoundA, typename ColFn, typename EpiFn>
-__device__ __forceinline__ void block_product(const float* __restrict__ A, int lda, int Rp,
-                                              int K, const T* __restrict__ B, int ldb, int N,
-                                              ColFn col, EpiFn epi) {
-  const int pairs = N >> 1;
-  const int items = (Rp / kRows) * pairs;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int r0 = (it / pairs) * kRows;
-    const int n = (it % pairs) * 2;
-    const T* bp = B + col(n);
-    float acc[kRows][2];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i][0] = acc[i][1] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float a[kRows][4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(A + (r0 + i) * lda + k);
-        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-        if (kRoundA) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a[i][j] = rnd<T>(a[i][j]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float2 b = load2(bp + (long)(k + kk) * ldb);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc[i][0] = fmaf(a[i][kk], b.x, acc[i][0]);
-          acc[i][1] = fmaf(a[i][kk], b.y, acc[i][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) epi(r0 + i, n, acc[i][0], acc[i][1]);
-  }
 }
 
 template <typename T>
@@ -129,8 +51,9 @@ fused_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask
                          const T* __restrict__ wqkv, const T* __restrict__ bqkv,
                          const T* __restrict__ wo, const T* __restrict__ bo,
                          const T* __restrict__ aw, const T* __restrict__ ab,
-                         const T* __restrict__ aq, T* __restrict__ out,
-                         int L, int D, int H, int Q, float scale) {
+                         const T* __restrict__ aq, T* __restrict__ out, T* __restrict__ o1_out,
+                         int L, int D, int H, int Q, float scale, unsigned seed,
+                         int block_rows, unsigned threshold, float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   const int Rp = round4(L), W1 = round4(D > Q ? D : Q), dh = D / H;
   float* xs = smem;               // [Rp, D]  tokens; later o2 (f32)
@@ -144,11 +67,12 @@ fused_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask
   float* pw = mk + Rp;            // [Rp]     pooling logits, then weights
 
   const int m = blockIdx.x;
+  const long row0 = (long)m * L;  // first token row of the item
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const T* xm = x + (long)m * L * D;
+  const T* xm = x + row0 * D;
   for (int i = tid; i < Rp * D; i += blockDim.x) xs[i] = i < L * D ? to_f(xm[i]) : 0.f;
   for (int i = tid; i < Rp * W1; i += blockDim.x) o1[i] = 0.f;
-  for (int i = tid; i < Rp; i += blockDim.x) mk[i] = i < L ? mask[(long)m * L + i] : 0.f;
+  for (int i = tid; i < Rp; i += blockDim.x) mk[i] = i < L ? mask[row0 + i] : 0.f;
   __syncthreads();
 
   for (int h = 0; h < H; ++h) {
@@ -194,13 +118,23 @@ fused_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask
     }
     __syncthreads();
   }
+  if (o1_out != nullptr) {
+    for (int e = tid; e < L * D; e += blockDim.x)
+      o1_out[row0 * D + e] = from_f<T>(o1[(e / D) * W1 + e % D]);
+  }
 
-  // o2 = o1 @ Wo + bo, kept in f32 (the tokens are no longer needed)
+  // o2 = o1 @ Wo + bo, kept in f32 (the tokens are no longer needed), then
+  // inverted dropout on the item's real rows
   block_product<T, false>(
       o1, W1, Rp, D, wo, D, D, [](int n) { return n; },
       [=](int r, int n, float a0, float a1) {
-        xs[r * D + n] = a0 + to_f(bo[n]);
-        xs[r * D + n + 1] = a1 + to_f(bo[n + 1]);
+        float v0 = a0 + to_f(bo[n]), v1 = a1 + to_f(bo[n + 1]);
+        if (r < L) {
+          v0 = dropout(v0, seed, block_rows, row0 + r, n, threshold, keep_scale);
+          v1 = dropout(v1, seed, block_rows, row0 + r, n + 1, threshold, keep_scale);
+        }
+        xs[r * D + n] = v0;
+        xs[r * D + n + 1] = v1;
       });
   __syncthreads();
   // tanh(T(o2) @ aw + ab) * aq, summed per row below
@@ -242,8 +176,9 @@ fused_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask
 template <typename T>
 cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                    const void* wo, const void* bo, const void* aw, const void* ab,
-                   const void* aq, void* out, int M, int L, int D, int H, int Q, float scale,
-                   cudaStream_t stream) {
+                   const void* aq, void* out, void* o1, int M, int L, int D, int H, int Q,
+                   float scale, unsigned seed, int block_rows, unsigned threshold,
+                   float keep_scale, cudaStream_t stream) {
   const size_t smem = smem_floats(L, D, H, Q) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(fused_encoder_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -252,7 +187,8 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
       static_cast<const T*>(x), static_cast<const float*>(mask), static_cast<const T*>(wqkv),
       static_cast<const T*>(bqkv), static_cast<const T*>(wo), static_cast<const T*>(bo),
       static_cast<const T*>(aw), static_cast<const T*>(ab), static_cast<const T*>(aq),
-      static_cast<T*>(out), L, D, H, Q, scale);
+      static_cast<T*>(out), static_cast<T*>(o1), L, D, H, Q, scale, seed, block_rows,
+      threshold, keep_scale);
   return cudaGetLastError();
 }
 
@@ -260,18 +196,23 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, weights and out); mask is float32.
-// All operands contiguous on one device. Returns a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16 (x, weights, out and o1); mask is
+// float32. o1 may be null (no residual written). Dropout: seed, token rows
+// per hash block, threshold = rate * 2^32, keep_scale = 1 / (1 - rate);
+// threshold 0 and keep_scale 1 mean no dropout. All operands contiguous on
+// one device. Returns a cudaError_t code.
 int newsrec_fused_encoder_fwd(int dtype, const void* x, const void* mask, const void* wqkv,
                               const void* bqkv, const void* wo, const void* bo, const void* aw,
-                              const void* ab, const void* aq, void* out, int M, int L, int D,
-                              int H, int Q, float scale, void* stream) {
+                              const void* ab, const void* aq, void* out, void* o1, int M, int L,
+                              int D, int H, int Q, float scale, unsigned seed, int block_rows,
+                              unsigned threshold, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, M, L, D, H, Q, scale, s);
+    return launch<float>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, M, L, D, H, Q, scale,
+                         seed, block_rows, threshold, keep_scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, M, L, D, H, Q,
-                                 scale, s);
+    return launch<__nv_bfloat16>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, M, L, D, H,
+                                 Q, scale, seed, block_rows, threshold, keep_scale, s);
   return cudaErrorInvalidValue;
 }
 

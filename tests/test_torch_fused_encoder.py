@@ -4,9 +4,10 @@ against the jnp chain; the wrapper's dispatch; and, on a CUDA card only,
 the Hopper kernel against the plain version.
 
 JAX is imported inside the tests that compare with it, so that the card's
-tests also run where JAX is not installed::
+tests also run where JAX is not installed; where it is, keep it on the CPU
+(on a GPU its float32 products may run in TF32)::
 
-    python -m pytest --noconftest tests/test_torch_fused_encoder.py -q
+    JAX_PLATFORMS=cpu python -m pytest --noconftest tests/test_torch_fused_encoder.py -q
 """
 
 import pathlib
