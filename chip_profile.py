@@ -1,6 +1,6 @@
 """Where the port's NRMS training step spends its time, on one NVIDIA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [--dedup-gather-mxu]
 
 Trains NRMS at the configuration of ``chip_smoke.py``'s training phase
 (the JAX package's defaults: D=300, 10 heads, Q=200, batch 512, bf16,
@@ -8,11 +8,15 @@ dropout 0.2, dedup and a length split at 12 words, on the 65,238-news
 synthetic corpus with MIND's mean title length), warms up for 3 steps, then
 records 5 steps with ``torch.profiler`` and prints: the step's wall time,
 the device time by kernel group and by kernel, and the device's busy and
-idle shares of the wall time. Needs a CUDA card; prints nothing else.
+idle shares of the wall time. ``--dedup-gather-mxu`` profiles the step
+whose inverse gathers' backward is the segment-scatter kernel. Needs a CUDA
+card; prints nothing else.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import sys
 import time
 from collections import defaultdict
@@ -28,6 +32,7 @@ GROUPS = (("fused_encoder_fwd_kernel", "encoder forward"),
           ("attn_bwd_kernel", "encoder backward: attention"),
           ("dx_kernel", "encoder backward: dx"),
           ("weight_grad", "weight gradients"),
+          ("ss_", "segment scatter"),
           ("index", "gathers and scatter-adds"),
           ("gather", "gathers and scatter-adds"),
           ("scatter", "gathers and scatter-adds"),
@@ -47,6 +52,9 @@ def group_of(name: str) -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dedup-gather-mxu", action="store_true")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -62,6 +70,9 @@ def main() -> int:
 
     gpu = CS.card()
     cfg = Config(data=DataConfig(dataset="synthetic"))
+    if args.dedup_gather_mxu:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 dedup_gather_mxu=True))
     bs = cfg.train.batch_size
     ds = synthetic.generate(cfg.data, seed=1, n_news=CS.N_NEWS, vocab_size=CS.VOCAB,
                             n_train=(WARMUP + STEPS) * bs, n_dev=64, title_len=(11.5, 4))
@@ -69,16 +80,15 @@ def main() -> int:
     state = trainer.init_state(seed=0)
     host = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
                          length_split=trainer._length_split)
-    generator = torch.Generator().manual_seed(cfg.train.seed + 1)
     batches = device_prefetch(host, "cuda")
     for _ in range(WARMUP):
-        state, m = trainer.run_step(state, next(batches), generator)
+        state, m = trainer.run_step(state, next(batches))
     float(m["loss"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
-            state, m = trainer.run_step(state, batch, generator)
+            state, m = trainer.run_step(state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -91,7 +101,8 @@ def main() -> int:
     for name, ms in by_kernel.items():
         by_group[group_of(name)] += ms
     tag = f"[{gpu}]"
-    print(f"{tag} {STEPS} training steps (batch {bs}): {wall_ms / STEPS:.2f} ms per step "
+    print(f"{tag} {STEPS} training steps (batch {bs}, dedup_gather_mxu "
+          f"{cfg.model.dedup_gather_mxu}): {wall_ms / STEPS:.2f} ms per step "
           f"(wall); device busy {busy / STEPS:.2f} ms per step = "
           f"{100 * busy / wall_ms:.1f}% of the wall, idle {100 * (1 - busy / wall_ms):.1f}%",
           flush=True)

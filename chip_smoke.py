@@ -20,6 +20,14 @@
    words) on a synthetic corpus with MIND's mean title length: one step
    through the kernels against the same step through the plain version,
    then 40 steps, then an evaluation through the two-tower path.
+7. Trains the same configuration with ``model.dedup_gather_mxu``, the
+   inverse gathers' backward through the segment-scatter kernel: the kernel
+   against its plain version on a real dedup batch's indices, one step
+   against the plain step, 40 steps; then the user workflow on the card:
+   checkpoint at an evaluation, restore into a fresh trainer, evaluate
+   again, write a submission file, and ``cli train`` / ``eval`` / ``submit``
+   / ``export-vectors`` at the small synthetic size with the exported table
+   served through ``Recommender(vectors_file=...)``.
 
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
@@ -32,8 +40,11 @@ import concurrent.futures
 import contextlib
 import http.client
 import itertools
+import dataclasses
 import json
 import math
+import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -51,6 +62,11 @@ TOLS = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # backward kernel vs plain version, max|a - b| / max|b| per output
 BWD_TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 40
+# segment scatter vs plain, max|a - b| / max|b|: float32 sums of the same
+# bfloat16 terms, only the order of the additions differs
+SCATTER_TOL = 1e-5
+# scratch of phase 7 (checkpoints, CLI runs), inside the checkout
+WORK = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 # a served score may differ from the plain recomputation by this share of the
 # sample's largest |score|: bf16 vectors, kernel vs plain rounding points;
 # int8 rows add up to amax/254 per element on top
@@ -243,16 +259,18 @@ def check_backward(FE):
 
 
 @contextlib.contextmanager
-def plain_towers(FE):
-    """The towers through the plain version on the card (autograd
-    differentiates it), for the comparison step of phase 6 only."""
+def plain_kernels(FE, SS):
+    """The towers and the inverse gathers' backward through the plain
+    versions on the card (autograd differentiates the towers), for the
+    comparison steps of phases 6 and 7 only."""
     from pytorch_news_recommender_tpu_torch.models import layers
-    kernel = layers.fused_news_encoder
+    kernels = layers.fused_news_encoder, SS.scatter_add_rows
     layers.fused_news_encoder = FE.fused_news_encoder_reference
+    SS.scatter_add_rows = SS.scatter_add_rows_reference
     try:
         yield
     finally:
-        layers.fused_news_encoder = kernel
+        layers.fused_news_encoder, SS.scatter_add_rows = kernels
 
 
 def loss_and_grads(trainer, state, batch, seed):
@@ -271,36 +289,47 @@ def loss_and_grads(trainer, state, batch, seed):
     return float(loss.detach()), grads
 
 
-def train_run(FE):
-    """Phase 6: NRMS training at the JAX package's default configuration
-    through Trainer.run_step and Trainer.evaluate."""
+def training_data():
+    """The configuration and data of phases 6 and 7: the JAX package's
+    defaults on the 65,238-news corpus with MIND's mean title length, 40
+    batches of training impressions, 512 dev and 256 test impressions."""
     from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
     from pytorch_news_recommender_tpu_torch.data import synthetic
+
+    cfg = Config(data=DataConfig(dataset="synthetic"))
+    t0 = time.perf_counter()
+    ds = synthetic.generate(cfg.data, seed=1, n_news=N_NEWS, vocab_size=VOCAB,
+                            n_train=TRAIN_STEPS * cfg.train.batch_size, n_dev=512,
+                            n_test=256, title_len=(11.5, 4))
+    print(f"training data: {time.perf_counter() - t0:.1f} s ({len(ds.train)} impressions, "
+          f"batch {cfg.train.batch_size}, dropout {cfg.model.dropout}, "
+          f"{cfg.model.compute_dtype})", flush=True)
+    return cfg, ds
+
+
+def train_run(FE, SS, cfg, ds, phase):
+    """NRMS training through Trainer.run_step and Trainer.evaluate: one step
+    through the kernels against the same step through the plain versions,
+    then the main path (every launch count set to 0 before it and read
+    after it): TRAIN_STEPS steps over prefetched batches and an evaluation."""
     from pytorch_news_recommender_tpu_torch.data.loader import (
         DEFAULT_UNIQUE_BUCKETS, train_batches,
     )
     from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer
 
-    cfg = Config(data=DataConfig(dataset="synthetic"))
     bs = cfg.train.batch_size
-    t0 = time.perf_counter()
-    ds = synthetic.generate(cfg.data, seed=1, n_news=N_NEWS, vocab_size=VOCAB,
-                            n_train=TRAIN_STEPS * bs, n_dev=512, title_len=(11.5, 4))
     trainer = Trainer(cfg, ds, device=DEVICE)
     state = trainer.init_state(seed=0)
-    print(f"training set-up: {time.perf_counter() - t0:.1f} s ({TRAIN_STEPS * bs} "
-          f"impressions, batch {bs}, dropout {cfg.model.dropout}, "
-          f"{cfg.model.compute_dtype})", flush=True)
     host = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
                          unique_buckets=DEFAULT_UNIQUE_BUCKETS,
                          length_split=trainer._length_split)
     first = next(host)
     assert "short_mark" in first, "the batch must use both the short and the long block"
 
-    # one step through the kernels against the same step through the plain version
+    # one step through the kernels against the same step through the plain versions
     lk, gk = loss_and_grads(trainer, state, first, 7)
-    with plain_towers(FE):
+    with plain_kernels(FE, SS):
         lp, gp = loss_and_grads(trainer, trainer.init_state(seed=0), first, 7)
     names = [n for n, _ in state.model.named_parameters()]
     assert sorted(gk) == sorted(gp) == sorted(names), "a parameter got no gradient"
@@ -309,20 +338,21 @@ def train_run(FE):
     grad_err = max(float((gk[n] - gp[n]).abs().max()) for n in names) / scale
     loss_err = abs(lk - lp) / abs(lp)
     assert loss_err < 0.01 and grad_err < 2e-2, (lk, lp, grad_err)
-    print(f"train step kernel vs plain (unique {first['unique_ids'].shape[0]}, short "
-          f"{first['short_mark'].shape[0]}): loss {lk:.5f} vs {lp:.5f} (rel {loss_err:.3g}, "
-          f"tol 0.01); grads max err {grad_err:.3g} of the largest gradient (tol 2e-2); "
-          f"every tower weight and the word table get a gradient", flush=True)
+    print(f"[phase {phase}] train step kernel vs plain (unique {first['unique_ids'].shape[0]}, "
+          f"short {first['short_mark'].shape[0]}): loss {lk:.5f} vs {lp:.5f} (rel "
+          f"{loss_err:.3g}, tol 0.01); grads max err {grad_err:.3g} of the largest gradient "
+          f"(tol 2e-2); every tower weight and the word table get a gradient", flush=True)
 
     # the main path: run_step over prefetched batches, then evaluate
-    for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd, FE.weight_grad):
+    counted = {"fwd": FE.fused_news_encoder, "bwd": FE.fused_news_encoder_bwd,
+               "wgrad": FE.weight_grad, "scatter": SS.scatter_add_rows}
+    for fn in counted.values():
         fn.launches = 0
-    generator = torch.Generator().manual_seed(cfg.train.seed + 1)
     losses, step_ms, widths = [], [], []
     torch.cuda.synchronize()
     for batch in device_prefetch(itertools.chain([first], host), DEVICE):
         t0 = time.perf_counter()
-        state, m = trainer.run_step(state, batch, generator)
+        state, m = trainer.run_step(state, batch)
         losses.append(float(m["loss"]))   # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
         widths.append((batch["unique_ids"].shape[0], batch["short_mark"].shape[0]
@@ -333,17 +363,143 @@ def train_run(FE):
     t0 = time.perf_counter()
     metrics = trainer.evaluate(state)
     eval_s = time.perf_counter() - t0
-    launches = {"fwd": FE.fused_news_encoder.launches,
-                "bwd": FE.fused_news_encoder_bwd.launches,
-                "wgrad": FE.weight_grad.launches}
-    assert all(launches.values()), launches
+    launches = {k: fn.launches for k, fn in counted.items()}
+    assert launches["fwd"] and launches["bwd"] and launches["wgrad"], launches
     assert np.isfinite(metrics["auc"]) and metrics["n_impressions"] == 512, metrics
-    print(f"trained {TRAIN_STEPS} steps: loss first 10 {first10:.4f} -> last 10 "
-          f"{last10:.4f}; unique news per step {np.mean([w for w, _ in widths]):.0f} "
-          f"(short block {np.mean([s for _, s in widths]):.0f}); dev AUC "
-          f"{metrics['auc']:.4f} over 512 impressions (eval {eval_s:.2f} s); launches "
-          f"{launches}", flush=True)
-    return launches, step_ms, bs
+    print(f"[phase {phase}] trained {TRAIN_STEPS} steps: loss first 10 {first10:.4f} -> "
+          f"last 10 {last10:.4f}; unique news per step "
+          f"{np.mean([w for w, _ in widths]):.0f} (short block "
+          f"{np.mean([s for _, s in widths]):.0f}); dev AUC {metrics['auc']:.4f} over 512 "
+          f"impressions (eval {eval_s:.2f} s); launches {launches}", flush=True)
+    return {"launches": launches, "step_ms": step_ms, "trainer": trainer, "state": state,
+            "first": first, "metrics": metrics, "loss_err": loss_err, "grad_err": grad_err}
+
+
+def scatter_bound(S, U, itemsize):
+    """Segment-scatter bound: g, idx read once and out written once over
+    the memory rate (the work has no multiplications)."""
+    return (S * D * itemsize + 4 * S + U * D * 4) / PEAK_BYTES * 1e3, "bytes"
+
+
+def check_scatter(SS, batch):
+    """Phase 7a: the segment-scatter kernel against its plain version on
+    the inverse indices of a real dedup batch (the pad news holds about half
+    the history slots) with bf16 cotangents; two launches equal bit for bit;
+    times beside the bound, the plain version and
+    ``embedding_dense_backward`` (one PyTorch call of the same function,
+    which the port never calls)."""
+    U = int(batch["unique_ids"].shape[0])
+    rng = np.random.default_rng(11)
+    out = {}
+    for name in ("browsed_idx", "candidate_idx"):
+        idx = torch.as_tensor(batch[name].reshape(-1), device=DEVICE)
+        S = idx.shape[0]
+        g = torch.as_tensor(rng.normal(size=(S, D)), dtype=torch.float32,
+                            device=DEVICE).to(torch.bfloat16)
+        got = SS.scatter_add_rows(idx, g, U)
+        torch.cuda.synchronize()
+        plain = SS.scatter_add_rows_reference(idx, g, U)
+        err = rel_err(got, plain)
+        assert err < SCATTER_TOL, (name, err)
+        assert torch.equal(got, SS.scatter_add_rows(idx, g, U)), "scatter is not deterministic"
+        counts = torch.bincount(idx.long(), minlength=U)
+        il = idx.long()
+        out[name] = {
+            "S": S, "U": U, "max_sources": int(counts.max()),
+            "empty_rows": int((counts == 0).sum()),
+            "err": err, "abs_err": float((got - plain).abs().max()),
+            "ms": cuda_ms(lambda: SS.scatter_add_rows(idx, g, U), 20),
+            "plain_ms": cuda_ms(lambda: SS.scatter_add_rows_reference(idx, g, U), 20),
+            "library_ms": cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
+                g, il, U, -1, False), 20),
+            "bound": scatter_bound(S, U, 2)}
+        r = out[name]
+        print(f"[phase 7] segment scatter vs plain ({name}: S={S}, U={U}, D={D}, bf16; "
+              f"largest row {r['max_sources']} sources, {r['empty_rows']} empty rows): max "
+              f"err {err:.3g} of the largest output (tol {SCATTER_TOL}); two launches "
+              f"equal bit for bit", flush=True)
+    return out
+
+
+def workflow_run(trainer, state, ds):
+    """Phase 7c: the user workflow on the card. A checkpoint at an
+    evaluation, restored into a fresh trainer, gives the same parameters,
+    optimizer state, step and AUC; a submission file from it has one ranking
+    per test impression; then the CLI at the small synthetic size."""
+    from pytorch_news_recommender_tpu_torch import cli
+    from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer
+    from pytorch_news_recommender_tpu_torch.train.submit import write_submission
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    metrics = trainer.evaluate(state)
+    mngr = CheckpointManager(WORK / "ckpt", trainer.cfg)
+    mngr.save(state.step, state, metrics)
+    fresh = Trainer(trainer.cfg, ds, device=DEVICE)
+    restored = mngr.restore(fresh.init_state(seed=5))
+    assert restored.step == state.step and mngr.best_step() == state.step
+    for k, v in state.params.items():
+        assert torch.equal(restored.params[k], v), k
+    a, b = state.opt.state_dict(), restored.opt.state_dict()
+    assert (a["count"], a["mini_step"]) == (b["count"], b["mini_step"])
+    for tree in ("mu", "nu"):
+        assert all(torch.equal(a[tree][k], b[tree][k]) for k in a[tree]), tree
+    again = fresh.evaluate(restored)
+    assert again["auc"] == metrics["auc"], (again["auc"], metrics["auc"])
+    path = write_submission(fresh, restored, path=WORK / "submission.txt")
+    lines = path.read_text().splitlines()
+    n_imp = sum(1 for i in range(len(ds.test)) if len(ds.test.impression(i)[0]))
+    assert len(lines) == n_imp, (len(lines), n_imp)
+    for i, line in enumerate(lines):
+        key, ranks = line.split(" ", 1)
+        ranks = [int(r) for r in ranks.strip("[]").split(",")]
+        assert int(key) == i + 1 and sorted(ranks) == list(range(1, len(ranks) + 1)), line
+    print(f"[phase 7] checkpoint at step {state.step} restored into a fresh trainer: "
+          f"parameters, optimizer state and step equal; dev AUC {again['auc']:.6f} = "
+          f"{metrics['auc']:.6f}; submission: {len(lines)} lines, each a permutation",
+          flush=True)
+
+    # the CLI at the small synthetic size, on the card
+    save, data = WORK / "cli", ["--data", "synthetic"]
+    assert cli.main(["train", *data, "--epochs", "1", "--eval-step", "16",
+                     "--save-dir", str(save)]) == 0
+    ckpt = str(save / "nrms")
+    assert cli.main(["eval", *data, "--ckpt", ckpt]) == 0
+    assert cli.main(["submit", *data, "--ckpt", ckpt, "--out", str(WORK / "cli.txt")]) == 0
+    assert (WORK / "cli.txt").read_text().count("\n") > 0
+    vec = {}
+    for kind, extra in (("native", []), ("int8", ["--int8"])):
+        out = WORK / f"vectors_{kind}.npz"
+        assert cli.main(["export-vectors", *data, "--ckpt", ckpt, "--out", str(out),
+                         *extra]) == 0
+        vec[kind] = out
+    return vec, ckpt
+
+
+def serve_exported(vec, ckpt):
+    """The exported tables served: scores from ``vectors_file`` equal those
+    of a recommender that encodes the corpus itself (f32), or are within
+    int8 rounding of them."""
+    from pytorch_news_recommender_tpu_torch import cli
+    from pytorch_news_recommender_tpu_torch.serve import Recommender
+    from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config
+
+    cfg = load_config(ckpt)
+    args = cli.build_parser().parse_args(["eval", "--data", "synthetic", "--ckpt", ckpt])
+    ds = cli._load_dataset(args, cfg)
+    base = Recommender.from_checkpoint(ckpt, ds, device=DEVICE)
+    hist, cands = [1, 2, 3, 4], list(range(5, 45))
+    ref = base.score(hist, cands)
+    for kind, path in vec.items():
+        rec = Recommender.from_checkpoint(ckpt, ds, corpus_cache=kind, vectors_file=str(path),
+                                          device=DEVICE)
+        got = rec.score(hist, cands)
+        err = float(np.abs(got - ref).max() / np.abs(ref).max())
+        assert err <= SCORE_TOL[kind], (kind, err)
+    print(f"[phase 7] cli train / eval / submit / export-vectors ran on the card; the "
+          f"exported tables (float32 and int8) serve within {SCORE_TOL} of a fresh "
+          f"encode", flush=True)
 
 
 def word_dict(n_words):
@@ -487,6 +643,7 @@ def main() -> int:
     from pytorch_news_recommender_tpu_torch.data import synthetic
     from pytorch_news_recommender_tpu_torch.models import build_model
     from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.ops import segment_scatter as SS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -549,7 +706,11 @@ def main() -> int:
     bwd_errs, bwd_times = check_backward(FE)
 
     # 6. training at full width
-    train_launches, step_ms, bs = train_run(FE)
+    cfg, ds = training_data()
+    run6 = train_run(FE, SS, cfg, ds, 6)
+    train_launches, step_ms, bs = run6["launches"], run6["step_ms"], cfg.train.batch_size
+    assert train_launches["scatter"] == 0, train_launches
+    del run6
     steps = len(step_ms)
     p50, p99 = float(np.percentile(step_ms, 50)), float(np.percentile(step_ms, 99))
     print(f"{tag} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
@@ -568,6 +729,26 @@ def main() -> int:
           f"{wgrad_bound(R, K, N, 2)[0]:.4f} ms; {train_launches['wgrad'] / steps:.1f} "
           f"launches per step", flush=True)
 
+    # 7. training with the segment scatter, and the workflow on the card
+    cfg7 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dedup_gather_mxu=True))
+    run7 = train_run(FE, SS, cfg7, ds, 7)
+    mxu_launches = run7["launches"]
+    assert mxu_launches["scatter"] == 2 * TRAIN_STEPS, mxu_launches
+    p50_7, p99_7 = (float(np.percentile(run7["step_ms"], q)) for q in (50, 99))
+    print(f"{tag} train step with dedup_gather_mxu (batch {bs}, {steps} steps): p50 "
+          f"{p50_7:.2f} ms, p99 {p99_7:.2f} ms = {bs / p50_7 * 1e3:.0f} impressions/s "
+          f"(default path above: p50 {p50:.2f} ms, p99 {p99:.2f} ms); segment_scatter "
+          f"launches {mxu_launches['scatter']} = 2 per step", flush=True)
+    sc = check_scatter(SS, run7["first"])
+    for name, r in sc.items():
+        print(f"{tag} segment_scatter bf16 {name} S={r['S']} U={r['U']} D={D}: kernel "
+              f"{r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, "
+              f"embedding_dense_backward {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms", flush=True)
+    vec, ckpt = workflow_run(run7["trainer"], run7["state"], ds)
+    del run7
+    serve_exported(vec, ckpt)
+
     k_ms, p_ms = times[SHAPES[0]]
     b_ms, b_by = bound(*SHAPES[0], 2)
     bk_ms, bp_ms = bwd_times[TRAIN_SHAPES[1]]
@@ -579,7 +760,8 @@ def main() -> int:
         {"name": "fused_encoder_fwd", "route": "cuda", "source": src + "fused_encoder.cu",
          "replaces": tpu + "149",
          "launches": serve_launches + train_launches["fwd"],
-         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"]},
+         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"],
+                              "train_dedup_gather_mxu": mxu_launches["fwd"]},
          "max_abs_err": max(v for k, v in errs.items() if "bfloat16" in k[0]),
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None,
@@ -601,6 +783,18 @@ def main() -> int:
          "ms": w_ms, "plain_ms": wp_ms, "bound_ms": wb_ms, "bound_by": wb_by,
          "library_ms": wl_ms,
          "shape": {"R": R, "K": K, "N": N, "dtype": "bfloat16 x float32"}},
+        {"name": "segment_scatter", "route": "cuda", "source": src + "segment_scatter.cu",
+         "replaces": "pytorch_news_recommender_tpu/ops/pallas/segment_scatter.py:38",
+         "launches": mxu_launches["scatter"],
+         "max_abs_err": max(r["abs_err"] for r in sc.values()),
+         "max_rel_err": max(r["err"] for r in sc.values()),
+         "ms": sc["browsed_idx"]["ms"], "plain_ms": sc["browsed_idx"]["plain_ms"],
+         "bound_ms": sc["browsed_idx"]["bound"][0], "bound_by": "bytes",
+         "library_ms": sc["browsed_idx"]["library_ms"],
+         "shape": {"S": sc["browsed_idx"]["S"], "U": sc["browsed_idx"]["U"], "D": D,
+                   "dtype": "bfloat16"},
+         "candidate": {k: sc["candidate_idx"][k] for k in ("S", "ms", "plain_ms",
+                                                            "library_ms", "bound")}},
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ deduplicated (``loader.dedup_batch``: ``unique_ids [U]`` plus inverse
 indices), the latter plain, split into a truncated short block and a long
 block (``short_mark``'s shape is the short width), or all short. The
 multi-block form of the multi-process feed (``block_mark``) is not ported
-yet. ``deterministic=False`` is training: the news tower drops out, with
-seeds drawn from ``generator``.
+yet. With ``dedup_gather_mxu`` the inverse gathers' backward is the
+segment-scatter kernel (``ops/segment_scatter.py``). ``deterministic=False``
+is training: the news tower drops out, with seeds drawn from ``generator``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pytorch_news_recommender_tpu_torch.ops.segment_scatter import dedup_gather
 
 Batch = Dict[str, torch.Tensor]
 
@@ -125,10 +128,15 @@ class RecModel(nn.Module):
         b_idx = batch["browsed_idx"].long()
         c_idx = batch["candidate_idx"].long()
         # the inverse gathers' backward adds the slots of each unique news
-        # (the pad news holds about half the history slots): F.embedding's
-        # segment-sum backward, as for the word table
+        # (the pad news holds about half the history slots): with
+        # ``dedup_gather_mxu`` the hand-written segment scatter, else
+        # F.embedding's segment-sum backward, as for the word table
+        if getattr(getattr(self, "cfg", None), "dedup_gather_mxu", False):
+            take = dedup_gather
+        else:
+            take = lambda table, idx: F.embedding(idx, table)  # noqa: E731
         return (unique_ids[b_idx], unique_ids[c_idx],
-                F.embedding(b_idx, uvecs), F.embedding(c_idx, uvecs))
+                take(uvecs, b_idx), take(uvecs, c_idx))
 
     def forward(self, batch: Batch, news_feats: Batch, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

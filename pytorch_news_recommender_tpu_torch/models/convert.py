@@ -5,8 +5,9 @@ A Flax path maps to a state-dict key by joining with dots instead of
 slashes: ``news_encoder/tower/wqkv`` is ``news_encoder.tower.wqkv``. Layouts
 are the same on both sides, so a weight is a plain copy.
 
-The port's checkpoint directory holds ``config.json`` (the JAX package's
-format) and ``params.npz`` (one float32 array per Flax path).
+A flat weights directory holds ``config.json`` (the JAX package's format)
+and ``params.npz`` (one float32 array per Flax path); the train state's
+checkpoints (``train/checkpoint.py``) keep one ``params.npz`` per step.
 """
 
 from __future__ import annotations
@@ -82,12 +83,8 @@ def load_params(path: str | pathlib.Path) -> StateDict:
 
 def save_checkpoint(directory: str | pathlib.Path, cfg: Config,
                     state: Mapping[str, torch.Tensor]) -> None:
-    """Writes the port's checkpoint directory: config.json + params.npz."""
+    """Writes a flat weights directory: config.json + params.npz."""
     d = pathlib.Path(directory)
     d.mkdir(parents=True, exist_ok=True)
     cfg.save(d / "config.json")
     save_params(d / "params.npz", state)
-
-
-def load_config(directory: str | pathlib.Path) -> Config:
-    return Config.load(pathlib.Path(directory) / "config.json")

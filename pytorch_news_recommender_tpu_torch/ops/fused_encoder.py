@@ -54,7 +54,10 @@ import torch
 from pytorch_news_recommender_tpu_torch.ops import attention as A
 
 _CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
-_CSRC = [_CSRC_DIR / "fused_encoder.cu", _CSRC_DIR / "fused_encoder_bwd.cu"]
+# every kernel of the port, built into one library: ninja compiles the
+# sources in parallel
+_CSRC = [_CSRC_DIR / "fused_encoder.cu", _CSRC_DIR / "fused_encoder_bwd.cu",
+         _CSRC_DIR / "segment_scatter.cu"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Hopper's shared-memory limit for one block (bytes)
 MAX_SMEM = 232_448
@@ -207,8 +210,8 @@ def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor) -> torch.T
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """Builds (once per checkout and source version) and loads the kernels.
-    ninja compiles the two sources in parallel."""
+    """Builds (once per checkout and source version) and loads the kernels
+    of the port, ``ops/segment_scatter.py``'s included."""
     from torch.utils.cpp_extension import load
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -236,6 +239,12 @@ def _lib() -> ctypes.CDLL:
     for name in ("newsrec_fused_encoder_smem_bytes",
                  "newsrec_fused_encoder_bwd_smem_bytes"):
         getattr(lib, name).argtypes = [i] * 4
+        getattr(lib, name).restype = ctypes.c_long
+    lib.newsrec_segment_scatter.argtypes = [i, p, p, ctypes.c_long, i, i, p, p, p, p]
+    lib.newsrec_segment_scatter.restype = i
+    for name in ("newsrec_segment_scatter_ws_ints",
+                 "newsrec_segment_scatter_partial_floats"):
+        getattr(lib, name).argtypes = [ctypes.c_long, i]
         getattr(lib, name).restype = ctypes.c_long
     lib.newsrec_cuda_error_string.argtypes = [i]
     lib.newsrec_cuda_error_string.restype = ctypes.c_char_p

@@ -25,7 +25,6 @@ exactly where the JAX package does.
 
 from __future__ import annotations
 
-import pathlib
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -34,9 +33,8 @@ import torch
 from pytorch_news_recommender_tpu_torch.config import Config
 from pytorch_news_recommender_tpu_torch.data.dataset import RecDataset
 from pytorch_news_recommender_tpu_torch.models import build_model
-from pytorch_news_recommender_tpu_torch.models.convert import (
-    assign, load_config, load_params,
-)
+from pytorch_news_recommender_tpu_torch.models.convert import assign, load_params
+from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config, params_file
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -148,9 +146,10 @@ class Recommender:
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir, dataset: RecDataset, **kw) -> "Recommender":
-        """Config + weights from the port's checkpoint directory."""
-        return cls(load_config(ckpt_dir), dataset,
-                   load_params(pathlib.Path(ckpt_dir) / "params.npz"), **kw)
+        """Config + weights from a checkpoint directory of
+        ``train/checkpoint.py`` (its best step) or a flat weights directory
+        (``config.json`` + ``params.npz``)."""
+        return cls(load_config(ckpt_dir), dataset, load_params(params_file(ckpt_dir)), **kw)
 
     def _lookup(self, ids: torch.Tensor) -> torch.Tensor:
         """Cached corpus rows for ``ids`` (dequantized when int8)."""

@@ -1,0 +1,146 @@
+"""Checkpoints of the whole train state with best-AUC retention (port of the
+JAX package's ``train/checkpoint.py``, without Orbax).
+
+Layout under ``directory/``:
+
+* ``config.json``  the run's :class:`Config` (the JAX package's format);
+* ``<step>/params.npz``     one float32 array per Flax path
+  (``models/convert.py``);
+* ``<step>/opt_state.npz``  the optimizer's state (:meth:`Optimizer.state_dict`):
+  ``mu/<path>``, ``nu/<path>`` and, with gradient accumulation,
+  ``acc/<path>``, plus ``count`` and ``mini_step``;
+* ``<step>/state.json``     ``{"step": TrainState.step}``;
+* ``<step>/metrics.json``   the numeric metrics given to :meth:`save`.
+
+Retention keeps the ``max_to_keep`` best steps by ``metrics["auc"]`` (a step
+without one counts as 0), as the JAX package's Orbax options do. Restore is
+exact: parameters, Adam's moments and counts, and the step, so a resumed run
+continues the optimisation and, since a step's dropout seeds depend on the
+step (``train/loop.py``), its randomness too. ``Recommender.from_checkpoint``
+serves the best step of such a directory.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import shutil
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from pytorch_news_recommender_tpu_torch.config import Config
+from pytorch_news_recommender_tpu_torch.models.convert import (
+    assign, load_params, save_params,
+)
+
+_OPT_TREES = ("mu", "nu", "acc")
+
+
+def load_config(directory: str | pathlib.Path) -> Config:
+    return Config.load(pathlib.Path(directory) / "config.json")
+
+
+def params_file(directory: str | pathlib.Path) -> pathlib.Path:
+    """The weights that ``directory`` serves: its own ``params.npz`` (a flat
+    weights directory, ``models/convert.py``), else the best step's."""
+    d = pathlib.Path(directory)
+    if (d / "params.npz").exists():
+        return d / "params.npz"
+    return CheckpointManager(d).params_path()
+
+
+def _save_opt(path: pathlib.Path, opt: Dict[str, Any]) -> None:
+    arrays = {f"{tree}/{name.replace('.', '/')}": t.detach().float().cpu().numpy()
+              for tree in _OPT_TREES if tree in opt for name, t in opt[tree].items()}
+    np.savez(path, count=np.int64(opt["count"]), mini_step=np.int64(opt["mini_step"]),
+             **arrays)
+
+
+def _load_opt(path: pathlib.Path) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            if key in ("count", "mini_step"):
+                out[key] = int(z[key])
+                continue
+            tree, name = key.split("/", 1)
+            out.setdefault(tree, {})[name.replace("/", ".")] = torch.from_numpy(z[key])
+    return out
+
+
+class CheckpointManager:
+    """Best-AUC checkpoint retention over step directories."""
+
+    def __init__(self, directory: str | pathlib.Path, cfg: Optional[Config] = None,
+                 max_to_keep: int = 3):
+        self.directory = pathlib.Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        if cfg is not None:
+            cfg.save(self.directory / "config.json")
+
+    def steps(self) -> list[int]:
+        """The saved steps, in ascending order."""
+        return sorted(int(p.name) for p in self.directory.iterdir()
+                      if p.name.isdigit() and (p / "state.json").exists())
+
+    def _auc(self, step: int) -> float:
+        return float(self.restore_metrics(step).get("auc", 0.0))
+
+    def save(self, step: int, state, metrics: Dict[str, Any]) -> None:
+        """Writes ``state`` (a ``TrainState``) as ``<step>/`` (replacing one
+        of the same step), then drops the steps outside the best
+        ``max_to_keep`` by AUC."""
+        metrics = {k: float(v) for k, v in metrics.items()
+                   if isinstance(v, (int, float)) and not isinstance(v, bool)}
+        final = self.directory / str(int(step))
+        tmp = self.directory / f".tmp-{int(step)}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        save_params(tmp / "params.npz", state.params)
+        _save_opt(tmp / "opt_state.npz", state.opt.state_dict())
+        (tmp / "state.json").write_text(json.dumps({"step": int(state.step)}))
+        (tmp / "metrics.json").write_text(json.dumps(metrics))
+        shutil.rmtree(final, ignore_errors=True)
+        tmp.rename(final)
+        ranked = sorted(self.steps(), key=lambda s: (self._auc(s), s), reverse=True)
+        for s in ranked[self.max_to_keep:]:
+            shutil.rmtree(self.directory / str(s))
+
+    def best_step(self) -> Optional[int]:
+        steps = self.steps()
+        return max(steps, key=lambda s: (self._auc(s), s)) if steps else None
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def _step_or_default(self, step: Optional[int]) -> int:
+        if step is None:
+            step = self.best_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return step
+
+    def restore(self, state, step: Optional[int] = None):
+        """Loads step ``step`` (default: the best, else the latest) into
+        ``state`` (typically a fresh ``Trainer.init_state()``): parameters,
+        optimizer state and step. Returns ``state``."""
+        d = self.directory / str(self._step_or_default(step))
+        assign(state.model, load_params(d / "params.npz"))
+        state.opt.load_state_dict(_load_opt(d / "opt_state.npz"))
+        state.step = int(json.loads((d / "state.json").read_text())["step"])
+        return state
+
+    def restore_metrics(self, step: Optional[int] = None) -> Dict[str, float]:
+        d = self.directory / str(self._step_or_default(step))
+        return json.loads((d / "metrics.json").read_text())
+
+    def params_path(self, step: Optional[int] = None) -> pathlib.Path:
+        """``params.npz`` of step ``step`` (default: the best)."""
+        return self.directory / str(self._step_or_default(step)) / "params.npz"
+
+    def close(self) -> None:
+        """Nothing is written in the background; kept for the JAX API."""

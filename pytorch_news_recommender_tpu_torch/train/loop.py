@@ -10,13 +10,18 @@ cadence, AUC checkpoint floor and early stopping.
 
 PyTorch is stateful, so :class:`TrainState` holds the model itself (its
 parameters), the optimizer and the step counter, and :meth:`Trainer.run_step`
-updates it in place and returns it. On a CUDA device the towers run through
-the hand-written encoder kernels, forward and backward; on the CPU through
-their plain versions, which autograd differentiates.
+updates it in place and returns it. A step's dropout seeds depend on
+``(seed, state.step)`` alone, as the JAX package folds the step into its key,
+so a run restored from a checkpoint (``train/checkpoint.py``) draws the
+masks that the uninterrupted run would have drawn. On a CUDA device the
+towers run through the hand-written encoder kernels, forward and backward,
+and with ``model.dedup_gather_mxu`` the inverse gathers' backward through the
+segment-scatter kernel; on the CPU through their plain versions, which
+autograd differentiates.
 
 Not ported yet, and refused with the ``ROADMAP.md`` item that ports them:
 Adafactor, the multi-process feed (``sliced_feed``), mesh and model
-parallelism, the GNN frontier and the MXU dedup gather.
+parallelism and the GNN frontier.
 """
 
 from __future__ import annotations
@@ -45,6 +50,14 @@ from pytorch_news_recommender_tpu_torch.serve import resolve_device
 from pytorch_news_recommender_tpu_torch.train import metrics as M
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator that draws step ``step``'s dropout seeds: a
+    function of ``(seed, step)`` alone (the JAX package's
+    ``fold_in(PRNGKey(seed), step)``; the streams differ)."""
+    return torch.Generator().manual_seed(
+        ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
 
 
 def softmax_ce_loss(scores: torch.Tensor) -> torch.Tensor:
@@ -122,6 +135,35 @@ class Optimizer:
                 update = update + wd * p
             p.add_(update * -lr)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Adam's moments ``mu``/``nu`` by parameter name and its count (the
+        warm-up schedule's count too), and ``MultiSteps``' position and
+        accumulators (``acc``, with ``grad_accum_steps > 1``). The tensors
+        are the optimizer's own, not copies."""
+        out: Dict[str, Any] = {"count": self.count, "mini_step": self.mini_step,
+                               "mu": dict(self.mu), "nu": dict(self.nu)}
+        if self.acc is not None:
+            out["acc"] = dict(self.acc)
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Copies a :meth:`state_dict` in, onto the parameters' devices;
+        raises on missing or unexpected names."""
+        keys = ("mu", "nu") + (("acc",) if self.acc is not None else ())
+        if ("acc" in state) != (self.acc is not None):
+            raise ValueError("the optimizer state's gradient accumulation does "
+                             "not match grad_accum_steps")
+        for key in keys:
+            own = getattr(self, key)
+            if set(state[key]) != set(own):
+                raise ValueError(f"optimizer state {key!r} names "
+                                 f"{sorted(set(state[key]) ^ set(own))} do not match")
+            for n, t in state[key].items():
+                own[n].copy_(torch.as_tensor(t))
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -155,9 +197,6 @@ class Trainer:
         if tc.gnn_frontier_buckets is not None:
             raise NotImplementedError("the GNN frontier is not ported yet "
                                       "(ROADMAP.md A.5)")
-        if cfg.model.dedup_gather_mxu:
-            raise NotImplementedError("dedup_gather_mxu (the segment-scatter "
-                                      "kernel) is not ported yet (ROADMAP.md B.5)")
         if tc.auto_layouts:
             raise ValueError("auto_layouts chooses XLA memory layouts; it has no "
                              "meaning in the PyTorch port")
@@ -261,16 +300,21 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                    device=self.device) for k, v in batch.items()}
 
-    def run_step(self, state: TrainState, batch, generator: torch.Generator):
-        """One training step on a numpy (or device) batch, dropout seeds
-        drawn from ``generator``. Returns ``(state, metrics)``; ``state`` is
-        updated in place. With ``skip_nonfinite_updates``, a step whose loss
-        is not finite leaves the parameters and the optimizer as they were;
-        the step counter advances either way."""
+    def run_step(self, state: TrainState, batch, seed: Optional[int] = None):
+        """One training step on a numpy (or device) batch, its dropout seeds
+        drawn from :func:`step_generator` of ``(seed, state.step)`` (``seed``
+        defaults to ``train.seed + 1``, as ``fit`` uses). Returns ``(state,
+        metrics)``; ``state`` is updated in place. With
+        ``skip_nonfinite_updates``, a step whose loss is not finite leaves
+        the parameters and the optimizer as they were; the step counter
+        advances either way."""
+        if seed is None:
+            seed = self.cfg.train.seed + 1
         batch = self._to_device(batch)
         model = state.model
         model.zero_grad(set_to_none=True)
-        scores = model(batch, self.news_feats, deterministic=False, generator=generator)
+        scores = model(batch, self.news_feats, deterministic=False,
+                       generator=step_generator(seed, state.step))
         loss = softmax_ce_loss(scores)
         metrics = {"loss": loss.detach(),
                    "acc": (scores.argmax(dim=-1) == 0).float().mean()}
@@ -330,17 +374,13 @@ class Trainer:
         return vecs[inv] if inv is not None else vecs
 
     @torch.no_grad()
-    def evaluate(self, state_or_params, split: Optional[DevData] = None,
-                 max_impressions: Optional[int] = None) -> Dict[str, float]:
-        """Scores a ragged eval split in candidate-count buckets and computes
-        impression-level AUC/MRR/nDCG on the host, each impression's scores
-        cut to its true candidate count."""
+    def score_split(self, state_or_params, data: DevData,
+                    max_impressions: Optional[int] = None) -> Dict[int, np.ndarray]:
+        """Scores a ragged split in candidate-count buckets: ``{impression
+        row: [n_candidates] float32 scores}``; impressions without a
+        candidate are absent. Two-tower when the family allows it (the
+        corpus encoded once)."""
         model = self._model_of(state_or_params)
-        data = split if split is not None else self.dataset.dev
-        if data is None:
-            raise ValueError("no dev split to evaluate")
-        if max_impressions is None:
-            max_impressions = self.cfg.train.max_dev_samples
         bs = self.cfg.train.eval_batch_size
         two_tower = self.cfg.train.eval_two_tower and model.TWO_TOWER
         news_vecs = self.compute_news_vectors(model) if two_tower else None
@@ -364,7 +404,19 @@ class Trainer:
             s = s.float().cpu().numpy()[:b]
             for j, imp in enumerate(eb.impression_ids):
                 all_scores[int(imp)] = s[j, :eb.n_candidates[j]]
+        return all_scores
 
+    def evaluate(self, state_or_params, split: Optional[DevData] = None,
+                 max_impressions: Optional[int] = None) -> Dict[str, float]:
+        """Scores a ragged eval split (:meth:`score_split`) and computes
+        impression-level AUC/MRR/nDCG on the host, each impression's scores
+        cut to its true candidate count."""
+        data = split if split is not None else self.dataset.dev
+        if data is None:
+            raise ValueError("no dev split to evaluate")
+        if max_impressions is None:
+            max_impressions = self.cfg.train.max_dev_samples
+        all_scores = self.score_split(state_or_params, data, max_impressions)
         labels, scores = [], []
         for imp, sc in all_scores.items():
             _, y = data.impression(imp)
@@ -391,7 +443,6 @@ class Trainer:
         cfg = self.cfg
         if state is None:
             state = self.init_state()
-        generator = torch.Generator().manual_seed(cfg.train.seed + 1)
         shuffle_rng = np.random.default_rng(cfg.train.seed)
         epochs = num_epochs if num_epochs is not None else cfg.train.num_epochs
         best_auc = cfg.train.auc_checkpoint_floor
@@ -433,7 +484,7 @@ class Trainer:
                                       unique_buckets=ub,
                                       length_split=self._length_split)
             for batch in device_prefetch(host_iter, self.device):
-                state, metrics = self.run_step(state, batch, generator)
+                state, metrics = self.run_step(state, batch)
                 step_i += 1
                 if step_i % cfg.train.log_every == 0:
                     log({"step": step_i, "epoch": epoch,

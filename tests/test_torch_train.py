@@ -23,6 +23,7 @@ from pytorch_news_recommender_tpu_torch.data import synthetic
 from pytorch_news_recommender_tpu_torch.data.loader import train_batches
 from pytorch_news_recommender_tpu_torch.models.convert import from_flax
 from pytorch_news_recommender_tpu_torch.serve import Recommender
+from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
 from pytorch_news_recommender_tpu_torch.train.loop import (
     Optimizer, Trainer, softmax_ce_loss,
 )
@@ -101,9 +102,8 @@ def test_three_steps_track_jax_trainer(pair):
     jbatches = list(jax_train_batches(jtr.dataset.train, 32, np.random.default_rng(2),
                                       dedup=True, length_split=jtr._length_split))[:3]
     assert all("short_mark" in b for b in batches)
-    g = torch.Generator().manual_seed(0)
     for b, jb in zip(batches, jbatches):
-        state, m = tr.run_step(state, b, g)
+        state, m = tr.run_step(state, b)
         jstate, jm = jtr.run_step(jstate, jb, jax.random.PRNGKey(0))
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4, atol=1e-4)
     assert state.step == 3
@@ -166,14 +166,13 @@ def test_skip_nonfinite_updates_keeps_the_parameters(small):
     tr = Trainer(cfg, ds, device="cpu")
     state = tr.init_state(seed=0)
     batch = next(train_batches(ds.train, 16, np.random.default_rng(0)))
-    g = torch.Generator().manual_seed(0)
-    state, m = tr.run_step(state, batch, g)
+    state, m = tr.run_step(state, batch)
     assert m["skipped"] == 0.0
     with torch.no_grad():
         state.model.user_encoder.tower.aq[0] = float("nan")
     before = {k: v.clone() for k, v in state.params.items()}
     mu = {k: v.clone() for k, v in state.opt.mu.items()}
-    state, m = tr.run_step(state, batch, g)
+    state, m = tr.run_step(state, batch)
     assert not np.isfinite(float(m["loss"])) and m["skipped"] == 1.0
     for k, v in state.params.items():
         torch.testing.assert_close(v, before[k], rtol=0, atol=0, equal_nan=True)
@@ -206,13 +205,31 @@ def test_pretrained_table_loads_widens_and_raises(small):
     ({"train.sliced_feed": True}, NotImplementedError, "A.6"),
     ({"mesh.model_parallel_size": 2}, NotImplementedError, "A.6"),
     ({"train.gnn_frontier_buckets": (2048,)}, NotImplementedError, "A.5"),
-    ({"model.dedup_gather_mxu": True}, NotImplementedError, "B.5"),
     ({"train.auto_layouts": True}, ValueError, "XLA"),
 ])
 def test_later_slices_options_raise(small, over, error, match):
     _, ds = small
     with pytest.raises(error, match=match):
         Trainer(synthetic_config(**over), ds, device="cpu").init_state(seed=0)
+
+
+def test_dedup_gather_mxu_trains_on_the_cpu(small):
+    """The segment-scatter option (refused before its kernel was ported)
+    trains: with dropout off, its step gives the default step's loss and
+    parameters to float32 rounding (only the gathers' backward differs)."""
+    _, ds = small
+    batch = next(train_batches(ds.train, 32, np.random.default_rng(0), dedup=True))
+    out = {}
+    for mxu in (False, True):
+        tr = Trainer(synthetic_config(**{"model.dropout": 0.0,
+                                         "model.dedup_gather_mxu": mxu}), ds, device="cpu")
+        state = tr.init_state(seed=0)
+        state, m = tr.run_step(state, batch)
+        assert state.step == 1 and np.isfinite(float(m["loss"]))
+        out[mxu] = (float(m["loss"]), state.params)
+    assert out[True][0] == out[False][0]
+    for k, v in out[False][1].items():
+        torch.testing.assert_close(out[True][1][k], v, rtol=1e-5, atol=1e-6, msg=k)
 
 
 def test_trainer_needs_cuda_unless_told_cpu(small, monkeypatch):
@@ -227,7 +244,9 @@ def test_cli_train_writes_a_checkpoint_that_serves(tmp_path):
                    "--save-dir", str(tmp_path)])
     assert rc == 0
     ckpt = tmp_path / "nrms"
-    assert (ckpt / "config.json").exists() and (ckpt / "params.npz").exists()
+    step = CheckpointManager(ckpt).best_step()
+    assert (ckpt / "config.json").exists() and (ckpt / str(step) / "params.npz").exists()
+    assert (ckpt / str(step) / "opt_state.npz").exists()
     assert "final" in (ckpt / "metrics.jsonl").read_text()
     cfg = synthetic_config()
     ds = synthetic.generate(cfg.data, seed=0, bert_dim=64, n_users=200, n_neighbors=8,
