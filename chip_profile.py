@@ -7,8 +7,9 @@ Trains NRMS at the configuration of ``chip_smoke.py``'s training phase
 dropout 0.2, dedup and a length split at 12 words, on the 65,238-news
 synthetic corpus with MIND's mean title length), warms up for 3 steps, then
 records 5 steps with ``torch.profiler`` and prints: the step's wall time,
-the device time by kernel group and by kernel, and the device's busy and
-idle shares of the wall time. ``--dedup-gather-mxu`` profiles the step
+the device time by kernel group and by kernel (the top 15, then every kernel
+of the segment scatter and every memset, with launches and time per launch),
+and the device's busy and idle shares of the wall time. ``--dedup-gather-mxu`` profiles the step
 whose inverse gathers' backward is the segment-scatter kernel. Needs a CUDA
 card; prints nothing else.
 """
@@ -93,9 +94,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel: dict = defaultdict(float)
+    calls: dict = defaultdict(int)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_kernel[e.name] += e.device_time_total / 1e3   # us -> ms
+            calls[e.name] += 1
     busy = sum(by_kernel.values())
     by_group: dict = defaultdict(float)
     for name, ms in by_kernel.items():
@@ -112,6 +115,19 @@ def main() -> int:
     print(f"{tag} top kernels by device time:", flush=True)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"{tag}   {ms / STEPS:8.3f} ms per step  {name[:110]}", flush=True)
+    # every kernel of the small groups, so that a split of the segment
+    # scatter's time is not cut off by the top list (the scatter's memset is
+    # in the memsets, beside the other memsets of the step)
+    for group in ("segment scatter", "memsets"):
+        names = sorted((n for n in by_kernel if group_of(n) == group),
+                       key=lambda n: -by_kernel[n])
+        if names:
+            print(f"{tag} {group}, by kernel:", flush=True)
+        for name in names:
+            print(f"{tag}   {by_kernel[name] / STEPS:8.4f} ms per step, "
+                  f"{calls[name] / STEPS:g} launches per step, "
+                  f"{1e3 * by_kernel[name] / calls[name]:8.2f} us per launch  {name[:90]}",
+                  flush=True)
     return 0
 
 

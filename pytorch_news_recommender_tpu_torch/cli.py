@@ -213,8 +213,10 @@ def cmd_train(args) -> int:
         print(f"auto-resumed from {save_dir} (step {state.step})", file=sys.stderr)
     log = JsonlLogger(save_dir / "metrics.jsonl")
 
-    def ckpt_cb(state, metrics, step):
-        mngr.save(step, state, metrics)
+    def ckpt_cb(state, metrics, _fit_step):
+        # keyed by the state's own step, which a resumed run carries on
+        # (``fit``'s count restarts at 0 on every call)
+        mngr.save(state.step, state, metrics)
 
     prof = None
     if args.profile_dir:

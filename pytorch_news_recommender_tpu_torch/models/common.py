@@ -131,7 +131,7 @@ class RecModel(nn.Module):
         # (the pad news holds about half the history slots): with
         # ``dedup_gather_mxu`` the hand-written segment scatter, else
         # F.embedding's segment-sum backward, as for the word table
-        if getattr(getattr(self, "cfg", None), "dedup_gather_mxu", False):
+        if self.cfg.dedup_gather_mxu:
             take = dedup_gather
         else:
             take = lambda table, idx: F.embedding(idx, table)  # noqa: E731

@@ -300,21 +300,18 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                    device=self.device) for k, v in batch.items()}
 
-    def run_step(self, state: TrainState, batch, seed: Optional[int] = None):
+    def run_step(self, state: TrainState, batch):
         """One training step on a numpy (or device) batch, its dropout seeds
-        drawn from :func:`step_generator` of ``(seed, state.step)`` (``seed``
-        defaults to ``train.seed + 1``, as ``fit`` uses). Returns ``(state,
-        metrics)``; ``state`` is updated in place. With
-        ``skip_nonfinite_updates``, a step whose loss is not finite leaves
-        the parameters and the optimizer as they were; the step counter
-        advances either way."""
-        if seed is None:
-            seed = self.cfg.train.seed + 1
+        drawn from :func:`step_generator` of ``(train.seed + 1,
+        state.step)``. Returns ``(state, metrics)``; ``state`` is updated in
+        place. With ``skip_nonfinite_updates``, a step whose loss is not
+        finite leaves the parameters and the optimizer as they were; the
+        step counter advances either way."""
         batch = self._to_device(batch)
         model = state.model
         model.zero_grad(set_to_none=True)
         scores = model(batch, self.news_feats, deterministic=False,
-                       generator=step_generator(seed, state.step))
+                       generator=step_generator(self.cfg.train.seed + 1, state.step))
         loss = softmax_ce_loss(scores)
         metrics = {"loss": loss.detach(),
                    "acc": (scores.argmax(dim=-1) == 0).float().mean()}

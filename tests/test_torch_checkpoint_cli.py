@@ -220,7 +220,9 @@ def test_flat_and_step_checkpoints_serve_the_same_weights(small, tmp_path, capsy
 def test_cli_train_profiles_and_auto_resumes(tmp_path, capsys):
     """``train`` writes step checkpoints at its evals and a profiler trace;
     ``--auto-resume`` restores the run's latest step and ``--load`` another
-    run's best."""
+    run's best. Every step directory is named after the step of the state
+    it holds, in the resumed run too, so the latest step is the newest
+    state."""
     save = tmp_path / "save"
     common = ["train", "--data", "synthetic", "--epochs", "1", "--batch-size", "128",
               "--eval-step", "8", "--device", "cpu", "--save-dir", str(save)]
@@ -232,9 +234,14 @@ def test_cli_train_profiles_and_auto_resumes(tmp_path, capsys):
     cfg = load_config(save / "nrms")
     assert cfg.train.skip_nonfinite_updates and cfg.description == "x"
     assert cfg.train.eval_step == 8 and cfg.train.batch_size == 128
+    first_latest = mngr.latest_step()
     capsys.readouterr()
     assert cli.main(common + ["--auto-resume"]) == 0
-    assert f"(step {mngr.latest_step()})" in capsys.readouterr().err
+    assert f"(step {first_latest})" in capsys.readouterr().err
+    held = {s: json.loads((mngr.directory / str(s) / "state.json").read_text())["step"]
+            for s in mngr.steps()}
+    assert all(s == step for s, step in held.items()), held
+    assert mngr.latest_step() > first_latest, held
     assert cli.main(common + ["--save-dir", str(tmp_path / "other"),
                               "--load", str(save / "nrms")]) == 0
     assert "restored checkpoint" in capsys.readouterr().err
