@@ -8,8 +8,9 @@ dropout 0.2, dedup and a length split at 12 words, on the 65,238-news
 synthetic corpus with MIND's mean title length), warms up for 3 steps, then
 records 5 steps with ``torch.profiler`` and prints: the step's wall time,
 the device time by kernel group and by kernel (the top 15, then every kernel
-of the segment scatter and every memset, with launches and time per launch),
-and the device's busy and idle shares of the wall time. ``--dedup-gather-mxu`` profiles the step
+of the weight gradients, of the segment scatter and every memset, with
+launches and time per launch), and the device's busy and idle shares of the
+wall time. ``--dedup-gather-mxu`` profiles the step
 whose inverse gathers' backward is the segment-scatter kernel. Needs a CUDA
 card; prints nothing else.
 """
@@ -115,10 +116,10 @@ def main() -> int:
     print(f"{tag} top kernels by device time:", flush=True)
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"{tag}   {ms / STEPS:8.3f} ms per step  {name[:110]}", flush=True)
-    # every kernel of the small groups, so that a split of the segment
-    # scatter's time is not cut off by the top list (the scatter's memset is
-    # in the memsets, beside the other memsets of the step)
-    for group in ("segment scatter", "memsets"):
+    # every kernel of these groups, so that their split by kernel is not cut
+    # off by the top list (the scatter's memset is in the memsets, beside the
+    # other memsets of the step)
+    for group in ("weight gradients", "segment scatter", "memsets"):
         names = sorted((n for n in by_kernel if group_of(n) == group),
                        key=lambda n: -by_kernel[n])
         if names:

@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 1. Builds the kernels from ``pytorch_news_recommender_tpu_torch/ops/csrc``
-   (the fused encoder forward, its backward and the weight-gradient
-   reduction; ninja compiles the sources in parallel).
+   (the fused encoder forward, its backward and the tensor-core weight
+   gradients, the segment scatter; ninja compiles the sources in parallel).
 2. Holds the forward kernel against its plain PyTorch version at the
    serving shapes in float32 and bfloat16.
 3. Serves NRMS at full width (D=300, 10 heads, query dim 200, title 20,
@@ -14,7 +14,10 @@
 4. Times the serving paths.
 5. Holds the backward and weight-gradient kernels, and the forward with
    dropout and the ``o1`` residual, against their plain versions at the
-   training step's shapes, float32 and bfloat16, dropout 0 and 0.2.
+   training step's shapes, float32 and bfloat16, dropout 0 and 0.2; then
+   the weight-gradient kernel alone at its largest product (R=81,920
+   token rows, dWqkv and dbqkv), bf16 and f32 ``a``, the bias fused, against
+   the plain version and ``torch.mm``.
 6. Trains NRMS at the JAX package's default configuration (batch 512, bf16
    activations, f32 parameters, dropout 0.2, dedup and a length split at 12
    words) on a synthetic corpus with MIND's mean title length: one step
@@ -72,6 +75,10 @@ WORK = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 # int8 rows add up to amax/254 per element on top
 SCORE_TOL = {"native": 2e-2, "int8": 4e-2}
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM
+# weight-gradient kernel vs plain version, max|a - b| / max|b| over the
+# product and the bias sums: f32 sums of the same products (a high/low
+# split of each f32 operand), only the order and the split's 2^-16 differ
+WGRAD_TOL = 1e-4
 DEVICE = "cuda"
 
 
@@ -123,12 +130,13 @@ def bwd_bound(M, L, itemsize=2):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def wgrad_bound(R, K, N, itemsize_a):
-    """Weight-gradient bound: 2·R·K·N FLOP over the float32 peak (b is
-    float32), bytes a and b in, the [K, N] sum out."""
+def wgrad_bound(R, K, N, itemsize_a, bias=True):
+    """Weight-gradient bound, whatever the design: bytes a and b in and the
+    [K (+1), N] sums out over the memory rate, or 2·R·K·N FLOP over the
+    bf16 tensor-core peak, whichever is larger."""
     flops = 2 * R * K * N
-    nbytes = R * K * itemsize_a + R * N * 4 + K * N * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    nbytes = R * K * itemsize_a + R * N * 4 + (K + bias) * N * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -236,25 +244,34 @@ def check_backward(FE):
                 print(f"backward kernel vs plain {str(dtype):15s} dropout {rate} M={M:5d} "
                       f"L={L}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); forward with "
                       f"dropout + o1 ok", flush=True)
-    # the weight-gradient reduction at its largest product, dWqkv = x^T dqkv
+    # the weight-gradient kernel at its largest product, dWqkv and dbqkv =
+    # [x | 1]^T dqkv over the long block's rows, a in both dtypes
     R = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
     rng = np.random.default_rng(5)
-    a = torch.as_tensor(rng.normal(size=(R, D)), dtype=torch.bfloat16, device=DEVICE)
+    a32 = torch.as_tensor(rng.normal(size=(R, D)), dtype=torch.float32, device=DEVICE)
     b = torch.as_tensor(rng.normal(size=(R, 3 * D)) * 1e-3, dtype=torch.float32,
                         device=DEVICE)
-    got = FE.weight_grad(a, b)
-    torch.cuda.synchronize()
-    plain = FE.weight_grad_reference(a, b)
-    errs["wgrad"] = rel_err(got, plain)
-    errs["wgrad_abs"] = float((got - plain).abs().max())
-    assert errs["wgrad"] < 1e-4, errs["wgrad"]
-    assert torch.equal(got, FE.weight_grad(a, b)), "weight_grad is not deterministic"
-    at32 = a.float().t()
-    times["wgrad"] = (cuda_ms(lambda: FE.weight_grad(a, b), 10),
-                      cuda_ms(lambda: FE.weight_grad_reference(a, b), 10),
-                      cuda_ms(lambda: torch.mm(at32, b), 10), (R, D, 3 * D))
-    print(f"weight_grad vs plain (R={R}, K={D}, N={3 * D}, bf16 x f32): max rel err "
-          f"{errs['wgrad']:.3g} (tol 1e-4), deterministic", flush=True)
+    flat = lambda outs: torch.cat([o.reshape(-1) for o in outs])  # noqa: E731
+    for dtype in (torch.bfloat16, torch.float32):
+        a = a32.to(dtype)
+        got = FE.weight_grad(a, b, bias=True)
+        torch.cuda.synchronize()
+        plain = FE.weight_grad_reference(a, b, bias=True)
+        key = "wgrad" if dtype == torch.bfloat16 else "wgrad_f32"
+        errs[key] = rel_err(flat(got), flat(plain))
+        errs[key + "_abs"] = float((flat(got) - flat(plain)).abs().max())
+        assert errs[key] < WGRAD_TOL, (str(dtype), errs[key])
+        again = FE.weight_grad(a, b, bias=True)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+            "weight_grad is not deterministic"
+        # one PyTorch call of the same function: [a | 1]^T b
+        at1 = torch.cat([a.float(), torch.ones((R, 1), device=DEVICE)], 1).t()
+        times[key] = (cuda_ms(lambda: FE.weight_grad(a, b, bias=True), 20),
+                      cuda_ms(lambda: FE.weight_grad_reference(a, b, bias=True), 20),
+                      cuda_ms(lambda: torch.mm(at1, b), 20), (R, D, 3 * D))
+        print(f"weight_grad vs plain (R={R}, K={D}, N={3 * D}, {str(dtype)} x f32, bias "
+              f"fused): max err {errs[key]:.3g} of the largest output (tol {WGRAD_TOL}); "
+              f"two launches equal bit for bit", flush=True)
     return errs, times
 
 
@@ -364,7 +381,9 @@ def train_run(FE, SS, cfg, ds, phase):
     metrics = trainer.evaluate(state)
     eval_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
-    assert launches["fwd"] and launches["bwd"] and launches["wgrad"], launches
+    assert launches["fwd"] and launches["bwd"], launches
+    # dWqkv+dbqkv, dWo+dbo, daw+dab, daq: four launches per backward call
+    assert launches["wgrad"] == 4 * launches["bwd"], launches
     assert np.isfinite(metrics["auc"]) and metrics["n_impressions"] == 512, metrics
     print(f"[phase {phase}] trained {TRAIN_STEPS} steps: loss first 10 {first10:.4f} -> "
           f"last 10 {last10:.4f}; unique news per step "
@@ -720,14 +739,16 @@ def main() -> int:
     for M, L in TRAIN_SHAPES:
         k_ms, p_ms = bwd_times[(M, L)]
         print(f"{tag} fused_encoder_bwd bf16 dropout 0.2 M={M} L={L}: kernels "
-              f"{k_ms:.4f} ms/call (incl. 7 weight_grad), plain {p_ms:.4f} ms, bound "
+              f"{k_ms:.4f} ms/call (incl. 4 weight_grad), plain {p_ms:.4f} ms, bound "
               f"{bwd_bound(M, L)[0]:.4f} ms; {train_launches['bwd'] / steps:.1f} calls "
               f"per step", flush=True)
-    w_ms, wp_ms, wl_ms, (R, K, N) = bwd_times["wgrad"]
-    print(f"{tag} weight_grad R={R} K={K} N={N}: kernel {w_ms:.4f} ms, plain "
-          f"{wp_ms:.4f} ms, torch.mm {wl_ms:.4f} ms, bound "
-          f"{wgrad_bound(R, K, N, 2)[0]:.4f} ms; {train_launches['wgrad'] / steps:.1f} "
-          f"launches per step", flush=True)
+    for key, itemsize in (("wgrad", 2), ("wgrad_f32", 4)):
+        w_ms, wp_ms, wl_ms, (R, K, N) = bwd_times[key]
+        wb = wgrad_bound(R, K, N, itemsize)
+        print(f"{tag} weight_grad {'bf16' if itemsize == 2 else 'f32'} a, R={R} K={K} "
+              f"N={N}, bias fused: kernel {w_ms:.4f} ms, plain {wp_ms:.4f} ms, torch.mm "
+              f"{wl_ms:.4f} ms, bound {wb[0]:.4f} ms ({wb[1]}); "
+              f"{train_launches['wgrad'] / steps:.1f} launches per step", flush=True)
 
     # 7. training with the segment scatter, and the workflow on the card
     cfg7 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dedup_gather_mxu=True))
@@ -753,7 +774,9 @@ def main() -> int:
     b_ms, b_by = bound(*SHAPES[0], 2)
     bk_ms, bp_ms = bwd_times[TRAIN_SHAPES[1]]
     bb_ms, bb_by = bwd_bound(*TRAIN_SHAPES[1])
+    w_ms, wp_ms, wl_ms, (R, K, N) = bwd_times["wgrad"]
     wb_ms, wb_by = wgrad_bound(R, K, N, 2)
+    w32 = bwd_times["wgrad_f32"]
     src = "pytorch_news_recommender_tpu_torch/ops/csrc/"
     tpu = "pytorch_news_recommender_tpu/ops/pallas/fused_encoder.py:"
     print(json.dumps({"kernels": [
@@ -779,10 +802,15 @@ def main() -> int:
         {"name": "encoder_weight_grad", "route": "cuda",
          "source": src + "fused_encoder_bwd.cu", "replaces": tpu + "432",
          "launches": train_launches["wgrad"],
-         "max_abs_err": bwd_errs["wgrad_abs"],
+         "launches_by_path": {"train": train_launches["wgrad"],
+                              "train_dedup_gather_mxu": mxu_launches["wgrad"]},
+         "max_abs_err": bwd_errs["wgrad_abs"], "max_rel_err": bwd_errs["wgrad"],
          "ms": w_ms, "plain_ms": wp_ms, "bound_ms": wb_ms, "bound_by": wb_by,
          "library_ms": wl_ms,
-         "shape": {"R": R, "K": K, "N": N, "dtype": "bfloat16 x float32"}},
+         "shape": {"R": R, "K": K, "N": N, "bias": True, "dtype": "bfloat16 x float32"},
+         "f32": {"ms": w32[0], "plain_ms": w32[1], "library_ms": w32[2],
+                 "bound_ms": wgrad_bound(R, K, N, 4)[0], "max_rel_err": bwd_errs["wgrad_f32"],
+                 "max_abs_err": bwd_errs["wgrad_f32_abs"]}},
         {"name": "segment_scatter", "route": "cuda", "source": src + "segment_scatter.cu",
          "replaces": "pytorch_news_recommender_tpu/ops/pallas/segment_scatter.py:38",
          "launches": mxu_launches["scatter"],

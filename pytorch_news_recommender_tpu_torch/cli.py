@@ -3,6 +3,8 @@
 * ``preprocess`` / ``preprocess-adressa``: MIND TSVs or Adressa event logs
   -> columnar artifacts (``data/mind.py``, ``data/adressa.py``);
 * ``stats``: dataset statistics over built artifacts;
+* ``bert-embeds``: per-news BERT sentence vectors from a local HuggingFace
+  encoder directory (``data/bert_vectors.py``), for ``preprocess --bert-npz``;
 * ``train``: train + periodic dev eval + best-AUC checkpoints of the whole
   train state (``train/checkpoint.py``), with ``--load`` / ``--auto-resume``;
 * ``eval``: AUC/MRR/nDCG of a checkpoint on dev or test;
@@ -17,8 +19,7 @@ Every command that runs a model takes ``--device``: the CUDA card by default
 ``submit``, ``export-vectors`` and ``serve`` read the model configuration
 from the checkpoint and accept the shared model flags so that one command
 line works for all. Not ported, each refused naming its ``ROADMAP.md`` item:
-``bert-embeds``, ``train --log-attention`` and the multi-host flags of
-``train``.
+``train --log-attention`` and the multi-host flags of ``train``.
 
 Usage: ``python -m pytorch_news_recommender_tpu_torch.cli <command> ...``.
 """
@@ -165,8 +166,17 @@ def cmd_stats(args) -> int:
 
 
 def cmd_bert_embeds(args) -> int:
-    raise SystemExit("error: bert-embeds needs `transformers` and a BERT checkpoint; "
-                     "it is not ported yet (ROADMAP.md A.3)")
+    """Per-news BERT sentence vectors from a local HF encoder directory, in
+    place of the reference's bert-as-service job."""
+    from pytorch_news_recommender_tpu_torch.data.bert_vectors import build_bert_vectors
+
+    tsvs = [args.train_dir + "/news.tsv", args.dev_dir + "/news.tsv"]
+    if args.test_dir:
+        tsvs.append(args.test_dir + "/news.tsv")
+    emb = build_bert_vectors(tsvs, args.model_path, args.out,
+                             batch_size=args.batch_size, max_length=args.max_length)
+    print(f"wrote {emb.shape} news vectors to {args.out}")
+    return 0
 
 
 def cmd_preprocess_adressa(args) -> int:
@@ -376,11 +386,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="artifact dir written by preprocess")
     p.set_defaults(fn=cmd_stats)
 
-    p = sub.add_parser("bert-embeds", help="not ported yet: raises")
+    p = sub.add_parser("bert-embeds",
+                       help="news TSVs -> per-news BERT vectors npz "
+                            "(local HF encoder; feeds preprocess --bert-npz)")
     p.add_argument("--train-dir", required=True)
     p.add_argument("--dev-dir", required=True)
     p.add_argument("--test-dir", default=None)
-    p.add_argument("--model-path", required=True)
+    p.add_argument("--model-path", required=True,
+                   help="local HuggingFace encoder checkpoint dir")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--max-length", type=int, default=64)
     p.add_argument("--out", required=True)

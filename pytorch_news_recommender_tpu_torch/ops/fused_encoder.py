@@ -198,12 +198,15 @@ def fused_news_encoder_bwd_reference(g, x, mask, o1, wqkv, bqkv, wo, bo, aw,
     return dx, dwqkv, dbqkv, dwo, dbo, daw, dab, daq
 
 
-def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`weight_grad`: ``aᵀ b`` in float32, or the
-    column sums of ``b`` when ``a`` is None."""
+def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor,
+                          bias: bool = False):
+    """Plain version of :func:`weight_grad`: ``aᵀ b`` in float32 (with
+    ``bias``, also the column sums of ``b``), or the column sums of ``b``
+    when ``a`` is None."""
     if a is None:
         return b.float().sum(0)
-    return a.float().T @ b.float()
+    prod = a.float().T @ b.float()
+    return (prod, b.float().sum(0)) if bias else prod
 
 
 # ---- build and bind ---------------------------------------------------------
@@ -231,8 +234,9 @@ def _lib() -> ctypes.CDLL:
         [i] + [p] * 11 + [i] * 5 + [fl] + dropout + [p])
     lib.newsrec_fused_encoder_bwd.argtypes = (
         [i] + [p] * 19 + [i] * 5 + [fl] + dropout + [p])
-    lib.newsrec_weight_grad.argtypes = [i, p, i, p, i, i, i, i, p, p, p]
-    lib.newsrec_weight_grad_splits.argtypes = [i]
+    lg = ctypes.c_long
+    lib.newsrec_weight_grad.argtypes = [i, p, lg, p, lg, lg, i, i, i, p, p, p]
+    lib.newsrec_weight_grad_splits.argtypes = [lg, i, i]
     for name in ("newsrec_fused_encoder_fwd", "newsrec_fused_encoder_bwd",
                  "newsrec_weight_grad", "newsrec_weight_grad_splits"):
         getattr(lib, name).restype = i
@@ -366,36 +370,46 @@ def fused_news_encoder(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
     return (out, o1) if save_o1 else out
 
 
-def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor) -> torch.Tensor:
+def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
     """``aᵀ b`` summed over rows in float32: ``a: [R, K]`` (float32 or
-    bfloat16, or None for a column of ones: the column sums of ``b``), ``b:
-    [R, N]`` float32 -> ``[K, N]`` (``[N]`` for None). On a CUDA tensor, the
-    hand-written split-K kernel with a fixed partition and a fixed-order
-    sum, so the result does not change from run to run."""
+    bfloat16), ``b: [R, N]`` float32 -> ``[K, N]``; with ``bias`` also the
+    column sums of ``b`` (``[N]``), from the same read of ``b``. With ``a``
+    None, the column sums alone. On a CUDA tensor, the hand-written
+    tensor-core kernel (bf16 high/low split, f32 sums) with a fixed split
+    of the rows and a fixed-order sum of the splits, so the result does not
+    change from run to run."""
     if b.device.type == "cpu":
-        return weight_grad_reference(a, b)
+        return weight_grad_reference(a, b, bias)
     _on_cuda(b, "weight_grad")
-    R, N = b.shape
-    K = 1 if a is None else a.shape[1]
-    if b.dtype != torch.float32 or (a is not None and (
-            a.dtype not in _DTYPE_CODE or a.shape[0] != R or a.device != b.device)):
+    if b.dim() != 2 or b.dtype != torch.float32 or (a is not None and (
+            a.dim() != 2 or a.dtype not in _DTYPE_CODE or a.shape[0] != b.shape[0]
+            or a.device != b.device)):
         raise TypeError("weight_grad takes a [R, K] float32/bfloat16 and a "
                         "[R, N] float32 on one device")
+    R, N = b.shape
+    K = 0 if a is None else a.shape[1]
+    Kout = K + 1 if (bias or a is None) else K
     b = b.contiguous()
     a = None if a is None else a.contiguous()
-    lib = _lib()
-    splits = lib.newsrec_weight_grad_splits(R)
-    partial = torch.empty((splits, K, N), dtype=torch.float32, device=b.device)
-    out = torch.empty((K, N), dtype=torch.float32, device=b.device)
-    with torch.cuda.device(b.device):
-        rc = lib.newsrec_weight_grad(
-            -1 if a is None else _DTYPE_CODE[a.dtype],
-            None if a is None else a.data_ptr(), K, b.data_ptr(), N, R, K, N,
-            partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(b.device).cuda_stream)
-    _raise_on(lib, rc, "weight_grad")
-    _count(weight_grad)
-    return out[0] if a is None else out
+    if a is not None and a.dtype == torch.bfloat16 and K % 2:
+        raise ValueError(f"the kernel's copies need an even bfloat16 width, got K={K}")
+    out = torch.empty((Kout, N), dtype=torch.float32, device=b.device)
+    if Kout and N:
+        lib = _lib()
+        splits = lib.newsrec_weight_grad_splits(R, Kout, N)
+        partial = (torch.empty((splits, Kout, N), dtype=torch.float32, device=b.device)
+                   if splits > 1 else None)
+        with torch.cuda.device(b.device):
+            rc = lib.newsrec_weight_grad(
+                -1 if a is None else _DTYPE_CODE[a.dtype],
+                None if a is None else a.data_ptr(), K, b.data_ptr(), N, R, K,
+                int(bias), N, None if partial is None else partial.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(b.device).cuda_stream)
+        _raise_on(lib, rc, "weight_grad")
+        _count(weight_grad)
+    if a is None:
+        return out[0]
+    return (out[:K], out[K]) if bias else out
 
 
 def fused_news_encoder_bwd(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, *,
@@ -439,11 +453,11 @@ def fused_news_encoder_bwd(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, *,
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, rc, "fused encoder backward")
         _count(fused_news_encoder_bwd)
-    x2, o1_2 = x.reshape(R, D), o1.reshape(R, D)
-    return (dx, weight_grad(x2, dqkv_s), weight_grad(None, dqkv_s),
-            weight_grad(o1_2, do2_s), weight_grad(None, do2_s),
-            weight_grad(o2_s, dpre_s), weight_grad(None, dpre_s),
-            weight_grad(t_s, ds_s)[:, 0])
+    # four weight-gradient launches, the bias gradients with their products
+    dwqkv, dbqkv = weight_grad(x.reshape(R, D), dqkv_s, bias=True)
+    dwo, dbo = weight_grad(o1.reshape(R, D), do2_s, bias=True)
+    daw, dab = weight_grad(o2_s, dpre_s, bias=True)
+    return dx, dwqkv, dbqkv, dwo, dbo, daw, dab, weight_grad(t_s, ds_s)[:, 0]
 
 
 # Launches of each kernel since its count was last set to 0.

@@ -250,8 +250,6 @@ def test_cli_train_profiles_and_auto_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["train", "--data", "synthetic", "--log-attention"], "A.8"),
     (["train", "--data", "synthetic", "--coordinator", "h:1"], "A.6"),
-    (["bert-embeds", "--train-dir", "a", "--dev-dir", "b", "--model-path", "m",
-      "--out", "o"], "A.3"),
     (["serve", "--data", "synthetic", "--ckpt", "c", "--mesh"], "A.4"),
 ])
 def test_unported_options_name_their_roadmap_item(argv, item):

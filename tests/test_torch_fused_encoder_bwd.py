@@ -156,13 +156,25 @@ def test_function_gradients_match_autograd_on_cpu():
         assert _rel(t.grad.numpy(), e.numpy()) < 2e-3
 
 
-def test_weight_grad_plain_version():
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16, None])
+def test_weight_grad_plain_version(a_dtype, bias):
+    """``aᵀ b`` (and with ``bias`` the column sums of ``b``) against numpy in
+    float64; ``a`` None gives the column sums alone."""
     rng = np.random.default_rng(5)
     a, b = rng.normal(size=(37, 6)), rng.normal(size=(37, 10))
-    got = FE.weight_grad(torch.tensor(a, dtype=torch.float32), torch.tensor(b, dtype=torch.float32))
-    np.testing.assert_allclose(got.numpy(), a.T @ b, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(FE.weight_grad(None, torch.tensor(b, dtype=torch.float32)).numpy(),
-                               b.sum(0), rtol=1e-5, atol=1e-5)
+    bt = torch.tensor(b, dtype=torch.float32)
+    if a_dtype is None:
+        np.testing.assert_allclose(FE.weight_grad(None, bt, bias).numpy(), b.sum(0),
+                                   rtol=1e-5, atol=1e-5)
+        return
+    at = torch.tensor(a, dtype=torch.float32).to(a_dtype)
+    a = at.float().numpy().astype(np.float64)    # what the bf16 rounding left
+    got = FE.weight_grad(at, bt, bias)
+    prod = got[0] if bias else got
+    np.testing.assert_allclose(prod.numpy(), a.T @ b, rtol=1e-5, atol=1e-5)
+    if bias:
+        np.testing.assert_allclose(got[1].numpy(), b.sum(0), rtol=1e-5, atol=1e-5)
 
 
 def test_cpu_backward_builds_and_counts_nothing():
@@ -232,13 +244,91 @@ def test_cuda_call_under_autograd_has_grad_fn_and_plain_gradients(cuda_device):
         assert _rel(a.grad.cpu(), b.grad.cpu()) < 2e-3
 
 
-def test_weight_grad_kernel_matches_plain_on_card(cuda_device):
-    rng = np.random.default_rng(8)
-    for R, K, N in [(5000, 300, 900), (37, 6, 10), (0, 4, 8)]:
-        a = torch.tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device)
-        b = torch.tensor(rng.normal(size=(R, N)), dtype=torch.float32, device=cuda_device)
-        for aa in (a, a.bfloat16(), None):
-            got = FE.weight_grad(aa, b)
-            expect = FE.weight_grad_reference(aa, b)
-            assert torch.allclose(got, expect, rtol=1e-4, atol=1e-3), (R, K, N)
-            assert torch.equal(got, FE.weight_grad(aa, b)), "not deterministic"
+# the weight-gradient products of one backward call (a's width K, b's
+# width N, a's dtype in bf16 training, bias): dWqkv, dWo, daw, daq
+WGRAD_PRODUCTS = [(300, 900, torch.bfloat16, True), (300, 300, torch.bfloat16, True),
+                  (300, 200, torch.float32, True), (200, 1, torch.float32, False)]
+
+
+def _wgrad_err(got, expect):
+    """max|got - expect| over the largest |expect|, every output together."""
+    got = torch.cat([t.reshape(-1) for t in (got if isinstance(got, tuple) else (got,))])
+    expect = torch.cat([t.reshape(-1) for t in
+                        (expect if isinstance(expect, tuple) else (expect,))])
+    return float((got - expect).abs().max() / expect.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("a_dtype", ["table", torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N,dtype", [p[:3] for p in WGRAD_PRODUCTS])
+@pytest.mark.parametrize("R", [25_600, 5_003, 37, 0])
+def test_weight_grad_kernel_matches_plain_on_card(cuda_device, R, K, N, dtype, a_dtype, bias):
+    """Every product of the backward at the user tower's R (25,600), a
+    ragged R, a tiny one and none; ``a`` in the table's dtype, and in both
+    dtypes; the bias on and off; within 1e-4 of the largest output of the
+    plain version."""
+    dtype = dtype if a_dtype == "table" else a_dtype
+    rng = np.random.default_rng(R + K + N)
+    a = torch.tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device).to(dtype)
+    b = torch.tensor(rng.normal(size=(R, N)) * 1e-3, dtype=torch.float32, device=cuda_device)
+    got = FE.weight_grad(a, b, bias)
+    expect = FE.weight_grad_reference(a, b, bias)
+    if R == 0:
+        assert all(torch.equal(t, torch.zeros_like(t)) for t in
+                   (got if bias else (got,)))
+        return
+    assert _wgrad_err(got, expect) < 1e-4, (R, K, N, dtype, bias)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("R,N", [(25_600, 900), (5_003, 200), (37, 1)])
+def test_weight_grad_column_sums_on_card(cuda_device, R, N, bias):
+    """``a`` None: the column sums of ``b`` alone, whatever ``bias`` says."""
+    b = torch.tensor(np.random.default_rng(R).normal(size=(R, N)), dtype=torch.float32,
+                     device=cuda_device)
+    got = FE.weight_grad(None, b, bias)
+    assert got.shape == (N,)
+    assert _wgrad_err(got, FE.weight_grad_reference(None, b)) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_weight_grad_keeps_f32_accuracy_over_a_wide_range_on_card(cuda_device, dtype):
+    """Rows of ``b`` spread over 1e-4 to 1e2: the high/low split holds 1e-4
+    of the largest output, where one bf16 pass of the same product does
+    not."""
+    R, K, N = 25_600, 300, 900
+    rng = np.random.default_rng(9)
+    scale = 10.0 ** rng.uniform(-4, 2, size=(R, 1))
+    a = torch.tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device).to(dtype)
+    b = torch.tensor(rng.normal(size=(R, N)) * scale, dtype=torch.float32, device=cuda_device)
+    got = FE.weight_grad(a, b, bias=True)
+    expect = FE.weight_grad_reference(a, b, bias=True)
+    assert _wgrad_err(got, expect) < 1e-4
+    one_pass = (a.bfloat16().float().T @ b.bfloat16().float(),
+                b.bfloat16().float().sum(0))
+    assert _wgrad_err(one_pass, expect) > 1e-4
+
+
+@pytest.mark.parametrize("K,N,dtype,bias", WGRAD_PRODUCTS)
+def test_weight_grad_launches_are_bit_equal_on_card(cuda_device, K, N, dtype, bias):
+    R = 5_003
+    rng = np.random.default_rng(K * N)
+    a = torch.tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device).to(dtype)
+    b = torch.tensor(rng.normal(size=(R, N)), dtype=torch.float32, device=cuda_device)
+    first = FE.weight_grad(a, b, bias)
+    for again in (FE.weight_grad(a, b, bias), FE.weight_grad(a, b, bias)):
+        for x, y in zip(first if bias else (first,), again if bias else (again,)):
+            assert torch.equal(x, y), "weight_grad is not deterministic"
+
+
+def test_backward_launches_four_weight_gradients_on_card(cuda_device):
+    """One backward call: one backward launch and four weight-gradient
+    launches, the bias gradients fused into three of them."""
+    M, L, D, H, Q = 13, 20, 64, 4, 32
+    x, mask, w, g, _ = _inputs(6, M, L, D, Q)
+    t = _t([x, mask, *w, g], cuda_device)
+    _, o1 = FE.fused_news_encoder(t[0], t[1], *t[2:9], num_heads=H, save_o1=True)
+    before = (FE.fused_news_encoder_bwd.launches, FE.weight_grad.launches)
+    FE.fused_news_encoder_bwd(t[9], t[0], t[1], o1, *t[2:9], num_heads=H)
+    assert (FE.fused_news_encoder_bwd.launches, FE.weight_grad.launches) == (
+        before[0] + 1, before[1] + 4)
