@@ -15,9 +15,10 @@
 5. Holds the backward and weight-gradient kernels, and the forward with
    dropout and the ``o1`` residual, against their plain versions at the
    training step's shapes, float32 and bfloat16, dropout 0 and 0.2; then
-   the weight-gradient kernel alone at its largest product (R=81,920
-   token rows, dWqkv and dbqkv), bf16 and f32 ``a``, the bias fused, against
-   the plain version and ``torch.mm``.
+   the weight-gradient kernel alone at each product of one backward call
+   over the long block's R=81,920 token rows (dWqkv with bf16 and f32 ``a``,
+   dWo, daw with the bias fused, daq without), against the plain version
+   and ``torch.mm``.
 6. Trains NRMS at the JAX package's default configuration (batch 512, bf16
    activations, f32 parameters, dropout 0.2, dedup and a length split at 12
    words) on a synthetic corpus with MIND's mean title length: one step
@@ -79,6 +80,14 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM
 # product and the bias sums: f32 sums of the same products (a high/low
 # split of each f32 operand), only the order and the split's 2^-16 differ
 WGRAD_TOL = 1e-4
+# the weight-gradient products of one backward call in bf16 training (name,
+# a's width K, b's width N, a's dtype, bias fused): dWqkv, dWo, daw, daq;
+# and dWqkv with an f32 a, as in f32 training
+WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True),
+                  ("wgrad_f32", D, 3 * D, torch.float32, True),
+                  ("wgrad_dwo", D, D, torch.bfloat16, True),
+                  ("wgrad_daw", D, Q, torch.float32, True),
+                  ("wgrad_daq", Q, 1, torch.float32, False)]
 DEVICE = "cuda"
 
 
@@ -244,34 +253,35 @@ def check_backward(FE):
                 print(f"backward kernel vs plain {str(dtype):15s} dropout {rate} M={M:5d} "
                       f"L={L}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); forward with "
                       f"dropout + o1 ok", flush=True)
-    # the weight-gradient kernel at its largest product, dWqkv and dbqkv =
-    # [x | 1]^T dqkv over the long block's rows, a in both dtypes
+    # the weight-gradient kernel alone, each product of one backward call
+    # over the long block's rows, each held to its own largest output
     R = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
     rng = np.random.default_rng(5)
-    a32 = torch.as_tensor(rng.normal(size=(R, D)), dtype=torch.float32, device=DEVICE)
-    b = torch.as_tensor(rng.normal(size=(R, 3 * D)) * 1e-3, dtype=torch.float32,
-                        device=DEVICE)
     flat = lambda outs: torch.cat([o.reshape(-1) for o in outs])  # noqa: E731
-    for dtype in (torch.bfloat16, torch.float32):
-        a = a32.to(dtype)
-        got = FE.weight_grad(a, b, bias=True)
+    for key, K, N, dtype, bias in WGRAD_PRODUCTS:
+        a = torch.as_tensor(rng.normal(size=(R, K)), dtype=torch.float32,
+                            device=DEVICE).to(dtype)
+        b = torch.as_tensor(rng.normal(size=(R, N)) * 1e-3, dtype=torch.float32,
+                            device=DEVICE)
+        outs = lambda o: o if bias else (o,)  # noqa: E731
+        got = outs(FE.weight_grad(a, b, bias=bias))
         torch.cuda.synchronize()
-        plain = FE.weight_grad_reference(a, b, bias=True)
-        key = "wgrad" if dtype == torch.bfloat16 else "wgrad_f32"
+        plain = outs(FE.weight_grad_reference(a, b, bias=bias))
         errs[key] = rel_err(flat(got), flat(plain))
         errs[key + "_abs"] = float((flat(got) - flat(plain)).abs().max())
-        assert errs[key] < WGRAD_TOL, (str(dtype), errs[key])
-        again = FE.weight_grad(a, b, bias=True)
+        assert errs[key] < WGRAD_TOL, (key, str(dtype), errs[key])
+        again = outs(FE.weight_grad(a, b, bias=bias))
         assert all(torch.equal(x, y) for x, y in zip(got, again)), \
-            "weight_grad is not deterministic"
-        # one PyTorch call of the same function: [a | 1]^T b
-        at1 = torch.cat([a.float(), torch.ones((R, 1), device=DEVICE)], 1).t()
-        times[key] = (cuda_ms(lambda: FE.weight_grad(a, b, bias=True), 20),
-                      cuda_ms(lambda: FE.weight_grad_reference(a, b, bias=True), 20),
-                      cuda_ms(lambda: torch.mm(at1, b), 20), (R, D, 3 * D))
-        print(f"weight_grad vs plain (R={R}, K={D}, N={3 * D}, {str(dtype)} x f32, bias "
-              f"fused): max err {errs[key]:.3g} of the largest output (tol {WGRAD_TOL}); "
-              f"two launches equal bit for bit", flush=True)
+            f"weight_grad is not deterministic ({key})"
+        # one PyTorch call of the same function: [a | 1]^T b, or a^T b
+        at = (torch.cat([a.float(), torch.ones((R, 1), device=DEVICE)], 1) if bias
+              else a.float()).t()
+        times[key] = (cuda_ms(lambda: FE.weight_grad(a, b, bias=bias), 20),
+                      cuda_ms(lambda: FE.weight_grad_reference(a, b, bias=bias), 20),
+                      cuda_ms(lambda: torch.mm(at, b), 20), (R, K, N, a.element_size(), bias))
+        print(f"weight_grad vs plain ({key}: R={R}, K={K}, N={N}, {str(dtype)} x f32, "
+              f"bias {'fused' if bias else 'off'}): max err {errs[key]:.3g} of the largest "
+              f"output (tol {WGRAD_TOL}); two launches equal bit for bit", flush=True)
     return errs, times
 
 
@@ -742,12 +752,12 @@ def main() -> int:
               f"{k_ms:.4f} ms/call (incl. 4 weight_grad), plain {p_ms:.4f} ms, bound "
               f"{bwd_bound(M, L)[0]:.4f} ms; {train_launches['bwd'] / steps:.1f} calls "
               f"per step", flush=True)
-    for key, itemsize in (("wgrad", 2), ("wgrad_f32", 4)):
-        w_ms, wp_ms, wl_ms, (R, K, N) = bwd_times[key]
-        wb = wgrad_bound(R, K, N, itemsize)
-        print(f"{tag} weight_grad {'bf16' if itemsize == 2 else 'f32'} a, R={R} K={K} "
-              f"N={N}, bias fused: kernel {w_ms:.4f} ms, plain {wp_ms:.4f} ms, torch.mm "
-              f"{wl_ms:.4f} ms, bound {wb[0]:.4f} ms ({wb[1]}); "
+    for key, *_ in WGRAD_PRODUCTS:
+        w_ms, wp_ms, wl_ms, (R, K, N, itemsize, bias) = bwd_times[key]
+        wb = wgrad_bound(R, K, N, itemsize, bias)
+        print(f"{tag} weight_grad {key}, {'bf16' if itemsize == 2 else 'f32'} a, R={R} "
+              f"K={K} N={N}, bias {'fused' if bias else 'off'}: kernel {w_ms:.4f} ms, plain "
+              f"{wp_ms:.4f} ms, torch.mm {wl_ms:.4f} ms, bound {wb[0]:.4f} ms ({wb[1]}); "
               f"{train_launches['wgrad'] / steps:.1f} launches per step", flush=True)
 
     # 7. training with the segment scatter, and the workflow on the card
@@ -774,9 +784,15 @@ def main() -> int:
     b_ms, b_by = bound(*SHAPES[0], 2)
     bk_ms, bp_ms = bwd_times[TRAIN_SHAPES[1]]
     bb_ms, bb_by = bwd_bound(*TRAIN_SHAPES[1])
-    w_ms, wp_ms, wl_ms, (R, K, N) = bwd_times["wgrad"]
+    w_ms, wp_ms, wl_ms, (R, K, N, _, _) = bwd_times["wgrad"]
     wb_ms, wb_by = wgrad_bound(R, K, N, 2)
-    w32 = bwd_times["wgrad_f32"]
+    products = {}
+    for key, *_ in WGRAD_PRODUCTS:
+        ms, plain_ms, library_ms, (Rp, Kp, Np, itemsize, bias) = bwd_times[key]
+        products[key] = {"K": Kp, "N": Np, "a_itemsize": itemsize, "bias": bias, "ms": ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "bound_ms": wgrad_bound(Rp, Kp, Np, itemsize, bias)[0],
+                         "max_rel_err": bwd_errs[key], "max_abs_err": bwd_errs[key + "_abs"]}
     src = "pytorch_news_recommender_tpu_torch/ops/csrc/"
     tpu = "pytorch_news_recommender_tpu/ops/pallas/fused_encoder.py:"
     print(json.dumps({"kernels": [
@@ -804,13 +820,12 @@ def main() -> int:
          "launches": train_launches["wgrad"],
          "launches_by_path": {"train": train_launches["wgrad"],
                               "train_dedup_gather_mxu": mxu_launches["wgrad"]},
-         "max_abs_err": bwd_errs["wgrad_abs"], "max_rel_err": bwd_errs["wgrad"],
+         "max_abs_err": max(p["max_abs_err"] for p in products.values()),
+         "max_rel_err": max(p["max_rel_err"] for p in products.values()),
          "ms": w_ms, "plain_ms": wp_ms, "bound_ms": wb_ms, "bound_by": wb_by,
          "library_ms": wl_ms,
          "shape": {"R": R, "K": K, "N": N, "bias": True, "dtype": "bfloat16 x float32"},
-         "f32": {"ms": w32[0], "plain_ms": w32[1], "library_ms": w32[2],
-                 "bound_ms": wgrad_bound(R, K, N, 4)[0], "max_rel_err": bwd_errs["wgrad_f32"],
-                 "max_abs_err": bwd_errs["wgrad_f32_abs"]}},
+         "products": products},
         {"name": "segment_scatter", "route": "cuda", "source": src + "segment_scatter.cu",
          "replaces": "pytorch_news_recommender_tpu/ops/pallas/segment_scatter.py:38",
          "launches": mxu_launches["scatter"],

@@ -174,7 +174,8 @@ def cmd_bert_embeds(args) -> int:
     if args.test_dir:
         tsvs.append(args.test_dir + "/news.tsv")
     emb = build_bert_vectors(tsvs, args.model_path, args.out,
-                             batch_size=args.batch_size, max_length=args.max_length)
+                             batch_size=args.batch_size, max_length=args.max_length,
+                             device=args.device)
     print(f"wrote {emb.shape} news vectors to {args.out}")
     return 0
 
@@ -397,6 +398,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--max-length", type=int, default=64)
     p.add_argument("--out", required=True)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, which must exist)")
     p.set_defaults(fn=cmd_bert_embeds)
 
     p = sub.add_parser("preprocess-adressa",

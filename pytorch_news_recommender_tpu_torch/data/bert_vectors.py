@@ -7,16 +7,16 @@ and abstract, average the two vectors, prepend a zero pad row, and save
 back to the title (the reference's ``fillna(method='ffill', axis=1)``).
 
 This version needs no serving daemon: it runs a local HuggingFace
-``transformers`` encoder (a one-off offline job; the CPU is fine) with masked
-mean pooling over the last hidden layer, bert-as-service's default
-REDUCE_MEAN strategy. The artifact layout is the JAX package's, so either
-package's ``preprocess --bert-npz`` reads it.
+``transformers`` encoder, on the CUDA card unless the caller asks for the
+CPU, with masked mean pooling over the last hidden layer, bert-as-service's
+default REDUCE_MEAN strategy. The artifact layout is the JAX package's, so
+either package's ``preprocess --bert-npz`` reads it.
 """
 
 from __future__ import annotations
 
 import pathlib
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,14 +36,16 @@ def encode_texts(
     batch_size: int = 64,
     max_length: int = 64,
 ) -> np.ndarray:
-    """Encode sentences -> ``[len(texts), dim]`` float32 (masked mean pool)."""
+    """Encode sentences -> ``[len(texts), dim]`` float32 (masked mean pool),
+    on the device that holds ``model``."""
     model.eval()
+    device = next(model.parameters()).device
     out: List[np.ndarray] = []
     with torch.no_grad():
         for i in range(0, len(texts), batch_size):
             chunk = [t if t else "." for t in texts[i:i + batch_size]]
             enc = tokenizer(chunk, padding=True, truncation=True,
-                            max_length=max_length, return_tensors="pt")
+                            max_length=max_length, return_tensors="pt").to(device)
             hidden = model(**enc).last_hidden_state
             out.append(_masked_mean(hidden, enc["attention_mask"])
                        .float().cpu().numpy())
@@ -78,14 +80,18 @@ def build_bert_vectors(
     out_npz: str | pathlib.Path,
     batch_size: int = 64,
     max_length: int = 64,
+    device: Optional[str | torch.device] = None,
 ) -> np.ndarray:
     """End-to-end job: news TSVs -> ``news_embeds_{dim}.npz``.
 
     ``model_path`` is a local HF checkpoint directory (nothing is
     downloaded). News rows follow the same first-seen-dedup order as
     :func:`data.mind.build_dataset`, so indices line up with every other
-    artifact.
+    artifact. ``device`` None means the CUDA card, which must then exist.
     """
+    from pytorch_news_recommender_tpu_torch.serve import resolve_device
+
+    device = resolve_device(device)
     try:
         from transformers import AutoModel, AutoTokenizer
     except ImportError as e:  # pragma: no cover
@@ -95,7 +101,7 @@ def build_bert_vectors(
     news = NewsTable()
     for p in news_tsv_paths:
         news.add_split(pathlib.Path(p))
-    model = AutoModel.from_pretrained(model_path, local_files_only=True)
+    model = AutoModel.from_pretrained(model_path, local_files_only=True).to(device)
     tokenizer = AutoTokenizer.from_pretrained(model_path, local_files_only=True)
     embeds = encode_news_table(news, model, tokenizer, batch_size, max_length)
     out = pathlib.Path(out_npz)

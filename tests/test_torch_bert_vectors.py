@@ -86,7 +86,8 @@ def test_cli_bert_embeds_equals_jax_function(bert, tmp_path, capsys, with_test_d
         (tmp_path / name / "news.tsv").write_text(tsv)
     argv = ["bert-embeds", "--train-dir", str(tmp_path / "train"),
             "--dev-dir", str(tmp_path / "dev"), "--model-path", str(model_dir),
-            "--batch-size", "4", "--out", str(tmp_path / "port" / "news_embeds_32.npz")]
+            "--batch-size", "4", "--out", str(tmp_path / "port" / "news_embeds_32.npz"),
+            "--device", "cpu"]
     if with_test_dir:
         argv[5:5] = ["--test-dir", str(tmp_path / "test")]
     assert cli.main(argv) == 0
@@ -99,3 +100,34 @@ def test_cli_bert_embeds_equals_jax_function(bert, tmp_path, capsys, with_test_d
     np.testing.assert_allclose(got, np.load(tmp_path / "jax.npz")["embeddings"],
                                rtol=1e-6, atol=1e-6)
     assert got.shape == (7, 32) and np.all(got[0] == 0) and np.all(np.isfinite(got))
+
+
+def _news_dirs(tmp_path):
+    for name, tsv in (("train", NEWS_TSV), ("dev", DEV_NEWS_TSV)):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "news.tsv").write_text(tsv)
+    return ["--train-dir", str(tmp_path / "train"), "--dev-dir", str(tmp_path / "dev")]
+
+
+def test_cli_bert_embeds_runs_on_the_card_by_default(bert, tmp_path, monkeypatch):
+    """Without ``--device`` the command runs on the CUDA card, and raises
+    where there is none, as every command that runs a model does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["bert-embeds", *_news_dirs(tmp_path), "--model-path", str(bert[2]),
+                  "--out", str(tmp_path / "v.npz")])
+    assert not (tmp_path / "v.npz").exists()
+
+
+def test_cli_bert_embeds_on_card_equals_cpu(bert, tmp_path):
+    """On the card (the default device) the command writes the CPU run's
+    vectors, to float32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    argv = ["bert-embeds", *_news_dirs(tmp_path), "--model-path", str(bert[2])]
+    assert cli.main([*argv, "--out", str(tmp_path / "card.npz")]) == 0
+    assert cli.main([*argv, "--out", str(tmp_path / "cpu.npz"), "--device", "cpu"]) == 0
+    got, expect = (np.load(tmp_path / f)["embeddings"] for f in ("card.npz", "cpu.npz"))
+    assert got.shape == expect.shape == (7, 32)
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)

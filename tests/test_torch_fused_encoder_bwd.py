@@ -248,6 +248,9 @@ def test_cuda_call_under_autograd_has_grad_fn_and_plain_gradients(cuda_device):
 # width N, a's dtype in bf16 training, bias): dWqkv, dWo, daw, daq
 WGRAD_PRODUCTS = [(300, 900, torch.bfloat16, True), (300, 300, torch.bfloat16, True),
                   (300, 200, torch.float32, True), (200, 1, torch.float32, False)]
+# small widths: a bf16 row of K=6 (12 bytes) takes 4-byte copies, K=4
+# 8-byte ones; b's rows of N=10 and 8 take 8- and 16-byte copies
+WGRAD_SMALL = [(6, 10, torch.bfloat16), (4, 8, torch.bfloat16)]
 
 
 def _wgrad_err(got, expect):
@@ -260,13 +263,13 @@ def _wgrad_err(got, expect):
 
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("a_dtype", ["table", torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,N,dtype", [p[:3] for p in WGRAD_PRODUCTS])
+@pytest.mark.parametrize("K,N,dtype", [p[:3] for p in WGRAD_PRODUCTS] + WGRAD_SMALL)
 @pytest.mark.parametrize("R", [25_600, 5_003, 37, 0])
 def test_weight_grad_kernel_matches_plain_on_card(cuda_device, R, K, N, dtype, a_dtype, bias):
-    """Every product of the backward at the user tower's R (25,600), a
-    ragged R, a tiny one and none; ``a`` in the table's dtype, and in both
-    dtypes; the bias on and off; within 1e-4 of the largest output of the
-    plain version."""
+    """Every product of the backward, and two small widths, at the user
+    tower's R (25,600), a ragged R, a tiny one and none; ``a`` in the
+    table's dtype, and in both dtypes; the bias on and off; within 1e-4 of
+    the largest output of the plain version."""
     dtype = dtype if a_dtype == "table" else a_dtype
     rng = np.random.default_rng(R + K + N)
     a = torch.tensor(rng.normal(size=(R, K)), dtype=torch.float32, device=cuda_device).to(dtype)
