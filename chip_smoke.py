@@ -4,7 +4,8 @@
 
 1. Builds the kernels from ``pytorch_news_recommender_tpu_torch/ops/csrc``
    (the fused encoder forward, its backward and the tensor-core weight
-   gradients, the segment scatter; ninja compiles the sources in parallel).
+   gradients, the segment scatter, the forward's stage ablation; ninja
+   compiles the sources in parallel).
 2. Holds the forward kernel against its plain PyTorch version at the
    serving shapes in float32 and bfloat16.
 3. Serves NRMS at full width (D=300, 10 heads, query dim 200, title 20,
@@ -32,6 +33,11 @@
    again, write a submission file, and ``cli train`` / ``eval`` / ``submit``
    / ``export-vectors`` at the small synthetic size with the exported table
    served through ``Recommender(vectors_file=...)``.
+8. Runs the stage ablation of the forward (``chip_ablate_encoder.py``'s
+   table: six truncations of the forward kernel, then the full forward on
+   the same input) at M=28,672, L=20 with the all-ones mask and at M=4096
+   with a real mask that holds an all-pad item, holds each stage's kernel
+   against its plain version, and counts the launches.
 
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
@@ -88,6 +94,10 @@ WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True),
                   ("wgrad_dwo", D, D, torch.bfloat16, True),
                   ("wgrad_daw", D, Q, torch.float32, True),
                   ("wgrad_daq", Q, 1, torch.float32, False)]
+# ablation kernel vs plain version, max|a - b| / max|b| per stage: both
+# round to bf16 at the same points, their f32 sums run in another order, so
+# a value at a rounding edge may land one bf16 step away
+ABLATION_TOL = 2e-2
 DEVICE = "cuda"
 
 
@@ -122,6 +132,32 @@ def bound(M, L, itemsize):
     flops = M * (2 * L * D * (3 * D + D + Q) + 4 * H * L * L * (D // H))
     weights = D * 3 * D + 3 * D + D * D + D + D * Q + 2 * Q
     nbytes = (M * L * D + weights + M * D) * itemsize + M * L * 4
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ablation_bound(stage, M, L, itemsize=2):
+    """Bound of one stage of the encoder's ablation
+    (``ops/csrc/ablate_encoder.cu``), counting the work the stage exists to
+    do: bytes are x (and the mask, where the stage reads it) and the weights
+    it reads in, ``[M, D]`` out; FLOP are V0's adds, or ``2·L·D·3D`` per item
+    for the projection, + ``4·H·L²·dh`` per item for V2 (attention within
+    items), + two ``SUB×SUB×dh`` products per 160-row subtile and head for
+    V2b, + ``2·L·D·(D+Q)`` per item for V3 (the Wo and aw products)."""
+    from pytorch_news_recommender_tpu_torch.ops.ablate_encoder import SUB
+    rows, dh = M * L, D // H
+    flops, weights, mask = rows * D, 0, 0
+    if stage != "passthrough":
+        flops, weights = 2 * rows * D * 3 * D, D * 3 * D + 3 * D
+    if stage == "attn":
+        flops, mask = flops + M * 4 * H * L * L * dh, rows * 4
+    elif stage == "attn_nosoftmax":
+        flops += rows // SUB * H * 2 * (2 * SUB * SUB * dh)
+    elif stage == "tail":
+        flops += 2 * rows * D * (D + Q)
+        weights, mask = weights + D * D + D + D * Q + 2 * Q, rows * 4
+    nbytes = (rows * D + weights + M * D) * itemsize + mask
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -531,6 +567,57 @@ def serve_exported(vec, ckpt):
           f"encode", flush=True)
 
 
+def ablation_run(FE, tag):
+    """Phase 8: the stage ablation of the forward through
+    ``chip_ablate_encoder.table`` at its two shapes, the main path of this
+    phase (the launch counts set to 0 before it and read after it), each
+    stage's kernel held to its plain version there. Returns the kernels-line
+    entry."""
+    import chip_ablate_encoder as CA
+    from pytorch_news_recommender_tpu_torch.ops import ablate_encoder as AE
+
+    AE.ablate_encoder.launches = FE.fused_news_encoder.launches = 0
+    tables = {M: CA.table(M, real_mask) for M, real_mask in CA.SHAPES}
+    launches = {"ablation": AE.ablate_encoder.launches, "fwd": FE.fused_news_encoder.launches}
+    # per stage (and for the forward): its output, a warm-up, the timed launches
+    per_stage = sum(CA.iters(M) + 2 for M, _ in CA.SHAPES)
+    assert launches == {"ablation": len(AE.STAGES) * per_stage, "fwd": per_stage}, launches
+    for (M, real_mask), t in zip(CA.SHAPES, tables.values()):
+        for stage, r in t["stages"].items():
+            out = r.pop("out")
+            assert out.shape == (M, D) and bool(torch.isfinite(out.float()).all()), (M, stage)
+            assert r["max_rel_err"] < ABLATION_TOL, (M, stage, r["max_rel_err"])
+        CA.report(M, real_mask, t, tag)
+    print(f"[phase 8] encoder ablation: every stage's kernel within {ABLATION_TOL} of its "
+          f"plain version at M={' and M='.join(str(M) for M, _ in CA.SHAPES)}; launches "
+          f"{launches}", flush=True)
+    M0 = CA.SHAPES[0][0]
+    stages = tables[M0]["stages"]
+    variants = {}
+    for stage, r in stages.items():
+        v = {"label": CA.NAMES[stage], **{k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}}
+        v["max_rel_err"] = max(t["stages"][stage]["max_rel_err"] for t in tables.values())
+        if "library_ms" in r:
+            v["library_ms"] = r["library_ms"]
+        variants[stage] = v
+    v1 = stages["qkv"]
+    return {"name": "encoder_ablation", "route": "cuda",
+            "source": "pytorch_news_recommender_tpu_torch/ops/csrc/ablate_encoder.cu",
+            "replaces": "benchmarks/ablate_encoder.py:30", "launches": launches["ablation"],
+            "max_abs_err": max(r["max_abs_err"] for t in tables.values()
+                               for r in t["stages"].values()),
+            "max_rel_err": max(v["max_rel_err"] for v in variants.values()),
+            "ms": v1["ms"], "plain_ms": v1["plain_ms"], "bound_ms": v1["bound_ms"],
+            "bound_by": v1["bound_by"], "library_ms": None,
+            "shape": {"M": M0, "L": CA.L, "D": D, "H": H, "Q": Q, "dtype": "bfloat16",
+                      "mask": "all ones"},
+            "variants": variants,
+            "forward_ms": tables[M0]["forward"]["ms"], "forward_launches": launches["fwd"],
+            "by_M": {M: {**{s: r["ms"] for s, r in t["stages"].items()},
+                         "forward": t["forward"]["ms"]} for M, t in tables.items()}}
+
+
 def word_dict(n_words):
     """Digit-free tokens ("wab", ...) for word ids 1..n_words-1."""
     def name(i):
@@ -780,6 +867,9 @@ def main() -> int:
     del run7
     serve_exported(vec, ckpt)
 
+    # 8. the stage ablation of the forward
+    ablation = ablation_run(FE, tag)
+
     k_ms, p_ms = times[SHAPES[0]]
     b_ms, b_by = bound(*SHAPES[0], 2)
     bk_ms, bp_ms = bwd_times[TRAIN_SHAPES[1]]
@@ -838,6 +928,7 @@ def main() -> int:
                    "dtype": "bfloat16"},
          "candidate": {k: sc["candidate_idx"][k] for k in ("S", "ms", "plain_ms",
                                                             "library_ms", "bound")}},
+        ablation,
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -69,10 +69,8 @@ fused_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask
   const int m = blockIdx.x;
   const long row0 = (long)m * L;  // first token row of the item
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const T* xm = x + row0 * D;
-  for (int i = tid; i < Rp * D; i += blockDim.x) xs[i] = i < L * D ? to_f(xm[i]) : 0.f;
+  stage_item(x, mask, row0, L, D, xs, mk);
   for (int i = tid; i < Rp * W1; i += blockDim.x) o1[i] = 0.f;
-  for (int i = tid; i < Rp; i += blockDim.x) mk[i] = i < L ? mask[row0 + i] : 0.f;
   __syncthreads();
 
   for (int h = 0; h < H; ++h) {
@@ -122,55 +120,8 @@ fused_encoder_fwd_kernel(const T* __restrict__ x, const float* __restrict__ mask
     for (int e = tid; e < L * D; e += blockDim.x)
       o1_out[row0 * D + e] = from_f<T>(o1[(e / D) * W1 + e % D]);
   }
-
-  // o2 = o1 @ Wo + bo, kept in f32 (the tokens are no longer needed), then
-  // inverted dropout on the item's real rows
-  block_product<T, false>(
-      o1, W1, Rp, D, wo, D, D, [](int n) { return n; },
-      [=](int r, int n, float a0, float a1) {
-        float v0 = a0 + to_f(bo[n]), v1 = a1 + to_f(bo[n + 1]);
-        if (r < L) {
-          v0 = dropout(v0, seed, block_rows, row0 + r, n, threshold, keep_scale);
-          v1 = dropout(v1, seed, block_rows, row0 + r, n + 1, threshold, keep_scale);
-        }
-        xs[r * D + n] = v0;
-        xs[r * D + n + 1] = v1;
-      });
-  __syncthreads();
-  // tanh(T(o2) @ aw + ab) * aq, summed per row below
-  block_product<T, true>(
-      xs, D, Rp, D, aw, Q, Q, [](int n) { return n; },
-      [=](int r, int n, float a0, float a1) {
-        o1[r * W1 + n] = tanhf(a0 + to_f(ab[n])) * to_f(aq[n]);
-        o1[r * W1 + n + 1] = tanhf(a1 + to_f(ab[n + 1])) * to_f(aq[n + 1]);
-      });
-  __syncthreads();
-  for (int i = warp; i < L; i += nwarps) {
-    float s = 0.f;
-    for (int q = lane; q < Q; q += 32) s += o1[i * W1 + q];
-    s = warp_sum(s);
-    if (lane == 0) pw[i] = mk[i] > 0.f ? s : -1e9f;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float mx = -INFINITY;
-    for (int i = lane; i < L; i += 32) mx = fmaxf(mx, pw[i]);
-    mx = warp_max(mx);
-    float den = 0.f;
-    for (int i = lane; i < L; i += 32) {
-      const float e = mk[i] > 0.f ? expf(pw[i] - mx) : 0.f;
-      pw[i] = e;
-      den += e;
-    }
-    den = warp_sum(den);
-    if (lane == 0) rs[0] = fmaxf(den, 1e-30f);
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += blockDim.x) {
-    float num = 0.f;
-    for (int i = 0; i < L; ++i) num = fmaf(pw[i], xs[i * D + d], num);
-    out[(long)m * D + d] = from_f<T>(num / rs[0]);
-  }
+  pool_tail(xs, o1, mk, pw, rs, wo, bo, aw, ab, aq, out + (long)m * D, L, D, Q, row0, seed,
+            block_rows, threshold, keep_scale);
 }
 
 template <typename T>

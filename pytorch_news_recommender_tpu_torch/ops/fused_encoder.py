@@ -57,7 +57,7 @@ _CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 # every kernel of the port, built into one library: ninja compiles the
 # sources in parallel
 _CSRC = [_CSRC_DIR / "fused_encoder.cu", _CSRC_DIR / "fused_encoder_bwd.cu",
-         _CSRC_DIR / "segment_scatter.cu"]
+         _CSRC_DIR / "segment_scatter.cu", _CSRC_DIR / "ablate_encoder.cu"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Hopper's shared-memory limit for one block (bytes)
 MAX_SMEM = 232_448
@@ -214,7 +214,8 @@ def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Builds (once per checkout and source version) and loads the kernels
-    of the port, ``ops/segment_scatter.py``'s included."""
+    of the port, ``ops/segment_scatter.py``'s and ``ops/ablate_encoder.py``'s
+    included."""
     from torch.utils.cpp_extension import load
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -250,6 +251,10 @@ def _lib() -> ctypes.CDLL:
                  "newsrec_segment_scatter_partial_floats"):
         getattr(lib, name).argtypes = [ctypes.c_long, i]
         getattr(lib, name).restype = ctypes.c_long
+    lib.newsrec_ablate_encoder.argtypes = [i, i] + [p] * 10 + [i] * 5 + [fl, p]
+    lib.newsrec_ablate_encoder.restype = i
+    lib.newsrec_ablate_encoder_smem_bytes.argtypes = [i] * 5
+    lib.newsrec_ablate_encoder_smem_bytes.restype = ctypes.c_long
     lib.newsrec_cuda_error_string.argtypes = [i]
     lib.newsrec_cuda_error_string.restype = ctypes.c_char_p
     return lib
