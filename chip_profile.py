@@ -33,6 +33,7 @@ GROUPS = (("fused_encoder_fwd_kernel", "encoder forward"),
           ("pool_bwd_kernel", "encoder backward: pooling"),
           ("attn_bwd_kernel", "encoder backward: attention"),
           ("dx_kernel", "encoder backward: dx"),
+          ("stage_weights_kernel", "encoder backward: weight layout"),
           ("weight_grad", "weight gradients"),
           ("ss_", "segment scatter"),
           ("index", "gathers and scatter-adds"),

@@ -15,7 +15,10 @@
 4. Times the serving paths.
 5. Holds the backward and weight-gradient kernels, and the forward with
    dropout and the ``o1`` residual, against their plain versions at the
-   training step's shapes, float32 and bfloat16, dropout 0 and 0.2; then
+   training step's shapes, float32 and bfloat16, dropout 0 and 0.2, with
+   two backward calls equal bit for bit and one backward launch and four
+   weight-gradient launches per call, and times the backward whole and its
+   per-item kernels alone; then
    the weight-gradient kernel alone at each product of one backward call
    over the long block's R=81,920 token rows (dWqkv with bf16 and f32 ``a``,
    dWo, daw with the bias fused, daq without), against the plain version
@@ -72,6 +75,13 @@ TOLS = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # backward kernel vs plain version, max|a - b| / max|b| per output
 BWD_TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 40
+# launches of one backward call: the per-item kernels' (one count for the
+# pooling, attention and dx kernels of one call) and weight_grad's
+BWD_LAUNCHES = (1, 4)
+# fused_encoder_bwd at M=4096, L=20, bf16, dropout 0.2 before the per-item
+# kernels moved to the tensor cores: ms per call, 4 weight_grad launches
+# included (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md, PR 6)
+BWD_WAS_MS = 15.74
 # segment scatter vs plain, max|a - b| / max|b|: float32 sums of the same
 # bfloat16 terms, only the order of the additions differs
 SCATTER_TOL = 1e-5
@@ -263,9 +273,17 @@ def check_backward(FE):
                 o1_err = rel_err(o1[real], ref_o1[real])
                 assert o1_err < BWD_TOLS[dtype], (str(dtype), rate, M, L, o1_err)
                 assert torch.all(out[~valid] == 0), "an all-pad item must pool to 0"
-                got = FE.fused_news_encoder_bwd(g, x, mask, o1, *w, num_heads=H,
-                                                dropout_rate=rate, seed=1234)
+                before = (FE.fused_news_encoder_bwd.launches, FE.weight_grad.launches)
+                bwd = lambda: FE.fused_news_encoder_bwd(  # noqa: E731
+                    g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234)
+                got = bwd()
                 torch.cuda.synchronize()
+                launched = (FE.fused_news_encoder_bwd.launches - before[0],
+                            FE.weight_grad.launches - before[1])
+                assert launched == BWD_LAUNCHES, (launched, BWD_LAUNCHES)
+                # no atomics, a fixed order of every sum: the same bits again
+                assert all(torch.equal(a, b) for a, b in zip(got, bwd())), \
+                    ("the backward is not deterministic", str(dtype), rate, M, L)
                 expect = FE.fused_news_encoder_bwd_reference(
                     g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234)
                 each = {name: rel_err(a, b) for name, a, b in zip(
@@ -279,16 +297,17 @@ def check_backward(FE):
                         float((a.float() - b.float()).abs().max()) for a, b in zip(got, expect)))
                 if dtype == torch.bfloat16 and rate > 0:
                     times[(M, L)] = (
-                        cuda_ms(lambda: FE.fused_news_encoder_bwd(
-                            g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234), 5),
+                        cuda_ms(bwd, 5),
                         cuda_ms(lambda: FE.fused_news_encoder_bwd_reference(
-                            g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234), 5))
+                            g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234), 5),
+                        # the per-item kernels alone, without the weight gradients
+                        cuda_ms(lambda: FE._bwd_per_item(g, x, mask, o1, w, H, rate, 1234), 5))
                     if (M, L) == TRAIN_SHAPES[1]:
                         times["fwd_train"] = cuda_ms(lambda: FE.fused_news_encoder(
                             *args, num_heads=H, dropout_rate=rate, seed=1234, save_o1=True), 10)
                 print(f"backward kernel vs plain {str(dtype):15s} dropout {rate} M={M:5d} "
-                      f"L={L}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); forward with "
-                      f"dropout + o1 ok", flush=True)
+                      f"L={L}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); two calls equal "
+                      f"bit for bit; forward with dropout + o1 ok", flush=True)
     # the weight-gradient kernel alone, each product of one backward call
     # over the long block's rows, each held to its own largest output
     R = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
@@ -834,11 +853,12 @@ def main() -> int:
     print(f"{tag} fused_encoder_fwd bf16 M={TRAIN_SHAPES[1][0]} L={TRAIN_SHAPES[1][1]} "
           f"with dropout 0.2 + o1: {bwd_times['fwd_train']:.4f} ms/launch", flush=True)
     for M, L in TRAIN_SHAPES:
-        k_ms, p_ms = bwd_times[(M, L)]
+        k_ms, p_ms, i_ms = bwd_times[(M, L)]
         print(f"{tag} fused_encoder_bwd bf16 dropout 0.2 M={M} L={L}: kernels "
-              f"{k_ms:.4f} ms/call (incl. 4 weight_grad), plain {p_ms:.4f} ms, bound "
-              f"{bwd_bound(M, L)[0]:.4f} ms; {train_launches['bwd'] / steps:.1f} calls "
-              f"per step", flush=True)
+              f"{k_ms:.4f} ms/call (incl. 4 weight_grad; per-item kernels {i_ms:.4f} ms, "
+              f"{FE.tile_geometry(L)[0]} items in {FE.tile_geometry(L)[1]}-row tiles), plain "
+              f"{p_ms:.4f} ms, bound {bwd_bound(M, L)[0]:.4f} ms; "
+              f"{train_launches['bwd'] / steps:.1f} calls per step", flush=True)
     for key, *_ in WGRAD_PRODUCTS:
         w_ms, wp_ms, wl_ms, (R, K, N, itemsize, bias) = bwd_times[key]
         wb = wgrad_bound(R, K, N, itemsize, bias)
@@ -872,7 +892,7 @@ def main() -> int:
 
     k_ms, p_ms = times[SHAPES[0]]
     b_ms, b_by = bound(*SHAPES[0], 2)
-    bk_ms, bp_ms = bwd_times[TRAIN_SHAPES[1]]
+    bk_ms, bp_ms, bi_ms = bwd_times[TRAIN_SHAPES[1]]
     bb_ms, bb_by = bwd_bound(*TRAIN_SHAPES[1])
     w_ms, wp_ms, wl_ms, (R, K, N, _, _) = bwd_times["wgrad"]
     wb_ms, wb_by = wgrad_bound(R, K, N, 2)
@@ -902,7 +922,8 @@ def main() -> int:
          "launches": train_launches["bwd"],
          "max_abs_err": bwd_errs["bwd_abs"], "max_rel_err": bwd_errs["bwd_rel"],
          "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
-         "library_ms": None,
+         "library_ms": None, "kernels_ms": bi_ms, "was_ms": BWD_WAS_MS,
+         "tile_rows": FE.tile_geometry(TRAIN_SHAPES[1][1])[1],
          "shape": {"M": TRAIN_SHAPES[1][0], "L": TRAIN_SHAPES[1][1], "D": D, "H": H, "Q": Q,
                    "dtype": "bfloat16", "dropout": 0.2}},
         {"name": "encoder_weight_grad", "route": "cuda",

@@ -1,8 +1,11 @@
 // Helpers shared by the fused encoder's forward (fused_encoder.cu),
 // backward (fused_encoder_bwd.cu) and stage ablation (ablate_encoder.cu)
 // kernels: type conversion at the TPU kernel's rounding points, warp
-// reductions, the block-level products the kernels are built from, the
-// dropout hash, and the forward's staging of an item and its pooling tail.
+// reductions, the CUDA-core block product of the forward and the ablation,
+// the tensor-core pieces of the backward and the weight gradients
+// (cp.async, the high/low bf16 split, mma.sync m16n8k16 and its ldmatrix
+// fragment loads), the dropout hash, and the forward's staging of an item
+// and its pooling tail.
 
 #pragma once
 
@@ -25,6 +28,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+// two adjacent values (8-byte aligned for f32, 4-byte for bf16) in one store
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // v rounded to T and widened back to f32
 template <typename T> __device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
@@ -35,23 +46,21 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// four consecutive values (16-byte aligned for f32, 8-byte for bf16)
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+// the same over the G lanes (a power of two up to 32) of an aligned group
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float group_max(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -101,49 +110,109 @@ __device__ __forceinline__ void block_product(const float* __restrict__ A, int l
   }
 }
 
-// C[r][n] = sum_k A[r][k] * Bt[n][k]: the product with a transposed B (row
-// n of Bt, stride ldb, is column n of B). A may lie in shared or global
-// memory (row stride lda, a multiple of 4, 16-byte aligned); rows at or past
-// `rows` read as 0. Needs Rp % 4 == 0, K % 4 == 0, ldb % 4 == 0, N even.
-template <typename T, typename EpiFn>
-__device__ __forceinline__ void block_product_t(const float* A, int lda, int Rp, int rows, int K,
-                                                const T* __restrict__ Bt, int ldb, int N,
-                                                EpiFn epi) {
-  const int pairs = N >> 1;
-  const int items = (Rp / kRows) * pairs;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int r0 = (it / pairs) * kRows;
-    const int n = (it % pairs) * 2;
-    const T* b0p = Bt + (long)n * ldb;
-    const T* b1p = b0p + ldb;
-    float acc[kRows][2];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i][0] = acc[i][1] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float a[kRows][4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        if (r0 + i < rows) {
-          load4(A + (long)(r0 + i) * lda + k, a[i]);
-        } else {
-          a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
-        }
-      }
-      float b0[4], b1[4];
-      load4(b0p + k, b0);
-      load4(b1p + k, b1);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          acc[i][0] = fmaf(a[i][kk], b0[kk], acc[i][0]);
-          acc[i][1] = fmaf(a[i][kk], b1[kk], acc[i][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) epi(r0 + i, n, acc[i][0], acc[i][1]);
-  }
+// ---- tensor-core pieces (mma.sync m16n8k16, bf16 operands, f32 sums) ----
+
+// `bytes` (16, 8 or 4) from global to shared memory, asynchronously; with
+// valid false the destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+// 16 bytes from global to shared memory, of which only the first
+// src_bytes (0 .. 16) are read and the rest zero-filled; src 16-byte aligned
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x0, x1 -> bf16x2 high parts (toward zero) and low parts (x - high,
+// rounded); x0 in the lower half, as the MMA fragments take them. hi + lo
+// keeps some 16 bits of each value: the products of high and low parts
+// summed in f32 give f32 accuracy to about 2^-16.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, unsigned& hi, unsigned& lo) {
+  asm("cvt.rz.bf16x2.f32 %0, %1, %2;\n" : "=r"(hi) : "f"(x1), "f"(x0));
+  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(lo) : "f"(x1 - h1), "f"(x0 - h0));
+}
+
+// c += a b over one m16n8k16 tile: a four bf16x2 registers (rows g, g+8 x
+// k 2t, 2t+8), b two (k 2t, 2t+8 x column g), c four f32 (rows g, g+8 x
+// columns 2t, 2t+1), with g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. The plain load hands thread (g, t) the values
+// (row g, columns 2t, 2t+1); the transposed one (rows 2t, 2t+1, column g).
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The A fragment of rows m0 .. m0+15, columns k .. k+15 of a row-major bf16
+// tile (row stride ld elements, rows 16-byte aligned)
+__device__ __forceinline__ void frag_a(unsigned* a, const __nv_bfloat16* s, int ld, int m0,
+                                       int k) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, s + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k + (lane >> 4) * 8);
+}
+// the same from a tile stored transposed: A[m][k] = s[k][m]
+__device__ __forceinline__ void frag_a_t(unsigned* a, const __nv_bfloat16* s, int ld, int m0,
+                                         int k) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(a, s + (k + (lane & 7) + (lane >> 4) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
+}
+// The B fragments of two n8 tiles, columns n0 .. n0+15, depth k .. k+15:
+// b[0] for columns n0 .., b[1] for n0+8 ... frag_b reads B stored by rows
+// (s[k][n], ldmatrix.trans), frag_b_t B stored by columns (s[n][k]).
+__device__ __forceinline__ void frag_b(unsigned (*b)[2], const __nv_bfloat16* s, int ld, int n0,
+                                       int k) {
+  const int lane = threadIdx.x & 31;
+  unsigned r[4];
+  ldmatrix_x4_trans(r, s + (k + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
+  b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+}
+__device__ __forceinline__ void frag_b_t(unsigned (*b)[2], const __nv_bfloat16* s, int ld,
+                                         int n0, int k) {
+  const int lane = threadIdx.x & 31;
+  unsigned r[4];
+  ldmatrix_x4(r, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k + ((lane >> 3) & 1) * 8);
+  b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+}
+
+// v as a bf16 high part and, where the operand is split, a low part
+__device__ __forceinline__ void split_bf16(float v, __nv_bfloat16& hi, __nv_bfloat16& lo) {
+  unsigned h, l;
+  split_bf16x2(v, 0.f, h, l);
+  hi = __ushort_as_bfloat16((unsigned short)(h & 0xffffu));
+  lo = __ushort_as_bfloat16((unsigned short)(l & 0xffffu));
 }
 
 // Dropout keep bit of token row `grow` (over all items) and column `col`:

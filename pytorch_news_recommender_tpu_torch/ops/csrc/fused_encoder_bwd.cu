@@ -11,16 +11,61 @@
 // (dq times scale, dk from the scaled q), o2, t, dpre and the pooling terms
 // in f32, dx rounded to T, the weight gradients in f32.
 //
-// Layout. A [L, D] item fits in shared memory, but x, qkv, o2, dqkv and t
-// together do not (about 520 KB in f32 at L=50), so the backward runs as
-// three kernels of one 256-thread block per item, with the per-token
-// intermediates in device memory (L2 serves each item's rows):
-//   pool_bwd:  o2 = o1 Wo + bo (dropout), t = tanh(T(o2) aw + ab), pooling
-//              weights, d(logit), dpre, do2 = w g + dpre aw^T (dropout),
-//              do1 = T(do2 Wo^T); writes o2, t, dpre, do2, d(logit), do1.
-//   attn_bwd:  per head, q/k/v recomputed from x, probabilities, dV, dP,
-//              dS, dQ, dK; writes dqkv.
+// Layout: tiles of whole items on the tensor cores. A block takes
+// floor(64 / L) whole items (R_t = 64 token rows: 5 items at L=12, 3 at
+// L=20, 1 at L=50; one item of round16(L) rows past 64), its rows past the
+// last item zero. A small kernel first writes the weights in the layout the
+// copies read (stage_weights_kernel, WsLayout); then three kernels, one
+// block per tile (dx: per tile and 128 columns of dx), with the per-token
+// intermediates in device memory:
+//   pool_bwd:  o2 = o1 Wo + bo (dropout), t = tanh(T(o2) aw + ab), the
+//              pooling softmax per item (one warp per item, max(den, 1e-30)),
+//              d(logit), dpre, do2 = w g + dpre aw^T (dropout), do1 =
+//              T(do2 Wo^T); writes o2, t, dpre, do2, d(logit), do1.
+//   attn_bwd:  per head, q|k|v = T(x Wqkv + b) over the head's columns (each
+//              of q, k, v padded from dh to round16(dh) with zeros), scores
+//              and dP over the tile, the softmax and dS (8 lanes a row), dQ,
+//              dK, dV; writes dqkv.
 //   dx:        dx = T(dqkv Wqkv^T).
+// * Every product is mma.sync m16n8k16 bf16 with f32 sums (tile_product for
+//   the weight products, the attention's five inline). Operands the TPU
+//   kernel's rounding leaves in bf16 (x, o1, T(o2), q, k, v, dO1, T(P), dS)
+//   take one pass; the f32 operands dpre, do2 and dqkv are split into bf16
+//   high and low parts (two passes, A_hi B + A_lo B). In f32 (T = float)
+//   every operand is split and the weights too (their parts written once
+//   per call): three passes, A_hi B_hi + A_lo B_hi + A_hi B_lo, about 2^-16
+//   of each product, as in weight_grad.
+// * The weights go through shared memory: 64-deep tiles of Wo, aw, a head's
+//   q|k|v columns of Wqkv, and the transposes of Wo, aw and Wqkv (stored by
+//   columns, read with ldmatrix without .trans), in a cp.async ring of 2-3
+//   stages, the copies of the next tiles under the MMAs of this one. Each
+//   warp takes 16-row units of the 64-row tile: pool_bwd (bf16) and dx run
+//   16 warps on 128-column chunks (16 x 32 units), attn_bwd 8 on a head's 96
+//   columns (16 x 48), two blocks per SM. Each staged tile serves all 64
+//   rows of the block, not one item's L; weight reads from L2 fall by 64 / L
+//   against one block per item (R_t = 128 would halve them again, but
+//   pool_bwd's f32 intermediates and operand tiles take 160 KB of shared
+//   memory at 64 rows). Rows of D = 300 bf16 are 600 bytes, so copies
+//   straight from the weights could be 8 bytes at most, and a head's
+//   columns start at h * 30: 4 bytes. The copy of the weights in WsLayout
+//   starts every row and every head's block 16 bytes aligned, so every copy
+//   is one 16-byte cp.async, a quarter or an eighth as many copies to
+//   issue. Depth and width pads (D = 300 -> 304, Q = 200 -> 208, dh = 30 ->
+//   32) are zeros written once in shared memory or zero-filled by the
+//   copies, which read only a unit's valid values; no pad is read from
+//   device memory.
+// * The attention runs over the tile's block diagonal: one Rt x Rt score
+//   tile per head, with the TPU kernel's penalty (m_i m_j - 1) * 1e9 within
+//   an item and -1e9 between items. exp(-1e9 - max) is 0 in f32, so a real
+//   row's probabilities are its item's; a pad row's spread over the tile,
+//   but its dO1 is 0 (w = ds = dpre = 0 there), so its dP and dS rows are 0
+//   and its T(P) meets only zeros in dV. Every dqkv row equals the per-item
+//   one up to summation order, and an all-pad item's dx is exactly 0.
+//   At L=20 this is 64^2 scores where the items need 3 x 20^2; the
+//   attention is some 3% of the FLOP.
+// * No atomics; every sum has a fixed order, so two launches agree bit for
+//   bit. The dropout mask is the hash of the global token row, which no
+//   tiling changes.
 // The TPU kernel adds each grid step's weight gradients into one output
 // block, which is right only because a TPU grid runs in order. Here they
 // are products over all M*L token rows (dWqkv = x^T dqkv, dWo = o1^T do2,
@@ -31,8 +76,10 @@
 // Bound. Per item about 6*L*D*(3D+D+Q) + 10*H*L^2*dh FLOP (the forward's
 // projections twice more, for the input and the weight gradients, and the
 // attention products), 51.6 MFLOP at L=20, against a few tens of KB of
-// bytes: bound by operations. Like the forward, the three per-item kernels
-// run on the CUDA cores in f32.
+// bytes: bound by operations. The per-item kernels do two thirds of it,
+// 2*L*D*(8D+2Q) (the weight gradients the rest), and must also write the f32
+// intermediates the weight gradients read, about 1.2 GB per call at M=4096,
+// L=20: 0.35 ms at 3.35 TB/s.
 //
 // weight_grad: out[K+1, N] = [a | 1]^T b over R token rows, in f32 (a [R, K]
 // bf16 or f32, b [R, N] f32; row K, the ones column, is b's column sums and
@@ -113,299 +160,831 @@ __host__ __device__ constexpr int wg_smem_bytes() {
   return WgA<TA>::stages * wg_stage_bytes<TA>() + 4 * kWgBR * kWgStrideS * 2;
 }
 
-__host__ __device__ inline long pool_smem_floats(int L, int D, int Q) {
-  const int Rp = round4(L);
-  return 2L * Rp * D + (long)Rp * round4(Q) + D + 4L * Rp;
+// ---- the per-item backward: geometry and the tile product ------------------
+
+constexpr int kTileRows = 64;     // R_t: token rows of whole items per block
+
+constexpr int kKT = 64;           // depth of a staged weight tile
+// Per kernel and dtype: the width of a staged weight tile (NT columns), a
+// warp's unit (16 rows x UJ n8 tiles), the tiles in flight (ST), and the
+// block's warps. 16 warps take a 64 x 128 chunk, one 16 x 32 unit each,
+// where shared memory leaves room for the wider tiles; pool_bwd in f32 (the
+// weights' low parts double a tile) keeps 8 warps on 64-column chunks.
+// attn_bwd takes a head's 3 x 32 columns as 16 x 48 units, one for each of
+// its 8 warps, two blocks per SM in bf16; dx two blocks of 16.
+template <bool kF32> struct Cfg {
+  struct Pool { static constexpr int NT = kF32 ? 64 : 128, UJ = 4, ST = kF32 ? 2 : 3, W = kF32 ? 8 : 16; };
+  struct Attn { static constexpr int NT = 96, UJ = 6, ST = kF32 ? 2 : 3, W = 8; };
+  struct Dx { static constexpr int NT = 128, UJ = 4, ST = kF32 ? 2 : 3, W = 16; };
+};
+
+// a staged weight tile of NT columns, in bf16: kKT x (NT + 8)
+// stored by rows, NT x (kKT + 8) by columns (8 more so that the rows of an
+// ldmatrix fall in distinct banks); a stage holds the high and, for f32
+// weights, the low tile
+template <int NT> __host__ __device__ constexpr int b_part() {
+  return kKT * (NT + 8) > NT * (kKT + 8) ? kKT * (NT + 8) : NT * (kKT + 8);
+}
+template <int NT> __host__ __device__ constexpr int b_stage_bytes(bool lo) {
+  return 2 * b_part<NT>() * (lo ? 2 : 1);
 }
 
-__host__ __device__ inline long attn_smem_floats(int L, int D, int H) {
-  const int Rp = round4(L), dh = D / H;
-  return (long)Rp * D + 4L * Rp * dh + 2L * L * L + Rp;
+__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
+// whole items per block, and the block's rows rounded up to the MMA's 16
+__host__ __device__ inline int items_per_tile(int L) { return L <= kTileRows ? kTileRows / L : 1; }
+__host__ __device__ inline int tile_rows(int L) { return round16(items_per_tile(L) * L); }
+// row stride (bf16) of an operand tile of depth K: K padded to 16, plus 8
+// so that the eight rows of an ldmatrix fall in distinct banks
+__host__ __device__ inline int lda_of(int K) { return round16(K) + 8; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
+
+// The weights as the per-item kernels read them, written once per call
+// into `ws` (bf16: the weights, or for f32 weights their high parts, then
+// as many low parts): Wqkv with each head's q, k and v columns side by
+// side, each padded from dh to dhp ([D][H * 3 * dhp]), then Wqkv, Wo and
+// aw with rows padded to a multiple of 8. Every row and every head's block
+// starts 16 bytes aligned, so each copy of a weight tile is 16 bytes; the
+// pads are never written and never read (a copy reads only a unit's valid
+// values, cp.async's source size).
+struct WsLayout {
+  int ld_head, ld_qkv, ld_o, ld_aw;
+  long head, qkv, o, aw, total;  // element offsets of each matrix, and the size of a part
+};
+__host__ __device__ inline WsLayout ws_layout(int D, int H, int Q) {
+  WsLayout w;
+  w.ld_head = H * 3 * round16(D / H);
+  w.ld_qkv = round8(3 * D);
+  w.ld_o = round8(D);
+  w.ld_aw = round8(Q);
+  w.head = 0;
+  w.qkv = (long)D * w.ld_head;
+  w.o = w.qkv + (long)D * w.ld_qkv;
+  w.aw = w.o + (long)D * w.ld_o;
+  w.total = w.aw + (long)D * w.ld_aw;
+  return w;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
-                const T* __restrict__ o1, const T* __restrict__ wo, const T* __restrict__ bo,
-                const T* __restrict__ aw, const T* __restrict__ ab, const T* __restrict__ aq,
-                float* __restrict__ o2_g, float* __restrict__ t_g, float* __restrict__ dpre_g,
-                float* __restrict__ do2_g, float* __restrict__ ds_g, T* __restrict__ do1_g,
-                int L, int D, int Q, unsigned seed, int block_rows, unsigned threshold,
-                float keep_scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int Rp = round4(L), Qp = round4(Q);
-  float* as = smem;               // [Rp, D]  o1, later do2
-  float* o2s = as + Rp * D;       // [Rp, D]  o2 after dropout
-  float* ts = o2s + Rp * D;       // [Rp, Qp] tanh(.), later dpre
-  float* gs = ts + Rp * Qp;       // [D]      this item's cotangent
-  float* mk = gs + D;             // [Rp]     token mask
-  float* pw = mk + Rp;            // [Rp]     pooling logits, later weights w
-  float* dwf = pw + Rp;           // [Rp]     o2 . g per row
-  float* ds = dwf + Rp;           // [Rp]     d(pooling logit)
+// A weight operand in device memory, bf16, laid out as in WsLayout.
+struct BOp {
+  const __nv_bfloat16* hi;
+  const __nv_bfloat16* lo;  // null unless the weights are f32
+  long ld;                  // row stride of the stored matrix
+  int K, N;                 // the product's depth and width
+  // B stored by rows: column n of the product is column n of the stored
+  // matrix, and 0 where n % seg_w >= seg_n (a head's q|k|v columns, each
+  // padded to seg_w); plain: seg_w = seg_n = N. B stored by columns (W^T):
+  // row n, column k of the matrix.
+  int seg_w, seg_n;
+};
 
-  const int m = blockIdx.x;
-  const long row0 = (long)m * L;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int i = tid; i < Rp * D; i += blockDim.x) as[i] = i < L * D ? to_f(o1[row0 * D + i]) : 0.f;
-  for (int i = tid; i < D; i += blockDim.x) gs[i] = g[(long)m * D + i];
-  for (int i = tid; i < Rp; i += blockDim.x) mk[i] = i < L ? mask[row0 + i] : 0.f;
-  __syncthreads();
+BOp plain_b(const __nv_bfloat16* hi, const __nv_bfloat16* lo, long ld, int K, int N) {
+  return BOp{hi, lo, ld, K, N, N, N};
+}
 
-  // o2 = o1 @ Wo + bo, then dropout
-  block_product<T, false>(
-      as, D, Rp, D, wo, D, D, [](int n) { return n; },
-      [=](int r, int n, float a0, float a1) {
-        float v0 = a0 + to_f(bo[n]), v1 = a1 + to_f(bo[n + 1]);
-        if (r < L) {
-          v0 = dropout(v0, seed, block_rows, row0 + r, n, threshold, keep_scale);
-          v1 = dropout(v1, seed, block_rows, row0 + r, n + 1, threshold, keep_scale);
-          o2_g[(row0 + r) * D + n] = v0;
-          o2_g[(row0 + r) * D + n + 1] = v1;
-        }
-        o2s[r * D + n] = v0;
-        o2s[r * D + n + 1] = v1;
-      });
-  __syncthreads();
-  // t = tanh(T(o2) @ aw + ab)
-  block_product<T, true>(
-      o2s, D, Rp, D, aw, Q, Q, [](int n) { return n; },
-      [=](int r, int n, float a0, float a1) {
-        const float t0 = tanhf(a0 + to_f(ab[n])), t1 = tanhf(a1 + to_f(ab[n + 1]));
-        ts[r * Qp + n] = t0;
-        ts[r * Qp + n + 1] = t1;
-        if (r < L) {
-          t_g[(row0 + r) * Q + n] = t0;
-          t_g[(row0 + r) * Q + n + 1] = t1;
-        }
-      });
-  __syncthreads();
-  // pooling logits t . aq and o2 . g, one warp per row
-  for (int i = warp; i < L; i += nwarps) {
-    float s = 0.f, dw = 0.f;
-    for (int q = lane; q < Q; q += 32) s = fmaf(ts[i * Qp + q], to_f(aq[q]), s);
-    for (int d = lane; d < D; d += 32) dw = fmaf(o2s[i * D + d], gs[d], dw);
-    s = warp_sum(s);
-    dw = warp_sum(dw);
-    if (lane == 0) {
-      pw[i] = mk[i] > 0.f ? s : -1e9f;
-      dwf[i] = dw;
+// The A operand held whole in shared memory as bf16 tiles [rows][ld]:
+// the value, or its high and low parts
+struct ASmem {
+  const __nv_bfloat16* hi;
+  const __nv_bfloat16* lo;
+  int ld;
+  __host__ __device__ static int stage_bytes(int) { return 0; }
+  __device__ void load(unsigned char*, int) const {}
+  __device__ void frag(const unsigned char*, int m0, int k, int, unsigned* h, unsigned* l,
+                       bool split) const {
+    frag_a(h, hi, ld, m0, k);
+    if (split) frag_a(l, lo, ld, m0, k);
+  }
+};
+
+// An f32 A operand in device memory (rows row0 .. row0 + rows - 1, stride
+// ld, depth K), staged with the weights, KT columns a stage, and split
+// into high and low parts in registers
+struct AStream {
+  static constexpr int KT = kKT;
+  const float* a;
+  long ld;
+  int rows, K, Rt;
+  static constexpr int kLd = KT + 8;  // 288-byte rows: float2 loads free of bank conflicts
+  __host__ __device__ static int stage_bytes(int Rt) { return Rt * kLd * 4; }
+  __device__ void load(unsigned char* st, int k0) const {
+    float* s = reinterpret_cast<float*>(st);
+    for (int i = threadIdx.x; i < Rt * (KT / 4); i += blockDim.x) {
+      const int r = i / (KT / 4), c = (i % (KT / 4)) * 4;
+      const bool valid = r < rows && k0 + c < K;
+      cp_async(s + r * kLd + c, valid ? a + r * ld + k0 + c : a, 16, valid);
     }
   }
+  __device__ void frag(const unsigned char* st, int m0, int, int kk, unsigned* h, unsigned* l,
+                       bool) const {
+    const int lane = threadIdx.x & 31;
+    const float* p = reinterpret_cast<const float*>(st) + (m0 + (lane >> 2)) * kLd + kk +
+                     2 * (lane & 3);
+    const float2 v0 = *reinterpret_cast<const float2*>(p);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * kLd);
+    const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+    const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * kLd + 8);
+    split_bf16x2(v0.x, v0.y, h[0], l[0]);
+    split_bf16x2(v1.x, v1.y, h[1], l[1]);
+    split_bf16x2(v2.x, v2.y, h[2], l[2]);
+    split_bf16x2(v3.x, v3.y, h[3], l[3]);
+  }
+};
+
+// v into a bf16 operand tile: rounded (a value already in bf16), or split
+// into high and low parts
+__device__ __forceinline__ void put(__nv_bfloat16* hi, __nv_bfloat16* lo, int i, float v,
+                                    bool split) {
+  if (split)
+    split_bf16(v, hi[i], lo[i]);
+  else
+    hi[i] = __float2bfloat16_rn(v);
+}
+
+// V consecutive values (V = 2 or 4; 4V-byte aligned) as f32
+template <int V> __device__ __forceinline__ void load_v(const float* p, float* o) {
+  if constexpr (V == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    o[0] = a.x; o[1] = a.y;
+  }
+}
+template <int V> __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float* o) {
+#pragma unroll
+  for (int e = 0; e < V; e += 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + e));
+    o[e] = a.x; o[e + 1] = a.y;
+  }
+}
+
+// rows x cols of a row-major matrix in device memory (row stride ld; cols
+// a multiple of V) into an operand tile of Rt rows and cols16 columns (row
+// stride ldt), zeros past rows and cols: V values a load
+template <int V, typename T>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src, long ld, int rows, int cols,
+                                           int Rt, int cols16, __nv_bfloat16* hi,
+                                           __nv_bfloat16* lo, int ldt, bool split) {
+  const int per = cols16 / V;
+  for (int i = threadIdx.x; i < Rt * per; i += blockDim.x) {
+    const int r = i / per, c = (i % per) * V;
+    float v[V];
+    if (r < rows && c < cols) {
+      load_v<V>(src + r * ld + c, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) put(hi, lo, r * ldt + c + e, v[e], split);
+  }
+}
+
+// The copies of one staged weight tile: depth k0 .. k0 + KT - 1, columns
+// n0 .. n0 + NT - 1 of the product, 8 values a copy; what lies past K or N
+// (or past seg_n in a segment) is zero-filled, not read.
+template <int NT, bool kByCols, bool kGather>
+__device__ __forceinline__ void load_b(const BOp& b, const __nv_bfloat16* src,
+                                       __nv_bfloat16* dst, int k0, int n0) {
+  constexpr int KT = kKT;
+  auto clamp8 = [](int v) { return v < 0 ? 0 : (v > 8 ? 8 : v); };
+  if (kByCols) {
+    constexpr int per = KT / 8;
+    for (int i = threadIdx.x; i < NT * per; i += blockDim.x) {
+      const int r = i / per, c = (i % per) * 8, n = n0 + r, k = k0 + c;
+      const int nv = n < b.N ? clamp8(b.K - k) : 0;
+      cp_async_16(dst + r * (KT + 8) + c, nv ? src + n * b.ld + k : src, 2 * nv);
+    }
+  } else {
+    constexpr int per = NT / 8;
+    for (int i = threadIdx.x; i < KT * per; i += blockDim.x) {
+      const int r = i / per, c = (i % per) * 8, n = n0 + c, k = k0 + r;
+      int lim = b.N - n;
+      if (kGather) {
+        const int d = n % b.seg_w, left = b.seg_n - d;
+        lim = left < lim ? left : lim;
+      }
+      const int nv = k < b.K ? clamp8(lim) : 0;
+      cp_async_16(dst + r * (NT + 8) + c, nv ? src + k * b.ld + n : src, 2 * nv);
+    }
+  }
+}
+
+// C = A B over the block's Rt rows (a multiple of 16) and B's N columns, on
+// the tensor cores, handed to epi(r, n, C[r][n], C[r][n + 1]) for even n <
+// N. The passes: A_hi B_hi, then A_lo B_hi where A is split (kASplit), then
+// A_hi B_lo where the weights are f32 (kBLo). The block walks 64-row groups
+// x NT-column chunks x kKT-deep weight tiles in one sequence, ST tiles in
+// flight in a cp.async ring (`ring`, ST x (A's stage + B's)); warp w of W
+// takes the 16 x 8UJ units w, w + W of a 64 x NT chunk. Every thread of the
+// block calls it; it ends with a barrier.
+template <int NT, int UJ, int ST, int W, bool kByCols, bool kASplit, bool kBLo,
+          bool kGather = false, typename AOp, typename EpiFn>
+__device__ void tile_product(const AOp& A, const BOp& B, int Rt, unsigned char* ring, EpiFn epi) {
+  static_assert(UJ % 2 == 0 && NT % (8 * UJ) == 0, "units of whole n16 pairs");
+  constexpr int NU = NT / (8 * UJ);          // units across a chunk
+  constexpr int kU = (4 * NU + W - 1) / W;  // units per warp at most
+  constexpr int ldb = kByCols ? kKT + 8 : NT + 8;
+  const int a_bytes = AOp::stage_bytes(Rt);
+  const int stage = a_bytes + b_stage_bytes<NT>(kBLo);
+  const int K16 = round16(B.K);
+  const int kts = (K16 + kKT - 1) / kKT, chunks = (B.N + NT - 1) / NT;
+  const int steps = (Rt + 63) / 64 * chunks * kts;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  auto b_hi = [&](unsigned char* st) { return reinterpret_cast<__nv_bfloat16*>(st + a_bytes); };
+  // the k-tile and chunk of the next step to load, counted on (no division)
+  int lk = 0, lc = 0;
+  auto load = [&](int s) {
+    unsigned char* st = ring + (s % ST) * stage;
+    const int k0 = lk * kKT, n0 = lc * NT;
+    A.load(st, k0);
+    load_b<NT, kByCols, kGather>(B, B.hi, b_hi(st), k0, n0);
+    if (kBLo) load_b<NT, kByCols, kGather>(B, B.lo, b_hi(st) + b_part<NT>(), k0, n0);
+    if (++lk == kts) {
+      lk = 0;
+      if (++lc == chunks) lc = 0;
+    }
+  };
+  float acc[kU][UJ][4];
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+#pragma unroll
+    for (int j = 0; j < UJ; ++j) acc[u][j][0] = acc[u][j][1] = acc[u][j][2] = acc[u][j][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  int kt = 0, chunk = 0, grp = 0;  // of the step computed
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // step s landed; step s - 1's reads of its stage done
+    if (s + ST - 1 < steps) load(s + ST - 1);
+    cp_async_commit();
+    const unsigned char* st = ring + (s % ST) * stage;
+    const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(st + a_bytes);
+    const __nv_bfloat16* bl = bh + b_part<NT>();
+    const int rows = Rt - grp * 64 < 64 ? Rt - grp * 64 : 64;
+    const int units = rows / 16 * NU;
+#pragma unroll
+    for (int ui = 0; ui < kU; ++ui) {
+      const int u = warp + ui * W;
+      if (u >= units) continue;
+      const int m0 = grp * 64 + u / NU * 16, nl = u % NU * 8 * UJ;
+      if (chunk * NT + nl >= B.N) continue;
+#pragma unroll
+      for (int ks = 0; ks < kKT; ks += 16) {
+        const int k = kt * kKT + ks;
+        if (k >= K16) break;
+        unsigned ah[4], al[4], bhf[UJ][2], blf[UJ][2];
+        A.frag(st, m0, k, ks, ah, al, kASplit);
+#pragma unroll
+        for (int jj = 0; jj < UJ / 2; ++jj) {
+          if (kByCols) {
+            frag_b_t(bhf + 2 * jj, bh, ldb, nl + 16 * jj, ks);
+            if (kBLo) frag_b_t(blf + 2 * jj, bl, ldb, nl + 16 * jj, ks);
+          } else {
+            frag_b(bhf + 2 * jj, bh, ldb, nl + 16 * jj, ks);
+            if (kBLo) frag_b(blf + 2 * jj, bl, ldb, nl + 16 * jj, ks);
+          }
+        }
+        // the passes in turn, so that an accumulator's next MMA is UJ away
+#pragma unroll
+        for (int j = 0; j < UJ; ++j) mma_bf16(acc[ui][j], ah, bhf[j]);
+        if (kASplit) {
+#pragma unroll
+          for (int j = 0; j < UJ; ++j) mma_bf16(acc[ui][j], al, bhf[j]);
+        }
+        if (kBLo) {
+#pragma unroll
+          for (int j = 0; j < UJ; ++j) mma_bf16(acc[ui][j], ah, blf[j]);
+        }
+      }
+    }
+    if (kt == kts - 1) {
+#pragma unroll
+      for (int ui = 0; ui < kU; ++ui) {
+        const int u = warp + ui * W;
+        if (u < units) {
+          const int m0 = grp * 64 + u / NU * 16, nl = u % NU * 8 * UJ;
+#pragma unroll
+          for (int j = 0; j < UJ; ++j) {
+            const int n = chunk * NT + nl + j * 8 + 2 * t;
+            if (n < B.N) {
+              epi(m0 + g, n, acc[ui][j][0], acc[ui][j][1]);
+              epi(m0 + g + 8, n, acc[ui][j][2], acc[ui][j][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < UJ; ++j) acc[ui][j][0] = acc[ui][j][1] = acc[ui][j][2] = acc[ui][j][3] = 0.f;
+      }
+    }
+    if (++kt == kts) {
+      kt = 0;
+      if (++chunk == chunks) {
+        chunk = 0;
+        ++grp;
+      }
+    }
+  }
+  cp_async_wait<0>();
   __syncthreads();
-  // softmax over the item, w = e / max(sum e, 1e-30) (0 for an all-pad
-  // item), d(logit) = w (o2.g - sum_l w o2.g)
-  if (warp == 0) {
+}
+
+// ---- the per-item backward: kernels ----------------------------------------
+
+// shared memory of pool_bwd: o1 / T(o2) / dpre as A tiles (high and low);
+// o2, then t in f32, then do2's A tiles; the weight ring; five [Rt] rows;
+// bo, ab, aq
+template <bool kF32> __host__ __device__ inline long pool_smem_bytes(int L, int D, int Q) {
+  const long Rt = tile_rows(L);
+  return 4 * Rt * lda_of(imax(D, Q)) + Rt * imax(imax(4 * D, 4 * Q), 4 * lda_of(D)) +
+         Cfg<kF32>::Pool::ST * b_stage_bytes<Cfg<kF32>::Pool::NT>(kF32) + 20 * Rt + 4L * (D + 2 * Q);
+}
+
+// attn_bwd's scores and dP (f32), then T(P) and dS (high and, in f32, low)
+template <bool kF32> __host__ __device__ inline long attn_scratch_bytes(long Rt) {
+  return 2 * Rt * (Rt + 4) * 4 + (kF32 ? 4 : 2) * Rt * (Rt + 8) * 2;
+}
+
+// shared memory of attn_bwd: x's A tiles; a head's q, k, v and dO1 tiles
+// (high and, in f32, low); the weight ring, aliased by the scratch above
+template <bool kF32> __host__ __device__ inline long attn_smem_bytes(int L, int D, int H) {
+  const long Rt = tile_rows(L), ldh = round16(D / H) + 8, parts = kF32 ? 2 : 1;
+  const long att = attn_scratch_bytes<kF32>(Rt);
+  const long ring = Cfg<kF32>::Attn::ST * b_stage_bytes<Cfg<kF32>::Attn::NT>(kF32);
+  return parts * (2 * Rt * lda_of(D) + 8 * Rt * ldh) + (att > ring ? att : ring) + 8 * Rt +
+         12 * round16(D / H);
+}
+
+template <bool kF32> __host__ __device__ inline long dx_smem_bytes(int L) {
+  using C = typename Cfg<kF32>::Dx;
+  return C::ST * (AStream::stage_bytes(tile_rows(L)) + b_stage_bytes<C::NT>(kF32));
+}
+
+// One block per tile of whole items: o2 = o1 Wo + bo (dropout), t =
+// tanh(T(o2) aw + ab), the pooling softmax per item, d(logit), dpre, do2 =
+// w g + dpre aw^T (dropout), do1 = T(do2 Wo^T); writes o2, t, dpre, do2,
+// d(logit) (f32) and do1 (T).
+template <typename T>
+__global__ void __launch_bounds__(512, 1)
+pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
+                const T* __restrict__ o1, BOp wo, BOp wo_t, BOp aw, BOp aw_t,
+                const T* __restrict__ bo, const T* __restrict__ ab, const T* __restrict__ aq,
+                float* __restrict__ o2_g, float* __restrict__ t_g, float* __restrict__ dpre_g,
+                float* __restrict__ do2_g, float* __restrict__ ds_g, T* __restrict__ do1_g,
+                int M, int L, int D, int Q, unsigned seed, int block_rows, unsigned threshold,
+                float keep_scale) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Rt = tile_rows(L), ipt = items_per_tile(L);
+  const int ldA = lda_of(imax(D, Q)), ldD = lda_of(D), D16 = round16(D), Q16 = round16(Q);
+  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(smem);   // [Rt, ldA]
+  __nv_bfloat16* a_lo = a_hi + Rt * ldA;
+  unsigned char* r2 = smem + 4L * Rt * ldA;
+  float* o2s = reinterpret_cast<float*>(r2);                       // [Rt, D]  o2
+  float* ts = o2s;                                                 // [Rt, Q]  t
+  __nv_bfloat16* d_hi = reinterpret_cast<__nv_bfloat16*>(r2);     // [Rt, ldD] do2
+  __nv_bfloat16* d_lo = d_hi + Rt * ldD;
+  unsigned char* ring = r2 + (long)Rt * imax(imax(4 * D, 4 * Q), 4 * ldD);
+  using C = typename Cfg<kF32>::Pool;
+  float* mk = reinterpret_cast<float*>(ring + C::ST * b_stage_bytes<C::NT>(kF32));
+  float* pw = mk + Rt;    // pooling logits, then weights w
+  float* dwf = pw + Rt;   // o2 . g per row
+  float* ds = dwf + Rt;   // d(logit)
+  int* gi = reinterpret_cast<int*>(ds + Rt);  // [Rt] the row's item, for g
+  float* bos = reinterpret_cast<float*>(gi + Rt);  // bo, ab, aq in f32
+  float* abs_ = bos + D;
+  float* aqs = abs_ + Q;
+
+  const int item0 = blockIdx.x * ipt;
+  const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
+  const long row0 = (long)item0 * L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto gval = [=](int r, int n) { return g[(long)gi[r] * D + n]; };
+  stage_tile<4>(o1 + row0 * D, D, nrows, D, Rt, D16, a_hi, a_lo, ldA, kF32);
+  for (int r = tid; r < Rt; r += blockDim.x) {
+    mk[r] = r < nrows ? mask[row0 + r] : 0.f;
+    gi[r] = item0 + (r < nrows ? r / L : 0);
+  }
+  for (int i = tid; i < D; i += blockDim.x) bos[i] = to_f(bo[i]);
+  for (int i = tid; i < Q; i += blockDim.x) {
+    abs_[i] = to_f(ab[i]);
+    aqs[i] = to_f(aq[i]);
+  }
+
+  // o2 = o1 @ Wo + bo, then dropout
+  tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
+      ASmem{a_hi, a_lo, ldA}, wo, Rt, ring, [=](int r, int n, float a0, float a1) {
+        float v0 = 0.f, v1 = 0.f;
+        if (r < nrows) {
+          v0 = dropout(a0 + bos[n], seed, block_rows, row0 + r, n, threshold, keep_scale);
+          v1 = dropout(a1 + bos[n + 1], seed, block_rows, row0 + r, n + 1, threshold,
+                       keep_scale);
+          store2(o2_g + (row0 + r) * D + n, v0, v1);
+        }
+        store2(o2s + r * D + n, v0, v1);
+      });
+  // o2 . g per row; T(o2) as the next A
+  for (int r = warp; r < nrows; r += C::W) {
+    float dw = 0.f;
+    for (int d = lane; d < D; d += 32) dw = fmaf(o2s[r * D + d], gval(r, d), dw);
+    dw = warp_sum(dw);
+    if (lane == 0) dwf[r] = dw;
+  }
+  for (int i = tid; i < Rt * D16; i += blockDim.x) {
+    const int r = i / D16, c = i % D16;
+    put(a_hi, a_lo, r * ldA + c, c < D ? rnd<T>(o2s[r * D + c]) : 0.f, kF32);
+  }
+  __syncthreads();
+  // t = tanh(T(o2) @ aw + ab)
+  tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
+      ASmem{a_hi, a_lo, ldA}, aw, Rt, ring, [=](int r, int n, float a0, float a1) {
+        const float t0 = tanhf(a0 + abs_[n]), t1 = tanhf(a1 + abs_[n + 1]);
+        store2(ts + r * Q + n, t0, t1);
+        if (r < nrows) {
+          store2(t_g + (row0 + r) * Q + n, t0, t1);
+        }
+      });
+  // pooling logits t . aq, one warp per row
+  for (int r = warp; r < nrows; r += C::W) {
+    float s = 0.f;
+    for (int q = lane; q < Q; q += 32) s = fmaf(ts[r * Q + q], aqs[q], s);
+    s = warp_sum(s);
+    if (lane == 0) pw[r] = mk[r] > 0.f ? s : -1e9f;
+  }
+  __syncthreads();
+  // softmax over each item, one warp per item: w = e / max(sum e, 1e-30)
+  // (0 for an all-pad item), d(logit) = w (o2.g - sum_l w o2.g)
+  for (int it = warp; it < nitems; it += C::W) {
+    float* p = pw + it * L;
+    const float* m = mk + it * L;
     float mx = -INFINITY;
-    for (int i = lane; i < L; i += 32) mx = fmaxf(mx, pw[i]);
+    for (int i = lane; i < L; i += 32) mx = fmaxf(mx, p[i]);
     mx = warp_max(mx);
     float den = 0.f;
     for (int i = lane; i < L; i += 32) {
-      const float e = mk[i] > 0.f ? expf(pw[i] - mx) : 0.f;
-      pw[i] = e;
+      const float e = m[i] > 0.f ? expf(p[i] - mx) : 0.f;
+      p[i] = e;
       den += e;
     }
     den = fmaxf(warp_sum(den), 1e-30f);
     float ip = 0.f;
     for (int i = lane; i < L; i += 32) {
-      pw[i] = pw[i] / den;
-      ip += pw[i] * dwf[i];
+      p[i] = p[i] / den;
+      ip += p[i] * dwf[it * L + i];
     }
     ip = warp_sum(ip);
-    for (int i = lane; i < Rp; i += 32) {
-      if (i < L) {
-        ds[i] = pw[i] * (dwf[i] - ip);
-      } else {
-        pw[i] = 0.f;
-        ds[i] = 0.f;
-      }
+    for (int i = lane; i < L; i += 32) ds[it * L + i] = p[i] * (dwf[it * L + i] - ip);
+  }
+  for (int r = nrows + tid; r < Rt; r += blockDim.x) pw[r] = ds[r] = 0.f;
+  __syncthreads();
+  for (int r = tid; r < nrows; r += blockDim.x) ds_g[row0 + r] = ds[r];
+  // dpre = d(logit) aq (1 - t^2), split as the next A
+  for (int i = tid; i < Rt * Q16; i += blockDim.x) {
+    const int r = i / Q16, q = i % Q16;
+    float v = 0.f;
+    if (r < nrows && q < Q) {
+      const float t = ts[r * Q + q];
+      v = (ds[r] * aqs[q]) * (1.f - t * t);
+      dpre_g[(row0 + r) * Q + q] = v;
     }
+    put(a_hi, a_lo, r * ldA + q, v, true);
   }
   __syncthreads();
-  for (int i = tid; i < L; i += blockDim.x) ds_g[row0 + i] = ds[i];
-  // dpre = d(logit) aq (1 - t^2)
-  for (int e = tid; e < Rp * Q; e += blockDim.x) {
-    const int r = e / Q, q = e % Q;
-    const float t = ts[r * Qp + q];
-    const float v = r < L ? (ds[r] * to_f(aq[q])) * (1.f - t * t) : 0.f;
-    ts[r * Qp + q] = v;
-    if (r < L) dpre_g[(row0 + r) * Q + q] = v;
+  // t is spent: do2's tiles take its place, their columns past D zeroed
+  for (int i = tid; i < Rt * (D16 - D); i += blockDim.x) {
+    const int r = i / (D16 - D), c = D + i % (D16 - D);
+    d_hi[r * ldD + c] = d_lo[r * ldD + c] = __float2bfloat16_rn(0.f);
   }
-  __syncthreads();
-  // do2 = w g + dpre @ aw^T, then the dropout scale (o1 is no longer needed)
-  block_product_t<T>(
-      ts, Qp, Rp, Rp, Q, aw, Q, D,
-      [=](int r, int n, float a0, float a1) {
+  // do2 = w g + dpre @ aw^T, then the dropout scale
+  tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+      ASmem{a_hi, a_lo, ldA}, aw_t, Rt, ring, [=](int r, int n, float a0, float a1) {
         float v0 = 0.f, v1 = 0.f;
-        if (r < L) {
-          v0 = dropout(pw[r] * gs[n] + a0, seed, block_rows, row0 + r, n, threshold,
+        if (r < nrows) {
+          v0 = dropout(pw[r] * gval(r, n) + a0, seed, block_rows, row0 + r, n, threshold,
                        keep_scale);
-          v1 = dropout(pw[r] * gs[n + 1] + a1, seed, block_rows, row0 + r, n + 1, threshold,
-                       keep_scale);
-          do2_g[(row0 + r) * D + n] = v0;
-          do2_g[(row0 + r) * D + n + 1] = v1;
+          v1 = dropout(pw[r] * gval(r, n + 1) + a1, seed, block_rows, row0 + r, n + 1,
+                       threshold, keep_scale);
+          store2(do2_g + (row0 + r) * D + n, v0, v1);
         }
-        as[r * D + n] = v0;
-        as[r * D + n + 1] = v1;
+        put(d_hi, d_lo, r * ldD + n, v0, true);
+        put(d_hi, d_lo, r * ldD + n + 1, v1, true);
       });
-  __syncthreads();
   // do1 = T(do2 @ Wo^T)
-  block_product_t<T>(
-      as, D, Rp, Rp, D, wo, D, D,
-      [=](int r, int n, float a0, float a1) {
-        if (r < L) {
-          do1_g[(row0 + r) * D + n] = from_f<T>(a0);
-          do1_g[(row0 + r) * D + n + 1] = from_f<T>(a1);
+  tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+      ASmem{d_hi, d_lo, ldD}, wo_t, Rt, ring, [=](int r, int n, float a0, float a1) {
+        if (r < nrows) {
+          store2(do1_g + (row0 + r) * D + n, a0, a1);
         }
       });
 }
 
+// One block per tile of whole items, head by head: q|k|v of the head
+// recomputed from x (x Wqkv on the tensor cores), the attention over the
+// tile's block diagonal (a penalty of 1e9 between items, and on pad tokens
+// within one, as the TPU kernel masks), dS, and dq, dk, dv; writes dqkv (f32).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask,
-                const T* __restrict__ wqkv, const T* __restrict__ bqkv,
-                const T* __restrict__ do1_g, float* __restrict__ dqkv_g, int L, int D, int H,
-                float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int Rp = round4(L), dh = D / H;
-  float* xs = smem;               // [Rp, D]  tokens
-  float* qh = xs + Rp * D;        // [Rp, dh] one head's q, k, v, dO1 (T-rounded)
-  float* kh = qh + Rp * dh;
-  float* vh = kh + Rp * dh;
-  float* gh = vh + Rp * dh;
-  float* pr = gh + Rp * dh;       // [L, L]   probabilities (f32)
-  float* sd = pr + L * L;         // [L, L]   dP, then T(dS)
-  float* mk = sd + L * L;         // [Rp]     token mask
+__global__ void __launch_bounds__(256, 1)
+attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqkv,
+                const T* __restrict__ bqkv, const T* __restrict__ do1_g,
+                float* __restrict__ dqkv_g, int M, int L, int D, int H, float scale) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Rt = tile_rows(L), ipt = items_per_tile(L);
+  const int dh = D / H, dhp = round16(dh), ldh = dhp + 8, ldX = lda_of(D), D16 = round16(D);
+  const int ldS = Rt + 4, ldP = Rt + 8;
+  using C = typename Cfg<kF32>::Attn;
+  constexpr int parts = kF32 ? 2 : 1;  // low parts in f32 only
+  __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX]
+  __nv_bfloat16* x_lo = x_hi + Rt * ldX;
+  // q, k, v, dO1 of one head, [Rt, ldh] each: high parts, then low parts
+  __nv_bfloat16* hd = x_hi + parts * Rt * ldX;
+  auto head_hi = [=](int i) { return hd + i * Rt * ldh; };
+  auto head_lo = [=](int i) { return hd + (4 + i) * Rt * ldh; };
+  unsigned char* ring = reinterpret_cast<unsigned char*>(hd + parts * 4 * Rt * ldh);
+  float* S = reinterpret_cast<float*>(ring);  // [Rt, ldS] scores, then P
+  float* DP = S + Rt * ldS;                   // [Rt, ldS] dP, then P dP
+  __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(DP + Rt * ldS);  // [Rt, ldP] T(P)
+  __nv_bfloat16* p_lo = p_hi + Rt * ldP;
+  __nv_bfloat16* s_hi = p_hi + parts * Rt * ldP;  // [Rt, ldP] dS
+  __nv_bfloat16* s_lo = s_hi + Rt * ldP;
+  const long att = attn_scratch_bytes<kF32>(Rt), rb = C::ST * b_stage_bytes<C::NT>(kF32);
+  float* mk = reinterpret_cast<float*>(ring + (att > rb ? att : rb));  // [Rt] mask
+  int* itm = reinterpret_cast<int*>(mk + Rt);                          // [Rt] item of a row
+  float* hb = reinterpret_cast<float*>(itm + Rt);  // [3 dhp] the head's q|k|v biases
 
-  const int m = blockIdx.x;
-  const long row0 = (long)m * L;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const long ld = 3L * D;
-  for (int i = tid; i < Rp * D; i += blockDim.x) xs[i] = i < L * D ? to_f(x[row0 * D + i]) : 0.f;
-  for (int i = tid; i < Rp; i += blockDim.x) mk[i] = i < L ? mask[row0 + i] : 0.f;
-  __syncthreads();
+  const int item0 = blockIdx.x * ipt;
+  const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
+  const long row0 = (long)item0 * L, ld3 = 3L * D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  stage_tile<4>(x + row0 * D, D, nrows, D, Rt, D16, x_hi, x_lo, ldX, kF32);
+  for (int r = tid; r < Rt; r += blockDim.x) {
+    mk[r] = r < nrows ? mask[row0 + r] : 0.f;
+    itm[r] = r / L;  // rows past the last item fall in items of their own
+  }
+  // the penalty of the TPU kernel within an item; between items the same 1e9
+  auto pen = [=](int i, int j) {
+    return itm[i] == itm[j] ? (mk[i] * mk[j] - 1.f) * 1e9f : -1e9f;
+  };
+  const int nm = Rt / 16, nn = (Rt + 31) / 32, nd = dhp / 16;
 
   for (int h = 0; h < H; ++h) {
-    block_product<T, false>(
-        xs, D, Rp, D, wqkv, 3 * D, 3 * dh,
-        [=](int n) { return (n / dh) * D + h * dh + n % dh; },
-        [=](int r, int n, float a0, float a1) {
-          const int seg = n / dh, d = n % dh, c = seg * D + h * dh + d;
-          float v0 = a0 + to_f(bqkv[c]), v1 = a1 + to_f(bqkv[c + 1]);
-          if (seg == 0) { v0 *= scale; v1 *= scale; }
-          float* dst = seg == 0 ? qh : (seg == 1 ? kh : vh);
-          dst[r * dh + d] = rnd<T>(v0);
-          dst[r * dh + d + 1] = rnd<T>(v1);
+    // this head's dO1, from the pooling kernel: copies that land under the
+    // projection below (bf16), or loads split into high and low parts (f32)
+    if (kF32) {
+      stage_tile<2>(do1_g + row0 * D + h * dh, D, nrows, dh, Rt, dhp, head_hi(3), head_lo(3),
+                    ldh, true);
+    } else {
+      for (int i = tid; i < Rt * (dhp / 2); i += blockDim.x) {
+        const int r = i / (dhp / 2), d = i % (dhp / 2) * 2;
+        const bool valid = r < nrows && d < dh;
+        cp_async(head_hi(3) + r * ldh + d, valid ? do1_g + (row0 + r) * D + h * dh + d : do1_g,
+                 4, valid);
+      }
+    }
+    // q (scaled), k, v = T(x Wqkv + bqkv) over the head's columns, each
+    // padded from dh to dhp with zeros
+    for (int i = tid; i < 3 * dhp; i += blockDim.x) {
+      const int seg = i / dhp, d = i % dhp;
+      hb[i] = d < dh ? to_f(bqkv[seg * D + h * dh + d]) : 0.f;
+    }
+    BOp b = wqkv;
+    b.hi += h * 3 * dhp;
+    if (kF32) b.lo += h * 3 * dhp;
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
+        ASmem{x_hi, x_lo, ldX}, b, Rt, ring, [=](int r, int n, float a0, float a1) {
+          const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
+          float v0 = 0.f, v1 = 0.f;
+          if (d < dh) {
+            v0 = a0 + hb[n];
+            v1 = a1 + hb[n + 1];
+            if (seg == 0) { v0 *= scale; v1 *= scale; }
+          }
+          put(head_hi(seg), head_lo(seg), r * ldh + d, rnd<T>(v0), kF32);
+          put(head_hi(seg), head_lo(seg), r * ldh + d + 1, rnd<T>(v1), kF32);
         });
-    for (int e = tid; e < Rp * dh; e += blockDim.x) {
-      const int r = e / dh, d = e % dh;
-      gh[e] = r < L ? to_f(do1_g[(row0 + r) * D + h * dh + d]) : 0.f;
+    // scores q k^T + penalty and dP = dO1 v^T over the tile, 16 x 32 units
+    for (int u = warp; u < nm * nn; u += C::W) {
+      const int m0 = u / nn * 16, n0 = u % nn * 32;
+      float sa[4][4] = {}, pa[4][4] = {};
+      for (int k = 0; k < dhp; k += 16) {
+        unsigned qh[4], ql[4], gh[4], gl[4];
+        frag_a(qh, head_hi(0), ldh, m0, k);
+        frag_a(gh, head_hi(3), ldh, m0, k);
+        if (kF32) {
+          frag_a(ql, head_lo(0), ldh, m0, k);
+          frag_a(gl, head_lo(3), ldh, m0, k);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int n = n0 + 16 * jj;
+          if (n >= Rt) break;
+          unsigned kb[2][2], vb[2][2];
+          frag_b_t(kb, head_hi(1), ldh, n, k);
+          frag_b_t(vb, head_hi(2), ldh, n, k);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            mma_bf16(sa[2 * jj + e], qh, kb[e]);
+            mma_bf16(pa[2 * jj + e], gh, vb[e]);
+          }
+          if (kF32) {
+            unsigned kl[2][2], vl[2][2];
+            frag_b_t(kl, head_lo(1), ldh, n, k);
+            frag_b_t(vl, head_lo(2), ldh, n, k);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              mma_bf16(sa[2 * jj + e], ql, kb[e]);
+              mma_bf16(sa[2 * jj + e], qh, kl[e]);
+              mma_bf16(pa[2 * jj + e], gl, vb[e]);
+              mma_bf16(pa[2 * jj + e], gh, vl[e]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + j * 8 + 2 * t;
+        if (n >= Rt) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = m0 + g + 8 * hh;
+          S[i * ldS + n] = sa[j][2 * hh] + pen(i, n);
+          S[i * ldS + n + 1] = sa[j][2 * hh + 1] + pen(i, n + 1);
+          DP[i * ldS + n] = pa[j][2 * hh];
+          DP[i * ldS + n + 1] = pa[j][2 * hh + 1];
+        }
+      }
     }
     __syncthreads();
-    // scores and dP = dO1 v^T
-    for (int e = tid; e < L * L; e += blockDim.x) {
-      const int i = e / L, j = e % L;
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < dh; ++d) {
-        s = fmaf(qh[i * dh + d], kh[j * dh + d], s);
-        dp = fmaf(gh[i * dh + d], vh[j * dh + d], dp);
+    // probabilities, then dS = T(P dP - P sum_j(P dP)), a row's scores and
+    // dP in registers: G lanes a row (8 up to Rt = 64, else 32), up to 8
+    // values a lane (Rt <= 256: the scores of a larger tile do not fit in
+    // shared memory, which the wrapper checks); at G = 8 a pass takes rows 2
+    // apart (a stride of 2 ldS floats, 8 banks: the 4 rows fall in distinct
+    // banks)
+    {
+      const int G = Rt <= 64 ? 8 : 32, R = 32 / G, j0 = lane % G;
+      for (int b = warp * 2 * R; b < Rt; b += C::W * 2 * R) {
+#pragma unroll
+        for (int par = 0; par < 2; ++par) {
+          const int i = b + 2 * (lane / G) + par;
+          float sv[8], dv[8];
+          float mx = -INFINITY;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int j = j0 + G * c;
+            sv[c] = j < Rt ? S[i * ldS + j] : -INFINITY;
+            dv[c] = j < Rt ? DP[i * ldS + j] : 0.f;
+            mx = fmaxf(mx, sv[c]);
+          }
+          mx = group_max(mx, G);
+          float sum = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            sv[c] = j0 + G * c < Rt ? expf(sv[c] - mx) : 0.f;
+            sum += sv[c];
+          }
+          const float inv = 1.f / group_sum(sum, G);
+          float rsum = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            sv[c] *= inv;
+            dv[c] *= sv[c];
+            rsum += dv[c];
+          }
+          rsum = group_sum(rsum, G);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int j = j0 + G * c;
+            if (j < Rt) {
+              put(p_hi, p_lo, i * ldP + j, rnd<T>(sv[c]), kF32);
+              put(s_hi, s_lo, i * ldP + j, rnd<T>(dv[c] - sv[c] * rsum), kF32);
+            }
+          }
+        }
       }
-      pr[e] = s + (mk[i] * mk[j] - 1.f) * 1e9f;
-      sd[e] = dp;
     }
     __syncthreads();
-    // probabilities, then dS = T(P dP - P sum_j(P dP)), one warp per row
-    for (int i = warp; i < L; i += nwarps) {
-      float mx = -INFINITY;
-      for (int j = lane; j < L; j += 32) mx = fmaxf(mx, pr[i * L + j]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float e = expf(pr[i * L + j] - mx);
-        pr[i * L + j] = e;
-        sum += e;
+    // dq = dS k * scale, dk = dS^T q, dv = T(P)^T dO1, 16 x 16 units (24
+    // at dh = 30: three for each warp)
+    for (int u = warp; u < 3 * nm * nd; u += C::W) {
+      const int prod = u / (nm * nd), rem = u % (nm * nd);
+      const int m0 = rem / nd * 16, n0 = rem % nd * 16;
+      const __nv_bfloat16* a_h = prod == 2 ? p_hi : s_hi;
+      const __nv_bfloat16* a_l = prod == 2 ? p_lo : s_lo;
+      const int bi = prod == 0 ? 1 : (prod == 1 ? 0 : 3);  // k, q, dO1
+      float acc[2][4] = {};
+      for (int k = 0; k < Rt; k += 16) {
+        unsigned ah[4], al[4], bh[2][2];
+        if (prod == 0) {
+          frag_a(ah, a_h, ldP, m0, k);
+          if (kF32) frag_a(al, a_l, ldP, m0, k);
+        } else {
+          frag_a_t(ah, a_h, ldP, m0, k);
+          if (kF32) frag_a_t(al, a_l, ldP, m0, k);
+        }
+        frag_b(bh, head_hi(bi), ldh, n0, k);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) mma_bf16(acc[e], ah, bh[e]);
+        if (kF32) {
+          unsigned bl[2][2];
+          frag_b(bl, head_lo(bi), ldh, n0, k);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            mma_bf16(acc[e], al, bh[e]);
+            mma_bf16(acc[e], ah, bl[e]);
+          }
+        }
       }
-      sum = warp_sum(sum);
-      float rsum = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float p = pr[i * L + j] / sum;
-        pr[i * L + j] = p;
-        sd[i * L + j] = p * sd[i * L + j];
-        rsum += sd[i * L + j];
+      const float f = prod == 0 ? scale : 1.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int d = n0 + j * 8 + 2 * t;
+        if (d >= dh) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = m0 + g + 8 * hh;
+          if (i < nrows) {
+            float* o = dqkv_g + (row0 + i) * ld3 + prod * D + h * dh + d;
+            store2(o, acc[j][2 * hh] * f, acc[j][2 * hh + 1] * f);
+          }
+        }
       }
-      rsum = warp_sum(rsum);
-      for (int j = lane; j < L; j += 32)
-        sd[i * L + j] = rnd<T>(sd[i * L + j] - pr[i * L + j] * rsum);
     }
-    __syncthreads();
-    // dq = dS k * scale, dk = dS^T q, dv = T(P)^T dO1
-    for (int e = tid; e < L * dh; e += blockDim.x) {
-      const int i = e / dh, d = e % dh;
-      float dq = 0.f, dk = 0.f, dv = 0.f;
-      for (int j = 0; j < L; ++j) {
-        dq = fmaf(sd[i * L + j], kh[j * dh + d], dq);
-        dk = fmaf(sd[j * L + i], qh[j * dh + d], dk);
-        dv = fmaf(rnd<T>(pr[j * L + i]), gh[j * dh + d], dv);
-      }
-      float* out = dqkv_g + (row0 + i) * ld + h * dh + d;
-      out[0] = dq * scale;
-      out[D] = dk;
-      out[2 * D] = dv;
-    }
-    __syncthreads();
+    __syncthreads();  // the head's tiles and the ring are free again
   }
 }
 
+// dx = T(dqkv Wqkv^T): one block per tile of whole items and 128 columns
+// of dx, dqkv's f32 rows staged with the weights and split in registers.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const float* __restrict__ dqkv_g, const T* __restrict__ wqkv, T* __restrict__ dx,
-          int L, int D) {
-  const long row0 = (long)blockIdx.x * L;
-  block_product_t<T>(
-      dqkv_g + row0 * 3 * D, 3 * D, round4(L), L, 3 * D, wqkv, 3 * D, D,
+__global__ void __launch_bounds__(512, 2)
+dx_kernel(const float* __restrict__ dqkv_g, BOp wqkv_t, T* __restrict__ dx, int M, int L,
+          int D) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Rt = tile_rows(L), ipt = items_per_tile(L);
+  const int item0 = blockIdx.x * ipt;
+  const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
+  const long row0 = (long)item0 * L;
+  using C = typename Cfg<kF32>::Dx;
+  const int n0 = blockIdx.y * C::NT;
+  BOp b = wqkv_t;
+  b.hi += (long)n0 * b.ld;
+  if (b.lo != nullptr) b.lo += (long)n0 * b.ld;
+  b.N = D - n0 < C::NT ? D - n0 : C::NT;
+  tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+      AStream{dqkv_g + row0 * 3 * D, 3L * D, nrows, 3 * D, Rt}, b, Rt, smem,
       [=](int r, int n, float a0, float a1) {
-        if (r < L) {
-          dx[(row0 + r) * D + n] = from_f<T>(a0);
-          dx[(row0 + r) * D + n + 1] = from_f<T>(a1);
+        if (r < nrows) {
+          store2(dx + (row0 + r) * D + n0 + n, a0, a1);
         }
       });
 }
 
-// `bytes` (16, 8 or 4) from global to shared memory, asynchronously; with
-// valid false the destination is zero-filled and nothing is read
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? bytes : 0;
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-// x0, x1 -> bf16x2 high parts (toward zero) and low parts (x - high,
-// rounded); x0 in the lower half, as the MMA fragments take them
-__device__ __forceinline__ void split_bf16x2(float x0, float x1, unsigned& hi, unsigned& lo) {
-  asm("cvt.rz.bf16x2.f32 %0, %1, %2;\n" : "=r"(hi) : "f"(x1), "f"(x0));
-  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(lo) : "f"(x1 - h1), "f"(x0 - h0));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8 x 8 bf16 matrices from shared memory, transposed; lane l gives
-// the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// The weights into ws as WsLayout lays them out (their high and low parts
+// for f32 weights), one thread per value of Wqkv, Wo, aw in turn
+template <typename T>
+__global__ void stage_weights_kernel(const T* __restrict__ wqkv, const T* __restrict__ wo,
+                                     const T* __restrict__ aw, int D, int H, int Q,
+                                     __nv_bfloat16* __restrict__ hi,
+                                     __nv_bfloat16* __restrict__ lo) {
+  const WsLayout w = ws_layout(D, H, Q);
+  const int dh = D / H, dhp = round16(dh);
+  const long n_qkv = 3L * D * D, n_o = (long)D * D, n = n_qkv + n_o + (long)D * Q;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    float v;
+    long at, at2 = -1;
+    if (i < n_qkv) {
+      const int k = (int)(i / (3 * D)), c = (int)(i % (3 * D));
+      const int seg = c / D, h = c % D / dh, d = c % dh;
+      v = to_f(wqkv[i]);
+      at = w.qkv + (long)k * w.ld_qkv + c;
+      at2 = w.head + (long)k * w.ld_head + (h * 3 + seg) * dhp + d;
+    } else if (i < n_qkv + n_o) {
+      const long j = i - n_qkv;
+      v = to_f(wo[j]);
+      at = w.o + j / D * w.ld_o + j % D;
+    } else {
+      const long j = i - n_qkv - n_o;
+      v = to_f(aw[j]);
+      at = w.aw + j / Q * w.ld_aw + j % Q;
+    }
+    __nv_bfloat16 h_, l_;
+    split_bf16(v, h_, l_);
+    if (sizeof(T) == 2) h_ = __float2bfloat16_rn(v);  // a bf16 weight is its own high part
+    hi[at] = h_;
+    if (at2 >= 0) hi[at2] = h_;
+    if (sizeof(T) == 4) {
+      lo[at] = l_;
+      if (at2 >= 0) lo[at2] = l_;
+    }
+  }
 }
 
 // partial[split][k][n] = sum over the split's rows r of [a | 1][r][k] * b[r][n]
@@ -638,36 +1217,58 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
                        const void* wqkv, const void* bqkv, const void* wo, const void* bo,
                        const void* aw, const void* ab, const void* aq, void* dx, void* o2_s,
                        void* t_s, void* dpre_s, void* do2_s, void* ds_s, void* dqkv_s,
-                       void* do1_s, int M, int L, int D, int H, int Q, float scale,
+                       void* do1_s, void* ws, int M, int L, int D, int H, int Q, float scale,
                        unsigned seed, int block_rows, unsigned threshold, float keep_scale,
                        cudaStream_t stream) {
-  const size_t pool_smem = pool_smem_floats(L, D, Q) * sizeof(float);
-  const size_t attn_smem = attn_smem_floats(L, D, H) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(pool_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)pool_smem);
+  using bf16 = __nv_bfloat16;
+  constexpr bool kF32 = sizeof(T) == 4;
+  // the weights as the kernels read them, in ws (WsLayout), once per call
+  const WsLayout wl = ws_layout(D, H, Q);
+  bf16* w_hi = static_cast<bf16*>(ws);
+  bf16* w_lo = kF32 ? w_hi + wl.total : nullptr;
+  const long n_w = 3L * D * D + (long)D * D + (long)D * Q;
+  stage_weights_kernel<T><<<(int)((n_w + 255) / 256 < 2048 ? (n_w + 255) / 256 : 2048), 256, 0,
+                            stream>>>(static_cast<const T*>(wqkv), static_cast<const T*>(wo),
+                                      static_cast<const T*>(aw), D, H, Q, w_hi, w_lo);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)attn_smem);
-  if (err != cudaSuccess) return err;
-  pool_bwd_kernel<T><<<M, kThreads, pool_smem, stream>>>(
-      static_cast<const float*>(g), static_cast<const float*>(mask),
-      static_cast<const T*>(o1), static_cast<const T*>(wo), static_cast<const T*>(bo),
-      static_cast<const T*>(aw), static_cast<const T*>(ab), static_cast<const T*>(aq),
-      static_cast<float*>(o2_s), static_cast<float*>(t_s), static_cast<float*>(dpre_s),
-      static_cast<float*>(do2_s), static_cast<float*>(ds_s), static_cast<T*>(do1_s), L, D, Q,
-      seed, block_rows, threshold, keep_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T><<<M, kThreads, attn_smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mask), static_cast<const T*>(wqkv),
-      static_cast<const T*>(bqkv), static_cast<const T*>(do1_s), static_cast<float*>(dqkv_s),
+  auto lo_of = [&](long off) { return kF32 ? w_lo + off : nullptr; };
+  const int tiles = (M + items_per_tile(L) - 1) / items_per_tile(L);
+  const int dhp = round16(D / H);
+  const BOp wo_b = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
+  const BOp aw_b = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, D, Q);
+  // stored by columns: the products with W^T
+  const BOp wo_t = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
+  const BOp aw_t = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, Q, D);
+  const BOp qkv_t = plain_b(w_hi + wl.qkv, lo_of(wl.qkv), wl.ld_qkv, 3 * D, D);
+  // head 0's q|k|v columns, each padded to dhp (the kernel moves to head h)
+  const BOp qkv_head{w_hi + wl.head, lo_of(wl.head), wl.ld_head, D, 3 * dhp, dhp, D / H};
+
+  const int pool_smem = (int)pool_smem_bytes<kF32>(L, D, Q);
+  const int attn_smem = (int)attn_smem_bytes<kF32>(L, D, H), dx_smem = (int)dx_smem_bytes<kF32>(L);
+  if ((err = cudaFuncSetAttribute(pool_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  pool_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  attn_smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  dx_smem)) != cudaSuccess)
+    return err;
+  pool_bwd_kernel<T><<<tiles, 32 * Cfg<kF32>::Pool::W, pool_smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(mask), static_cast<const T*>(o1),
+      wo_b, wo_t, aw_b, aw_t, static_cast<const T*>(bo), static_cast<const T*>(ab),
+      static_cast<const T*>(aq), static_cast<float*>(o2_s), static_cast<float*>(t_s),
+      static_cast<float*>(dpre_s), static_cast<float*>(do2_s), static_cast<float*>(ds_s),
+      static_cast<T*>(do1_s), M, L, D, Q, seed, block_rows, threshold, keep_scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attn_bwd_kernel<T><<<tiles, 32 * Cfg<kF32>::Attn::W, attn_smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mask), qkv_head,
+      static_cast<const T*>(bqkv), static_cast<const T*>(do1_s), static_cast<float*>(dqkv_s), M,
       L, D, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dx_kernel<T><<<M, kThreads, 0, stream>>>(static_cast<const float*>(dqkv_s),
-                                           static_cast<const T*>(wqkv), static_cast<T*>(dx),
-                                           L, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  constexpr int dx_cols = Cfg<kF32>::Dx::NT;
+  dx_kernel<T><<<dim3(tiles, (D + dx_cols - 1) / dx_cols), 32 * Cfg<kF32>::Dx::W, dx_smem,
+                 stream>>>(
+      static_cast<const float*>(dqkv_s), qkv_t, static_cast<T*>(dx), M, L, D);
   return cudaGetLastError();
 }
 
@@ -710,32 +1311,44 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, o1, weights, dx, do1_s); g, mask and
 // the scratch buffers (o2_s [M*L, D], t_s and dpre_s [M*L, Q], do2_s
-// [M*L, D], ds_s [M*L], dqkv_s [M*L, 3D]) are float32. Dropout arguments as
+// [M*L, D], ds_s [M*L], dqkv_s [M*L, 3D]) are float32. ws: room for
+// newsrec_fused_encoder_bwd_ws_elems(D, H, Q) bfloat16 values, twice that
+// for float32 (the weights as the kernels read them). Dropout arguments as
 // for newsrec_fused_encoder_fwd, and equal to the forward's. All operands
 // contiguous on one device. Returns a cudaError_t code.
 int newsrec_fused_encoder_bwd(int dtype, const void* g, const void* x, const void* mask,
                               const void* o1, const void* wqkv, const void* bqkv, const void* wo,
                               const void* bo, const void* aw, const void* ab, const void* aq,
                               void* dx, void* o2_s, void* t_s, void* dpre_s, void* do2_s,
-                              void* ds_s, void* dqkv_s, void* do1_s, int M, int L, int D, int H,
+                              void* ds_s, void* dqkv_s, void* do1_s, void* ws, int M, int L,
+                              int D, int H,
                               int Q, float scale, unsigned seed, int block_rows,
                               unsigned threshold, float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_bwd<float>(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, dx, o2_s, t_s,
-                             dpre_s, do2_s, ds_s, dqkv_s, do1_s, M, L, D, H, Q, scale, seed,
+                             dpre_s, do2_s, ds_s, dqkv_s, do1_s, ws, M, L, D, H, Q, scale, seed,
                              block_rows, threshold, keep_scale, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, dx, o2_s,
-                                     t_s, dpre_s, do2_s, ds_s, dqkv_s, do1_s, M, L, D, H, Q,
+                                     t_s, dpre_s, do2_s, ds_s, dqkv_s, do1_s, ws, M, L, D, H, Q,
                                      scale, seed, block_rows, threshold, keep_scale, s);
   return cudaErrorInvalidValue;
 }
 
-long newsrec_fused_encoder_bwd_smem_bytes(int L, int D, int H, int Q) {
-  const long p = pool_smem_floats(L, D, Q), a = attn_smem_floats(L, D, H);
-  return (p > a ? p : a) * (long)sizeof(float);
+// the most shared memory one block of the backward's kernels needs (dtype
+// as for newsrec_fused_encoder_bwd)
+long newsrec_fused_encoder_bwd_smem_bytes(int dtype, int L, int D, int H, int Q) {
+  const bool f32 = dtype == 0;
+  const long p = f32 ? pool_smem_bytes<true>(L, D, Q) : pool_smem_bytes<false>(L, D, Q);
+  const long a = f32 ? attn_smem_bytes<true>(L, D, H) : attn_smem_bytes<false>(L, D, H);
+  const long d = f32 ? dx_smem_bytes<true>(L) : dx_smem_bytes<false>(L);
+  return p > a ? (p > d ? p : d) : (a > d ? a : d);
 }
+
+// bfloat16 values of the weights' layout for the per-item kernels (ws of
+// newsrec_fused_encoder_bwd holds this many, twice for float32)
+long newsrec_fused_encoder_bwd_ws_elems(int D, int H, int Q) { return ws_layout(D, H, Q).total; }
 
 // partial tiles newsrec_weight_grad needs room for: splits x Kout x N
 // floats (1 split: none, the kernel writes out directly)

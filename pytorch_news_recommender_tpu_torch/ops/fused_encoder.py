@@ -81,6 +81,14 @@ def _block_geometry(L: int, block_news: int = 64, max_rows: int = 1280) -> int:
     return step * max(1, target // step)
 
 
+def tile_geometry(L: int) -> Tuple[int, int]:
+    """Items per block of the backward's per-item kernels and the block's
+    token rows (``csrc/fused_encoder_bwd.cu``): ``64 // L`` whole items,
+    their rows rounded up to 16 (one item of ``L`` rounded up past 64)."""
+    items = 64 // L if L <= 64 else 1
+    return items, (items * L + 15) // 16 * 16
+
+
 def _dropout_threshold(rate: float) -> int:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
@@ -143,12 +151,8 @@ def fused_news_encoder_bwd_reference(g, x, mask, o1, wqkv, bqkv, wo, bo, aw,
     in float32. An item with no real token gets zero gradients."""
     T = x.dtype
     M, L, D = x.shape
-    H = num_heads
-    dh = D // H
-    scale = 1.0 / math.sqrt(dh)
     f = lambda t: t.float()  # noqa: E731
-    m = f(mask)
-    valid = m > 0
+    valid = f(mask) > 0
     # pooling backward: o2 from the o1 residual, the mask regenerated
     o2 = f(o1) @ f(wo) + f(bo)
     keep_scale = None
@@ -175,6 +179,26 @@ def fused_news_encoder_bwd_reference(g, x, mask, o1, wqkv, bqkv, wo, bo, aw,
     dbo = do2.sum((0, 1))
     do1 = (do2 @ f(wo).T).to(T)
     # attention backward: q, k, v and the probabilities recomputed
+    dqkv = attention_bwd_reference(x, mask, do1, wqkv, bqkv, num_heads=num_heads)
+    dwqkv = torch.einsum("mld,mle->de", f(x), dqkv)
+    dbqkv = dqkv.sum((0, 1))
+    dx = (dqkv @ f(wqkv).T).to(T)
+    return dx, dwqkv, dbqkv, dwo, dbo, daw, dab, daq
+
+
+def attention_bwd_reference(x, mask, do1, wqkv, bqkv, *, num_heads: int):
+    """The attention part of :func:`fused_news_encoder_bwd_reference`, item
+    by item: q, k, v and the probabilities recomputed from ``x``, then
+    ``dqkv = [dq | dk | dv]`` (``[M, L, 3D]`` float32) from the heads'
+    cotangent ``do1`` (``x``'s dtype), with the TPU kernel's rounding
+    points."""
+    T = x.dtype
+    M, L, D = x.shape
+    H = num_heads
+    dh = D // H
+    scale = 1.0 / math.sqrt(dh)
+    f = lambda t: t.float()  # noqa: E731
+    m = f(mask)
     qkv = f(x) @ f(wqkv) + f(bqkv)
     heads = lambda t: t.reshape(M, L, H, dh).transpose(1, 2)  # noqa: E731
     q = f(heads(qkv[..., :D] * scale).to(T))
@@ -192,10 +216,7 @@ def fused_news_encoder_bwd_reference(g, x, mask, o1, wqkv, bqkv, wo, bo, aw,
     dk = dsc.transpose(-1, -2) @ q
     merge = lambda t: t.transpose(1, 2).reshape(M, L, D)  # noqa: E731
     dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
-    dwqkv = torch.einsum("mld,mle->de", f(x), dqkv)
-    dbqkv = dqkv.sum((0, 1))
-    dx = (dqkv @ f(wqkv).T).to(T)
-    return dx, dwqkv, dbqkv, dwo, dbo, daw, dab, daq
+    return dqkv
 
 
 def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor,
@@ -234,16 +255,19 @@ def _lib() -> ctypes.CDLL:
     lib.newsrec_fused_encoder_fwd.argtypes = (
         [i] + [p] * 11 + [i] * 5 + [fl] + dropout + [p])
     lib.newsrec_fused_encoder_bwd.argtypes = (
-        [i] + [p] * 19 + [i] * 5 + [fl] + dropout + [p])
+        [i] + [p] * 20 + [i] * 5 + [fl] + dropout + [p])
     lg = ctypes.c_long
     lib.newsrec_weight_grad.argtypes = [i, p, lg, p, lg, lg, i, i, i, p, p, p]
     lib.newsrec_weight_grad_splits.argtypes = [lg, i, i]
+    lib.newsrec_fused_encoder_bwd_ws_elems.argtypes = [i, i, i]
+    lib.newsrec_fused_encoder_bwd_ws_elems.restype = lg
     for name in ("newsrec_fused_encoder_fwd", "newsrec_fused_encoder_bwd",
                  "newsrec_weight_grad", "newsrec_weight_grad_splits"):
         getattr(lib, name).restype = i
+    lib.newsrec_fused_encoder_smem_bytes.argtypes = [i] * 4
+    lib.newsrec_fused_encoder_bwd_smem_bytes.argtypes = [i] * 5
     for name in ("newsrec_fused_encoder_smem_bytes",
                  "newsrec_fused_encoder_bwd_smem_bytes"):
-        getattr(lib, name).argtypes = [i] * 4
         getattr(lib, name).restype = ctypes.c_long
     lib.newsrec_segment_scatter.argtypes = [i, p, p, ctypes.c_long, i, i, p, p, p, p]
     lib.newsrec_segment_scatter.restype = i
@@ -417,6 +441,48 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
     return (out[:K], out[K]) if bias else out
 
 
+def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
+    """The backward's per-item kernels (pooling, attention, dx) on a CUDA
+    tensor: ``dx``, the contiguous ``x`` and ``o1``, and the f32
+    intermediates the weight gradients read (o2, t, dpre, do2, d(logit),
+    dqkv, each ``[M*L, *]``)."""
+    lib, x, mask, weights, (M, L, D, Q) = _prepare(
+        x, mask, weights, num_heads, lambda lib: functools.partial(
+            lib.newsrec_fused_encoder_bwd_smem_bytes, _DTYPE_CODE[x.dtype]))
+    if tuple(o1.shape) != (M, L, D) or o1.dtype != x.dtype or tuple(g.shape) != (M, D):
+        raise ValueError(f"o1 must be [{M}, {L}, {D}] {x.dtype} and g [{M}, {D}]")
+    g = g.to(torch.float32).contiguous()
+    o1 = o1.contiguous()
+    dev = x.device
+    R = M * L
+    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+    dx = torch.empty_like(x)
+    # per-token intermediates in device memory, read by the weight gradients
+    o2_s, t_s, dpre_s, do2_s = empty(R, D), empty(R, Q), empty(R, Q), empty(R, D)
+    ds_s, dqkv_s = empty(R, 1), empty(R, 3 * D)
+    do1_s = torch.empty((R, D), dtype=x.dtype, device=dev)
+    # the weights as the kernels read them (bf16; f32 weights as high and
+    # low parts), written once per call
+    parts = 2 if x.dtype == torch.float32 else 1
+    ws = torch.empty(parts * lib.newsrec_fused_encoder_bwd_ws_elems(D, num_heads, Q),
+                     dtype=torch.bfloat16, device=dev)
+    if M > 0:
+        with torch.cuda.device(dev):
+            rc = lib.newsrec_fused_encoder_bwd(
+                _DTYPE_CODE[x.dtype], g.data_ptr(), x.data_ptr(), mask.data_ptr(),
+                o1.data_ptr(), *(t.data_ptr() for t in weights), dx.data_ptr(),
+                o2_s.data_ptr(), t_s.data_ptr(), dpre_s.data_ptr(),
+                do2_s.data_ptr(), ds_s.data_ptr(), dqkv_s.data_ptr(),
+                do1_s.data_ptr(), ws.data_ptr(),
+                M, L, D, num_heads, Q,
+                1.0 / math.sqrt(D // num_heads),
+                *_dropout_args(seed, L, dropout_rate),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, rc, "fused encoder backward")
+        _count(fused_news_encoder_bwd)
+    return dx, x, o1, (o2_s, t_s, dpre_s, do2_s, ds_s, dqkv_s)
+
+
 def fused_news_encoder_bwd(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, *,
                            num_heads: int, dropout_rate: float = 0.0,
                            seed: int = 0) -> Tuple[torch.Tensor, ...]:
@@ -430,34 +496,9 @@ def fused_news_encoder_bwd(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, *,
             g, x, mask, o1, *weights, num_heads=num_heads,
             dropout_rate=dropout_rate, seed=seed)
     _on_cuda(x, "fused encoder backward")
-    lib, x, mask, weights, (M, L, D, Q) = _prepare(
-        x, mask, weights, num_heads,
-        lambda lib: lib.newsrec_fused_encoder_bwd_smem_bytes)
-    if tuple(o1.shape) != (M, L, D) or o1.dtype != x.dtype or tuple(g.shape) != (M, D):
-        raise ValueError(f"o1 must be [{M}, {L}, {D}] {x.dtype} and g [{M}, {D}]")
-    g = g.to(torch.float32).contiguous()
-    o1 = o1.contiguous()
-    dev = x.device
-    R = M * L
-    empty = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-    dx = torch.empty_like(x)
-    # per-token intermediates in device memory (L2 serves each item's rows)
-    o2_s, t_s, dpre_s, do2_s = empty(R, D), empty(R, Q), empty(R, Q), empty(R, D)
-    ds_s, dqkv_s = empty(R, 1), empty(R, 3 * D)
-    do1_s = torch.empty((R, D), dtype=x.dtype, device=dev)
-    if M > 0:
-        with torch.cuda.device(dev):
-            rc = lib.newsrec_fused_encoder_bwd(
-                _DTYPE_CODE[x.dtype], g.data_ptr(), x.data_ptr(), mask.data_ptr(),
-                o1.data_ptr(), *(t.data_ptr() for t in weights), dx.data_ptr(),
-                o2_s.data_ptr(), t_s.data_ptr(), dpre_s.data_ptr(),
-                do2_s.data_ptr(), ds_s.data_ptr(), dqkv_s.data_ptr(),
-                do1_s.data_ptr(), M, L, D, num_heads, Q,
-                1.0 / math.sqrt(D // num_heads),
-                *_dropout_args(seed, L, dropout_rate),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(lib, rc, "fused encoder backward")
-        _count(fused_news_encoder_bwd)
+    dx, x, o1, (o2_s, t_s, dpre_s, do2_s, ds_s, dqkv_s) = _bwd_per_item(
+        g, x, mask, o1, weights, num_heads, dropout_rate, seed)
+    R, D = dqkv_s.shape[0], x.shape[-1]
     # four weight-gradient launches, the bias gradients with their products
     dwqkv, dbqkv = weight_grad(x.reshape(R, D), dqkv_s, bias=True)
     dwo, dbo = weight_grad(o1.reshape(R, D), do2_s, bias=True)

@@ -21,12 +21,14 @@ from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
 torch.set_num_threads(1)
 
 
-def _inputs(seed, M, L, D, Q):
+def _inputs(seed, M, L, D, Q, pads=()):
     """Masked tokens with rows of 0..L real tokens, weights and a pooled
-    cotangent, as numpy float32."""
+    cotangent, as numpy float32. Item 0 and the items in ``pads`` are all
+    pad, item 1 is full."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, L + 1, size=M)
     lens[0], lens[1] = 0, L
+    lens[list(pads)] = 0
     mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
     x = (rng.normal(size=(M, L, D)) * mask[..., None]).astype(np.float32)
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D, Q), (Q,), (Q,)]
@@ -156,6 +158,85 @@ def test_function_gradients_match_autograd_on_cpu():
         assert _rel(t.grad.numpy(), e.numpy()) < 2e-3
 
 
+def _tile_attention_bwd(x, mask, do1, wqkv, bqkv, *, num_heads):
+    """Plain model of the grouping of the attention kernel
+    (``csrc/fused_encoder_bwd.cu``, ``attn_bwd``): items packed
+    ``tile_geometry(L)`` to a tile (zero rows past the last item, and zero
+    items past M), one Rt x Rt attention per tile and head over the tile's
+    block diagonal, with the penalty ``(m_i m_j - 1) * 1e9`` within an item
+    and ``-1e9`` between items; returns ``dqkv`` ``[M, L, 3D]``."""
+    T = x.dtype
+    M, L, D = x.shape
+    H = num_heads
+    dh = D // H
+    scale = 1.0 / np.sqrt(dh)
+    items, Rt = FE.tile_geometry(L)
+    tiles = -(-M // items)
+
+    def pack(t):  # [M, L, ...] -> [tiles, Rt, ...], zeros past the last item
+        t = torch.cat([t, t.new_zeros((tiles * items - M, *t.shape[1:]))])
+        t = t.reshape(tiles, items * L, *t.shape[2:])
+        return torch.cat([t, t.new_zeros((tiles, Rt - items * L, *t.shape[2:]))], 1)
+
+    f = lambda t: t.float()  # noqa: E731
+    xt, mt, gt = f(pack(x)), f(pack(mask)), pack(do1)
+    qkv = xt @ f(wqkv) + f(bqkv)
+    heads = lambda t: t.reshape(tiles, Rt, H, dh).transpose(1, 2)  # noqa: E731
+    q = f(heads(qkv[..., :D] * scale).to(T))
+    k = f(heads(qkv[..., D:2 * D]).to(T))
+    v = f(heads(qkv[..., 2 * D:]).to(T))
+    gh = f(heads(gt))
+    item = torch.arange(Rt) // L
+    same = item[:, None] == item[None, :]
+    pen = torch.where(same, (mt[:, None, :, None] * mt[:, None, None, :] - 1.0) * 1e9,
+                      torch.tensor(-1e9))
+    sc = q @ k.transpose(-1, -2) + pen
+    ea = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    probs = ea / ea.sum(dim=-1, keepdim=True)
+    dv = f(probs.to(T)).transpose(-1, -2) @ gh
+    pdp = probs * (gh @ v.transpose(-1, -2))
+    dsc = f((pdp - probs * pdp.sum(dim=-1, keepdim=True)).to(T))
+    dq = (dsc @ k) * scale
+    dk = dsc.transpose(-1, -2) @ q
+    merge = lambda t: t.transpose(1, 2).reshape(tiles, Rt, D)  # noqa: E731
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    return dqkv[:, :items * L].reshape(tiles * items, L, 3 * D)[:M]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("M,L,pads", [(7, 12, (2,)), (13, 20, (4,)), (5, 50, (2,)),
+                                      (9, 7, (1, 3, 4)), (3, 70, ())])
+def test_tile_grouping_equals_per_item_attention(M, L, pads, rate, monkeypatch):
+    """The exactness argument of the kernels' block-diagonal attention, on
+    the CPU in float32: the tiled model's ``dqkv``, and the ``dx`` and
+    ``dWqkv`` of the plain backward run through it, within 1e-6 of the
+    per-item plain version's; all-pad items (inside a tile too) get exactly
+    zero ``dx``."""
+    D, H, Q = 32, 4, 16
+    x, mask, w, g, _ = _inputs(9, M, L, D, Q, pads)
+    tx, tm, tw, tg = *_t([x, mask]), _t(w), torch.from_numpy(g)
+    _, o1 = FE.fused_news_encoder_reference(tx, tm, *tw, num_heads=H, dropout_rate=rate,
+                                            seed=5, save_o1=True)
+    run = lambda: FE.fused_news_encoder_bwd_reference(  # noqa: E731
+        tg, tx, tm, o1, *tw, num_heads=H, dropout_rate=rate, seed=5)
+    expect = run()
+    per_item, seen = FE.attention_bwd_reference, {}
+
+    def tiled(*args, num_heads):
+        seen["item"] = per_item(*args, num_heads=num_heads)
+        seen["tile"] = _tile_attention_bwd(*args, num_heads=num_heads)
+        return seen["tile"]
+
+    monkeypatch.setattr(FE, "attention_bwd_reference", tiled)
+    got = run()
+    assert _rel(seen["tile"].numpy(), seen["item"].numpy()) < 1e-6
+    for name, a, b in zip(["dx", "dwqkv", "dbqkv"], got, expect):
+        assert _rel(a.numpy(), b.numpy()) < 1e-6, name
+    for i in (0, *pads):
+        assert torch.all(got[0][i] == 0), "an all-pad item gets zero dx"
+    assert float(seen["tile"].abs().max()) > 0
+
+
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("a_dtype", [torch.float32, torch.bfloat16, None])
 def test_weight_grad_plain_version(a_dtype, bias):
@@ -201,10 +282,17 @@ TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("M,L,D,H,Q", [(13, 20, 64, 4, 32), (9, 50, 96, 4, 48),
-                                       (64, 12, 300, 10, 200), (8, 50, 300, 10, 200)])
-def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D, H, Q):
-    x, mask, w, g, _ = _inputs(6, M, L, D, Q)
+@pytest.mark.parametrize("M,L,D,H,Q,pads", [
+    (13, 20, 64, 4, 32, ()), (9, 50, 96, 4, 48, ()), (64, 12, 300, 10, 200, ()),
+    (8, 50, 300, 10, 200, ()),
+    # the kernels take whole items in tiles of 64 rows (5 at L=12, 3 at
+    # L=20, 1 at L=50): M not a multiple of that, and an all-pad item
+    # between real items of one tile
+    (7, 12, 64, 4, 32, (2,)), (13, 20, 300, 10, 200, (4,)), (5, 50, 300, 10, 200, (2,)),
+    # head widths 24 (D=96, 4 heads) and 16 (D=64), an item past one tile
+    (11, 20, 96, 4, 48, (4,)), (3, 70, 64, 4, 32, ())])
+def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D, H, Q, pads):
+    x, mask, w, g, _ = _inputs(6, M, L, D, Q, pads)
     t = _t([x, mask, *w, g], cuda_device)
     x_, mask_, w_, g_ = t[0].to(dtype), t[1], [a.to(dtype) for a in t[2:9]], t[9]
     out, o1 = FE.fused_news_encoder(x_, mask_, *w_, num_heads=H, dropout_rate=rate,
@@ -220,7 +308,27 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D
                                                  dropout_rate=rate, seed=17)
     for a, b in zip(got, expect):
         assert _rel(a.float().cpu(), b.float().cpu()) < TOLS[dtype]
-    assert torch.all(got[0][0] == 0), "an all-pad item gets zero dx"
+    for i in (0, *pads):
+        assert torch.all(got[0][i] == 0), "an all-pad item gets zero dx"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,L", [(13, 20), (7, 12)])
+def test_backward_launches_are_bit_equal_on_card(cuda_device, dtype, M, L):
+    """No atomics and a fixed order of every sum: two backward calls on the
+    same inputs give the same bits, dx and every weight gradient."""
+    D, H, Q = 300, 10, 200
+    x, mask, w, g, _ = _inputs(8, M, L, D, Q, (3,))
+    t = _t([x, mask, *w, g], cuda_device)
+    x_, w_ = t[0].to(dtype), [a.to(dtype) for a in t[2:9]]
+    _, o1 = FE.fused_news_encoder(x_, t[1], *w_, num_heads=H, dropout_rate=0.2, seed=3,
+                                  save_o1=True)
+    run = lambda: FE.fused_news_encoder_bwd(t[9], x_, t[1], o1, *w_, num_heads=H,  # noqa: E731
+                                            dropout_rate=0.2, seed=3)
+    first = run()
+    for again in (run(), run()):
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), "the backward is not deterministic"
 
 
 def test_cuda_call_under_autograd_has_grad_fn_and_plain_gradients(cuda_device):
