@@ -16,8 +16,7 @@
 // L=20, 1 at L=50; one item of round16(L) rows past 64), its rows past the
 // last item zero. A small kernel first writes the weights in the layout the
 // copies read (stage_weights_kernel, WsLayout); then three kernels, one
-// block per tile (dx: per tile and 128 columns of dx), with the per-token
-// intermediates in device memory:
+// block per tile, with the per-token intermediates in device memory:
 //   pool_bwd:  o2 = o1 Wo + bo (dropout), t = tanh(T(o2) aw + ab), the
 //              pooling softmax per item (one warp per item, max(den, 1e-30)),
 //              d(logit), dpre, do2 = w g + dpre aw^T (dropout), do1 =
@@ -39,9 +38,10 @@
 //   q|k|v columns of Wqkv, and the transposes of Wo, aw and Wqkv (stored by
 //   columns, read with ldmatrix without .trans), in a cp.async ring of 2-3
 //   stages, the copies of the next tiles under the MMAs of this one. Each
-//   warp takes 16-row units of the 64-row tile: pool_bwd (bf16) and dx run
-//   16 warps on 128-column chunks (16 x 32 units), attn_bwd 8 on a head's 96
-//   columns (16 x 48), two blocks per SM. Each staged tile serves all 64
+//   warp takes 16-row units of the 64-row tile (Cfg): pool_bwd (bf16) runs
+//   16 warps on 128-column chunks (16 x 32 units), dx 16 on all of D at
+//   once (16 x 80), attn_bwd 8 on a head's 96 columns (16 x 48), two blocks
+//   per SM. Each staged tile serves all 64
 //   rows of the block, not one item's L; weight reads from L2 fall by 64 / L
 //   against one block per item (R_t = 128 would halve them again, but
 //   pool_bwd's f32 intermediates and operand tiles take 160 KB of shared
@@ -167,15 +167,18 @@ constexpr int kTileRows = 64;     // R_t: token rows of whole items per block
 constexpr int kKT = 64;           // depth of a staged weight tile
 // Per kernel and dtype: the width of a staged weight tile (NT columns), a
 // warp's unit (16 rows x UJ n8 tiles), the tiles in flight (ST), and the
-// block's warps. 16 warps take a 64 x 128 chunk, one 16 x 32 unit each,
-// where shared memory leaves room for the wider tiles; pool_bwd in f32 (the
-// weights' low parts double a tile) keeps 8 warps on 64-column chunks.
-// attn_bwd takes a head's 3 x 32 columns as 16 x 48 units, one for each of
-// its 8 warps, two blocks per SM in bf16; dx two blocks of 16.
+// block's warps. pool_bwd's 16 warps take a 64 x 128 chunk, one 16 x 32
+// unit each (in f32, where the weights' low parts double a tile, 8 warps
+// on 64-column chunks); measured on the H100, all of D = 300 at once in
+// 16 x 80 units from 32-deep tiles, as much as shared memory leaves room
+// for, was slower. dx's 16 warps take all of D in 16 x 80 units, one block
+// per tile, so dqkv is read once (three 128-column blocks, which read it
+// three times, were slower). attn_bwd takes a head's 3 x 32 columns as
+// 16 x 48 units, one for each of its 8 warps, two blocks per SM in bf16.
 template <bool kF32> struct Cfg {
   struct Pool { static constexpr int NT = kF32 ? 64 : 128, UJ = 4, ST = kF32 ? 2 : 3, W = kF32 ? 8 : 16; };
   struct Attn { static constexpr int NT = 96, UJ = 6, ST = kF32 ? 2 : 3, W = 8; };
-  struct Dx { static constexpr int NT = 128, UJ = 4, ST = kF32 ? 2 : 3, W = 16; };
+  struct Dx { static constexpr int NT = 320, UJ = 10, ST = kF32 ? 2 : 3, W = 16; };
 };
 
 // a staged weight tile of NT columns, in bf16: kKT x (NT + 8)
@@ -919,10 +922,11 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   }
 }
 
-// dx = T(dqkv Wqkv^T): one block per tile of whole items and 128 columns
-// of dx, dqkv's f32 rows staged with the weights and split in registers.
+// dx = T(dqkv Wqkv^T): one block per tile of whole items (and per 320
+// columns of dx), dqkv's f32 rows staged with the weights, read once, and
+// split in registers.
 template <typename T>
-__global__ void __launch_bounds__(512, 2)
+__global__ void __launch_bounds__(512, 1)
 dx_kernel(const float* __restrict__ dqkv_g, BOp wqkv_t, T* __restrict__ dx, int M, int L,
           int D) {
   constexpr bool kF32 = sizeof(T) == 4;
