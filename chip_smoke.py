@@ -78,10 +78,6 @@ TRAIN_STEPS = 40
 # launches of one backward call: the per-item kernels' (one count for the
 # pooling, attention and dx kernels of one call) and weight_grad's
 BWD_LAUNCHES = (1, 4)
-# fused_encoder_bwd at M=4096, L=20, bf16, dropout 0.2 before the per-item
-# kernels moved to the tensor cores: ms per call, 4 weight_grad launches
-# included (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md, PR 6)
-BWD_WAS_MS = 15.74
 # segment scatter vs plain, max|a - b| / max|b|: float32 sums of the same
 # bfloat16 terms, only the order of the additions differs
 SCATTER_TOL = 1e-5
@@ -856,7 +852,7 @@ def main() -> int:
         k_ms, p_ms, i_ms = bwd_times[(M, L)]
         print(f"{tag} fused_encoder_bwd bf16 dropout 0.2 M={M} L={L}: kernels "
               f"{k_ms:.4f} ms/call (incl. 4 weight_grad; per-item kernels {i_ms:.4f} ms, "
-              f"{FE.tile_geometry(L)[0]} items in {FE.tile_geometry(L)[1]}-row tiles), plain "
+              f"{FE.bwd_tile(L)[0]} items in {FE.bwd_tile(L)[1]}-row tiles), plain "
               f"{p_ms:.4f} ms, bound {bwd_bound(M, L)[0]:.4f} ms; "
               f"{train_launches['bwd'] / steps:.1f} calls per step", flush=True)
     for key, *_ in WGRAD_PRODUCTS:
@@ -922,8 +918,8 @@ def main() -> int:
          "launches": train_launches["bwd"],
          "max_abs_err": bwd_errs["bwd_abs"], "max_rel_err": bwd_errs["bwd_rel"],
          "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
-         "library_ms": None, "kernels_ms": bi_ms, "was_ms": BWD_WAS_MS,
-         "tile_rows": FE.tile_geometry(TRAIN_SHAPES[1][1])[1],
+         "library_ms": None, "kernels_ms": bi_ms,
+         "tile_rows": FE.bwd_tile(TRAIN_SHAPES[1][1])[1],
          "shape": {"M": TRAIN_SHAPES[1][0], "L": TRAIN_SHAPES[1][1], "D": D, "H": H, "Q": Q,
                    "dtype": "bfloat16", "dropout": 0.2}},
         {"name": "encoder_weight_grad", "route": "cuda",

@@ -112,25 +112,20 @@ __device__ __forceinline__ void block_product(const float* __restrict__ A, int l
 
 // ---- tensor-core pieces (mma.sync m16n8k16, bf16 operands, f32 sums) ----
 
-// `bytes` (16, 8 or 4) from global to shared memory, asynchronously; with
-// valid false the destination is zero-filled and nothing is read
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool valid) {
+// `bytes` (16, 8 or 4) from global to shared memory, asynchronously, of
+// which only the first src_bytes (0 .. bytes) are read and the rest
+// zero-filled; src_bytes 0 reads nothing
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? bytes : 0;
   if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
   else if (bytes == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-// 16 bytes from global to shared memory, of which only the first
-// src_bytes (0 .. 16) are read and the rest zero-filled; src 16-byte aligned
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -11,12 +11,13 @@
 // (dq times scale, dk from the scaled q), o2, t, dpre and the pooling terms
 // in f32, dx rounded to T, the weight gradients in f32.
 //
-// Layout: tiles of whole items on the tensor cores. A block takes
-// floor(64 / L) whole items (R_t = 64 token rows: 5 items at L=12, 3 at
-// L=20, 1 at L=50; one item of round16(L) rows past 64), its rows past the
-// last item zero. A small kernel first writes the weights in the layout the
-// copies read (stage_weights_kernel, WsLayout); then three kernels, one
-// block per tile, with the per-token intermediates in device memory:
+// Layout: tiles of whole items on the tensor cores. A block of pool_bwd
+// and attn_bwd takes floor(64 / L) whole items (R_t = 64 token rows: 5
+// items at L=12, 3 at L=20, 1 at L=50; one item of round16(L) rows past
+// 64), its rows past the last item zero (newsrec_fused_encoder_bwd_tile).
+// A small kernel first writes the weights in the layout the copies read
+// (stage_weights_kernel, WsLayout); then three kernels with the per-token
+// intermediates in device memory:
 //   pool_bwd:  o2 = o1 Wo + bo (dropout), t = tanh(T(o2) aw + ab), the
 //              pooling softmax per item (one warp per item, max(den, 1e-30)),
 //              d(logit), dpre, do2 = w g + dpre aw^T (dropout), do1 =
@@ -25,7 +26,8 @@
 //              of q, k, v padded from dh to round16(dh) with zeros), scores
 //              and dP over the tile, the softmax and dS (8 lanes a row), dQ,
 //              dK, dV; writes dqkv.
-//   dx:        dx = T(dqkv Wqkv^T).
+//   dx:        dx = T(dqkv Wqkv^T), row by row: one block per 64 token
+//              rows, whatever the items.
 // * Every product is mma.sync m16n8k16 bf16 with f32 sums (tile_product for
 //   the weight products, the attention's five inline). Operands the TPU
 //   kernel's rounding leaves in bf16 (x, o1, T(o2), q, k, v, dO1, T(P), dS)
@@ -54,6 +56,13 @@
 //   32) are zeros written once in shared memory or zero-filled by the
 //   copies, which read only a unit's valid values; no pad is read from
 //   device memory.
+// * Shared memory limits L. Past 64 rows pool_bwd takes narrower weight
+//   tiles (Cfg's PoolWide), attn_bwd's T(P) and dS overwrite its scores
+//   and dP row by row, and dx's blocks do not depend on L, so that at
+//   D = 300, Q = 200 the kernels take L up to 80. The attention's Rt^2
+//   scores and pool_bwd's operand tiles bound it elsewhere (L up to 144
+//   at D = 64 in bf16, 128 in f32); newsrec_fused_encoder_bwd_smem_bytes
+//   gives the need, and the wrapper raises past 227 KB.
 // * The attention runs over the tile's block diagonal: one Rt x Rt score
 //   tile per head, with the TPU kernel's penalty (m_i m_j - 1) * 1e9 within
 //   an item and -1e9 between items. exp(-1e9 - max) is 0 in f32, so a real
@@ -120,6 +129,7 @@
 //   order. Two launches give the same bits.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -175,8 +185,12 @@ constexpr int kKT = 64;           // depth of a staged weight tile
 // per tile, so dqkv is read once (three 128-column blocks, which read it
 // three times, were slower). attn_bwd takes a head's 3 x 32 columns as
 // 16 x 48 units, one for each of its 8 warps, two blocks per SM in bf16.
+// A tile past 64 rows (one item of L > 64) has larger operand tiles
+// beside the ring: pool_bwd then takes 64-column chunks (32 in f32) in
+// 16 x 16 units, so that L up to 80 fits at D = 300, Q = 200 (PoolWide).
 template <bool kF32> struct Cfg {
   struct Pool { static constexpr int NT = kF32 ? 64 : 128, UJ = 4, ST = kF32 ? 2 : 3, W = kF32 ? 8 : 16; };
+  struct PoolWide { static constexpr int NT = kF32 ? 32 : 64, UJ = 2, ST = Pool::ST, W = Pool::W; };
   struct Attn { static constexpr int NT = 96, UJ = 6, ST = kF32 ? 2 : 3, W = 8; };
   struct Dx { static constexpr int NT = 320, UJ = 10, ST = kF32 ? 2 : 3, W = 16; };
 };
@@ -245,6 +259,13 @@ struct BOp {
 BOp plain_b(const __nv_bfloat16* hi, const __nv_bfloat16* lo, long ld, int K, int N) {
   return BOp{hi, lo, ld, K, N, N, N};
 }
+// the product with the transpose of b's stored matrix (read by columns)
+__host__ __device__ inline BOp transposed(BOp b) {
+  const int k = b.K;
+  b.K = b.N;
+  b.N = b.seg_w = b.seg_n = k;
+  return b;
+}
 
 // The A operand held whole in shared memory as bf16 tiles [rows][ld]:
 // the value, or its high and low parts
@@ -276,7 +297,7 @@ struct AStream {
     for (int i = threadIdx.x; i < Rt * (KT / 4); i += blockDim.x) {
       const int r = i / (KT / 4), c = (i % (KT / 4)) * 4;
       const bool valid = r < rows && k0 + c < K;
-      cp_async(s + r * kLd + c, valid ? a + r * ld + k0 + c : a, 16, valid);
+      cp_async(s + r * kLd + c, valid ? a + r * ld + k0 + c : a, 16, valid ? 16 : 0);
     }
   }
   __device__ void frag(const unsigned char* st, int m0, int, int kk, unsigned* h, unsigned* l,
@@ -358,7 +379,7 @@ __device__ __forceinline__ void load_b(const BOp& b, const __nv_bfloat16* src,
     for (int i = threadIdx.x; i < NT * per; i += blockDim.x) {
       const int r = i / per, c = (i % per) * 8, n = n0 + r, k = k0 + c;
       const int nv = n < b.N ? clamp8(b.K - k) : 0;
-      cp_async_16(dst + r * (KT + 8) + c, nv ? src + n * b.ld + k : src, 2 * nv);
+      cp_async(dst + r * (KT + 8) + c, nv ? src + n * b.ld + k : src, 16, 2 * nv);
     }
   } else {
     constexpr int per = NT / 8;
@@ -370,7 +391,7 @@ __device__ __forceinline__ void load_b(const BOp& b, const __nv_bfloat16* src,
         lim = left < lim ? left : lim;
       }
       const int nv = k < b.K ? clamp8(lim) : 0;
-      cp_async_16(dst + r * (NT + 8) + c, nv ? src + k * b.ld + n : src, 2 * nv);
+      cp_async(dst + r * (NT + 8) + c, nv ? src + k * b.ld + n : src, 16, 2 * nv);
     }
   }
 }
@@ -499,43 +520,52 @@ __device__ void tile_product(const AOp& A, const BOp& B, int Rt, unsigned char* 
 
 // ---- the per-item backward: kernels ----------------------------------------
 
+// pool_bwd's geometry: PoolWide for a tile past 64 rows
+template <bool kF32, bool kWide>
+using PoolCfg = std::conditional_t<kWide, typename Cfg<kF32>::PoolWide, typename Cfg<kF32>::Pool>;
+
 // shared memory of pool_bwd: o1 / T(o2) / dpre as A tiles (high and low);
 // o2, then t in f32, then do2's A tiles; the weight ring; five [Rt] rows;
 // bo, ab, aq
-template <bool kF32> __host__ __device__ inline long pool_smem_bytes(int L, int D, int Q) {
+template <bool kF32, bool kWide> __host__ __device__ inline long pool_smem_bytes_of(int L, int D, int Q) {
+  using C = PoolCfg<kF32, kWide>;
   const long Rt = tile_rows(L);
   return 4 * Rt * lda_of(imax(D, Q)) + Rt * imax(imax(4 * D, 4 * Q), 4 * lda_of(D)) +
-         Cfg<kF32>::Pool::ST * b_stage_bytes<Cfg<kF32>::Pool::NT>(kF32) + 20 * Rt + 4L * (D + 2 * Q);
+         C::ST * b_stage_bytes<C::NT>(kF32) + 20 * Rt + 4L * (D + 2 * Q);
+}
+template <bool kF32> __host__ __device__ inline long pool_smem_bytes(int L, int D, int Q) {
+  return tile_rows(L) > kTileRows ? pool_smem_bytes_of<kF32, true>(L, D, Q)
+                                  : pool_smem_bytes_of<kF32, false>(L, D, Q);
 }
 
-// attn_bwd's scores and dP (f32), then T(P) and dS (high and, in f32, low)
-template <bool kF32> __host__ __device__ inline long attn_scratch_bytes(long Rt) {
-  return 2 * Rt * (Rt + 4) * 4 + (kF32 ? 4 : 2) * Rt * (Rt + 8) * 2;
-}
+// attn_bwd's scores and dP (f32), [Rt, Rt + 4] each; T(P) and dS (high
+// and, in f32, low) overwrite them row by row
+__host__ __device__ inline long attn_scratch_bytes(long Rt) { return 2 * Rt * (Rt + 4) * 4; }
 
 // shared memory of attn_bwd: x's A tiles; a head's q, k, v and dO1 tiles
 // (high and, in f32, low); the weight ring, aliased by the scratch above
 template <bool kF32> __host__ __device__ inline long attn_smem_bytes(int L, int D, int H) {
   const long Rt = tile_rows(L), ldh = round16(D / H) + 8, parts = kF32 ? 2 : 1;
-  const long att = attn_scratch_bytes<kF32>(Rt);
+  const long att = attn_scratch_bytes(Rt);
   const long ring = Cfg<kF32>::Attn::ST * b_stage_bytes<Cfg<kF32>::Attn::NT>(kF32);
   return parts * (2 * Rt * lda_of(D) + 8 * Rt * ldh) + (att > ring ? att : ring) + 8 * Rt +
          12 * round16(D / H);
 }
 
-template <bool kF32> __host__ __device__ inline long dx_smem_bytes(int L) {
+template <bool kF32> __host__ __device__ inline long dx_smem_bytes() {
   using C = typename Cfg<kF32>::Dx;
-  return C::ST * (AStream::stage_bytes(tile_rows(L)) + b_stage_bytes<C::NT>(kF32));
+  return C::ST * (AStream::stage_bytes(kTileRows) + b_stage_bytes<C::NT>(kF32));
 }
 
 // One block per tile of whole items: o2 = o1 Wo + bo (dropout), t =
 // tanh(T(o2) aw + ab), the pooling softmax per item, d(logit), dpre, do2 =
 // w g + dpre aw^T (dropout), do1 = T(do2 Wo^T); writes o2, t, dpre, do2,
-// d(logit) (f32) and do1 (T).
-template <typename T>
+// d(logit) (f32) and do1 (T). wo and aw are the products with Wo and aw;
+// the products with their transposes read the same matrices by columns.
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(512, 1)
 pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
-                const T* __restrict__ o1, BOp wo, BOp wo_t, BOp aw, BOp aw_t,
+                const T* __restrict__ o1, BOp wo, BOp aw,
                 const T* __restrict__ bo, const T* __restrict__ ab, const T* __restrict__ aq,
                 float* __restrict__ o2_g, float* __restrict__ t_g, float* __restrict__ dpre_g,
                 float* __restrict__ do2_g, float* __restrict__ ds_g, T* __restrict__ do1_g,
@@ -553,7 +583,7 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
   __nv_bfloat16* d_hi = reinterpret_cast<__nv_bfloat16*>(r2);     // [Rt, ldD] do2
   __nv_bfloat16* d_lo = d_hi + Rt * ldD;
   unsigned char* ring = r2 + (long)Rt * imax(imax(4 * D, 4 * Q), 4 * ldD);
-  using C = typename Cfg<kF32>::Pool;
+  using C = PoolCfg<kF32, kWide>;
   float* mk = reinterpret_cast<float*>(ring + C::ST * b_stage_bytes<C::NT>(kF32));
   float* pw = mk + Rt;    // pooling logits, then weights w
   float* dwf = pw + Rt;   // o2 . g per row
@@ -665,7 +695,7 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
   }
   // do2 = w g + dpre @ aw^T, then the dropout scale
   tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
-      ASmem{a_hi, a_lo, ldA}, aw_t, Rt, ring, [=](int r, int n, float a0, float a1) {
+      ASmem{a_hi, a_lo, ldA}, transposed(aw), Rt, ring, [=](int r, int n, float a0, float a1) {
         float v0 = 0.f, v1 = 0.f;
         if (r < nrows) {
           v0 = dropout(pw[r] * gval(r, n) + a0, seed, block_rows, row0 + r, n, threshold,
@@ -679,7 +709,7 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
       });
   // do1 = T(do2 @ Wo^T)
   tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
-      ASmem{d_hi, d_lo, ldD}, wo_t, Rt, ring, [=](int r, int n, float a0, float a1) {
+      ASmem{d_hi, d_lo, ldD}, transposed(wo), Rt, ring, [=](int r, int n, float a0, float a1) {
         if (r < nrows) {
           store2(do1_g + (row0 + r) * D + n, a0, a1);
         }
@@ -699,7 +729,10 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   extern __shared__ __align__(16) unsigned char smem[];
   const int Rt = tile_rows(L), ipt = items_per_tile(L);
   const int dh = D / H, dhp = round16(dh), ldh = dhp + 8, ldX = lda_of(D), D16 = round16(D);
-  const int ldS = Rt + 4, ldP = Rt + 8;
+  // T(P) and dS take the rows of the scores and dP: a row's f32 values
+  // are read before its bf16 ones are written (by the same lanes), high
+  // parts at 0, low parts at Rt + 8 (16-byte aligned) of the row
+  const int ldS = Rt + 4, ldP = 2 * ldS;
   using C = typename Cfg<kF32>::Attn;
   constexpr int parts = kF32 ? 2 : 1;  // low parts in f32 only
   __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX]
@@ -709,13 +742,13 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   auto head_hi = [=](int i) { return hd + i * Rt * ldh; };
   auto head_lo = [=](int i) { return hd + (4 + i) * Rt * ldh; };
   unsigned char* ring = reinterpret_cast<unsigned char*>(hd + parts * 4 * Rt * ldh);
-  float* S = reinterpret_cast<float*>(ring);  // [Rt, ldS] scores, then P
-  float* DP = S + Rt * ldS;                   // [Rt, ldS] dP, then P dP
-  __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(DP + Rt * ldS);  // [Rt, ldP] T(P)
-  __nv_bfloat16* p_lo = p_hi + Rt * ldP;
-  __nv_bfloat16* s_hi = p_hi + parts * Rt * ldP;  // [Rt, ldP] dS
-  __nv_bfloat16* s_lo = s_hi + Rt * ldP;
-  const long att = attn_scratch_bytes<kF32>(Rt), rb = C::ST * b_stage_bytes<C::NT>(kF32);
+  float* S = reinterpret_cast<float*>(ring);  // [Rt, ldS] scores
+  float* DP = S + Rt * ldS;                   // [Rt, ldS] dP
+  __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(S);  // [Rt, ldP] T(P)
+  __nv_bfloat16* p_lo = p_hi + Rt + 8;
+  __nv_bfloat16* s_hi = reinterpret_cast<__nv_bfloat16*>(DP);  // [Rt, ldP] dS
+  __nv_bfloat16* s_lo = s_hi + Rt + 8;
+  const long att = attn_scratch_bytes(Rt), rb = C::ST * b_stage_bytes<C::NT>(kF32);
   float* mk = reinterpret_cast<float*>(ring + (att > rb ? att : rb));  // [Rt] mask
   int* itm = reinterpret_cast<int*>(mk + Rt);                          // [Rt] item of a row
   float* hb = reinterpret_cast<float*>(itm + Rt);  // [3 dhp] the head's q|k|v biases
@@ -746,7 +779,7 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
         const int r = i / (dhp / 2), d = i % (dhp / 2) * 2;
         const bool valid = r < nrows && d < dh;
         cp_async(head_hi(3) + r * ldh + d, valid ? do1_g + (row0 + r) * D + h * dh + d : do1_g,
-                 4, valid);
+                 4, valid ? 4 : 0);
       }
     }
     // q (scaled), k, v = T(x Wqkv + bqkv) over the head's columns, each
@@ -922,19 +955,18 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   }
 }
 
-// dx = T(dqkv Wqkv^T): one block per tile of whole items (and per 320
-// columns of dx), dqkv's f32 rows staged with the weights, read once, and
-// split in registers.
+// dx = T(dqkv Wqkv^T), row by row: one block per 64 token rows (and per
+// 320 columns of dx), whatever the items, dqkv's f32 rows staged with the
+// weights, read once, and split in registers. An all-pad item's dqkv rows
+// are 0, and so are its dx rows.
 template <typename T>
 __global__ void __launch_bounds__(512, 1)
-dx_kernel(const float* __restrict__ dqkv_g, BOp wqkv_t, T* __restrict__ dx, int M, int L,
-          int D) {
+dx_kernel(const float* __restrict__ dqkv_g, BOp wqkv_t, T* __restrict__ dx, long rows, int D) {
   constexpr bool kF32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Rt = tile_rows(L), ipt = items_per_tile(L);
-  const int item0 = blockIdx.x * ipt;
-  const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
-  const long row0 = (long)item0 * L;
+  constexpr int Rt = kTileRows;
+  const long row0 = (long)blockIdx.x * Rt;
+  const int nrows = rows - row0 < Rt ? (int)(rows - row0) : Rt;
   using C = typename Cfg<kF32>::Dx;
   const int n0 = blockIdx.y * C::NT;
   BOp b = wqkv_t;
@@ -1055,11 +1087,11 @@ weight_grad_mma_kernel(const TA* __restrict__ A, long lda, int a_bytes,
       const TA* ga = A + row * lda + k0;
       TA* sa = a_tile(st) + rr * SA;
       for (int c = copy_lane; c < a_per_row; c += 32)
-        cp_async(sa + c * a_vec, ga + c * a_vec, a_bytes, valid);
+        cp_async(sa + c * a_vec, ga + c * a_vec, a_bytes, valid ? a_bytes : 0);
       const float* gb = B + row * ldb + n0;
       float* sb = b_tile(st) + rr * kWgStrideB;
       for (int c = copy_lane; c < b_per_row; c += 32)
-        cp_async(sb + c * b_vec, gb + c * b_vec, b_bytes, valid);
+        cp_async(sb + c * b_vec, gb + c * b_vec, b_bytes, valid ? b_bytes : 0);
     }
   };
 
@@ -1241,25 +1273,25 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
   const int dhp = round16(D / H);
   const BOp wo_b = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
   const BOp aw_b = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, D, Q);
-  // stored by columns: the products with W^T
-  const BOp wo_t = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
-  const BOp aw_t = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, Q, D);
-  const BOp qkv_t = plain_b(w_hi + wl.qkv, lo_of(wl.qkv), wl.ld_qkv, 3 * D, D);
+  const BOp qkv_t = transposed(plain_b(w_hi + wl.qkv, lo_of(wl.qkv), wl.ld_qkv, D, 3 * D));
   // head 0's q|k|v columns, each padded to dhp (the kernel moves to head h)
   const BOp qkv_head{w_hi + wl.head, lo_of(wl.head), wl.ld_head, D, 3 * dhp, dhp, D / H};
 
+  const bool wide = tile_rows(L) > kTileRows;
+  auto pool_kernel = wide ? pool_bwd_kernel<T, true> : pool_bwd_kernel<T, false>;
   const int pool_smem = (int)pool_smem_bytes<kF32>(L, D, Q);
-  const int attn_smem = (int)attn_smem_bytes<kF32>(L, D, H), dx_smem = (int)dx_smem_bytes<kF32>(L);
-  if ((err = cudaFuncSetAttribute(pool_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int attn_smem = (int)attn_smem_bytes<kF32>(L, D, H), dx_smem = (int)dx_smem_bytes<kF32>();
+  if ((err = cudaFuncSetAttribute(pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   pool_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   attn_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   dx_smem)) != cudaSuccess)
     return err;
-  pool_bwd_kernel<T><<<tiles, 32 * Cfg<kF32>::Pool::W, pool_smem, stream>>>(
+  static_assert(Cfg<kF32>::Pool::W == Cfg<kF32>::PoolWide::W, "one block size for pool_bwd");
+  pool_kernel<<<tiles, 32 * Cfg<kF32>::Pool::W, pool_smem, stream>>>(
       static_cast<const float*>(g), static_cast<const float*>(mask), static_cast<const T*>(o1),
-      wo_b, wo_t, aw_b, aw_t, static_cast<const T*>(bo), static_cast<const T*>(ab),
+      wo_b, aw_b, static_cast<const T*>(bo), static_cast<const T*>(ab),
       static_cast<const T*>(aq), static_cast<float*>(o2_s), static_cast<float*>(t_s),
       static_cast<float*>(dpre_s), static_cast<float*>(do2_s), static_cast<float*>(ds_s),
       static_cast<T*>(do1_s), M, L, D, Q, seed, block_rows, threshold, keep_scale);
@@ -1270,9 +1302,10 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
       L, D, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   constexpr int dx_cols = Cfg<kF32>::Dx::NT;
-  dx_kernel<T><<<dim3(tiles, (D + dx_cols - 1) / dx_cols), 32 * Cfg<kF32>::Dx::W, dx_smem,
-                 stream>>>(
-      static_cast<const float*>(dqkv_s), qkv_t, static_cast<T*>(dx), M, L, D);
+  const long rows = (long)M * L;
+  dx_kernel<T><<<dim3((int)((rows + kTileRows - 1) / kTileRows), (D + dx_cols - 1) / dx_cols),
+                 32 * Cfg<kF32>::Dx::W, dx_smem, stream>>>(
+      static_cast<const float*>(dqkv_s), qkv_t, static_cast<T*>(dx), rows, D);
   return cudaGetLastError();
 }
 
@@ -1346,8 +1379,15 @@ long newsrec_fused_encoder_bwd_smem_bytes(int dtype, int L, int D, int H, int Q)
   const bool f32 = dtype == 0;
   const long p = f32 ? pool_smem_bytes<true>(L, D, Q) : pool_smem_bytes<false>(L, D, Q);
   const long a = f32 ? attn_smem_bytes<true>(L, D, H) : attn_smem_bytes<false>(L, D, H);
-  const long d = f32 ? dx_smem_bytes<true>(L) : dx_smem_bytes<false>(L);
+  const long d = f32 ? dx_smem_bytes<true>() : dx_smem_bytes<false>();
   return p > a ? (p > d ? p : d) : (a > d ? a : d);
+}
+
+// the tiles of pool_bwd and attn_bwd at item length L: whole items per
+// block, and the block's token rows
+void newsrec_fused_encoder_bwd_tile(int L, int* items, int* rows) {
+  *items = items_per_tile(L);
+  *rows = tile_rows(L);
 }
 
 // bfloat16 values of the weights' layout for the per-item kernels (ws of

@@ -81,14 +81,6 @@ def _block_geometry(L: int, block_news: int = 64, max_rows: int = 1280) -> int:
     return step * max(1, target // step)
 
 
-def tile_geometry(L: int) -> Tuple[int, int]:
-    """Items per block of the backward's per-item kernels and the block's
-    token rows (``csrc/fused_encoder_bwd.cu``): ``64 // L`` whole items,
-    their rows rounded up to 16 (one item of ``L`` rounded up past 64)."""
-    items = 64 // L if L <= 64 else 1
-    return items, (items * L + 15) // 16 * 16
-
-
 def _dropout_threshold(rate: float) -> int:
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
@@ -261,6 +253,8 @@ def _lib() -> ctypes.CDLL:
     lib.newsrec_weight_grad_splits.argtypes = [lg, i, i]
     lib.newsrec_fused_encoder_bwd_ws_elems.argtypes = [i, i, i]
     lib.newsrec_fused_encoder_bwd_ws_elems.restype = lg
+    lib.newsrec_fused_encoder_bwd_tile.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.newsrec_fused_encoder_bwd_tile.restype = None
     for name in ("newsrec_fused_encoder_fwd", "newsrec_fused_encoder_bwd",
                  "newsrec_weight_grad", "newsrec_weight_grad_splits"):
         getattr(lib, name).restype = i
@@ -439,6 +433,15 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
     if a is None:
         return out[0]
     return (out[:K], out[K]) if bias else out
+
+
+def bwd_tile(L: int) -> Tuple[int, int]:
+    """Whole items per block of the backward's pooling and attention
+    kernels at item length ``L``, and the block's token rows, as the built
+    kernels take them (builds the library; needs ``nvcc``)."""
+    items, rows = ctypes.c_int(), ctypes.c_int()
+    _lib().newsrec_fused_encoder_bwd_tile(L, ctypes.byref(items), ctypes.byref(rows))
+    return items.value, rows.value
 
 
 def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):

@@ -158,10 +158,20 @@ def test_function_gradients_match_autograd_on_cpu():
         assert _rel(t.grad.numpy(), e.numpy()) < 2e-3
 
 
+def _tile_geometry(L):
+    """Whole items per block of the backward's pooling and attention kernels
+    and the block's token rows (``csrc/fused_encoder_bwd.cu``): ``64 // L``
+    items, their rows rounded up to 16 (one item of ``L`` rounded up past
+    64). ``test_tile_geometry_is_the_kernels_on_card`` holds it to the
+    built library's."""
+    items = 64 // L if L <= 64 else 1
+    return items, (items * L + 15) // 16 * 16
+
+
 def _tile_attention_bwd(x, mask, do1, wqkv, bqkv, *, num_heads):
     """Plain model of the grouping of the attention kernel
     (``csrc/fused_encoder_bwd.cu``, ``attn_bwd``): items packed
-    ``tile_geometry(L)`` to a tile (zero rows past the last item, and zero
+    ``_tile_geometry(L)`` to a tile (zero rows past the last item, and zero
     items past M), one Rt x Rt attention per tile and head over the tile's
     block diagonal, with the penalty ``(m_i m_j - 1) * 1e9`` within an item
     and ``-1e9`` between items; returns ``dqkv`` ``[M, L, 3D]``."""
@@ -170,7 +180,7 @@ def _tile_attention_bwd(x, mask, do1, wqkv, bqkv, *, num_heads):
     H = num_heads
     dh = D // H
     scale = 1.0 / np.sqrt(dh)
-    items, Rt = FE.tile_geometry(L)
+    items, Rt = _tile_geometry(L)
     tiles = -(-M // items)
 
     def pack(t):  # [M, L, ...] -> [tiles, Rt, ...], zeros past the last item
@@ -290,7 +300,9 @@ TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
     # between real items of one tile
     (7, 12, 64, 4, 32, (2,)), (13, 20, 300, 10, 200, (4,)), (5, 50, 300, 10, 200, (2,)),
     # head widths 24 (D=96, 4 heads) and 16 (D=64), an item past one tile
-    (11, 20, 96, 4, 48, (4,)), (3, 70, 64, 4, 32, ())])
+    (11, 20, 96, 4, 48, (4,)), (3, 70, 64, 4, 32, ()),
+    # past one tile at the model's widths: pool_bwd's narrower weight tiles
+    (4, 66, 300, 10, 200, (2,))])
 def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D, H, Q, pads):
     x, mask, w, g, _ = _inputs(6, M, L, D, Q, pads)
     t = _t([x, mask, *w, g], cuda_device)
@@ -312,8 +324,32 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D
         assert torch.all(got[0][i] == 0), "an all-pad item gets zero dx"
 
 
+@pytest.mark.parametrize("L", [1, 7, 12, 20, 33, 50, 64, 65, 70, 80])
+def test_tile_geometry_is_the_kernels_on_card(cuda_device, L):
+    """The CPU grouping test's model of the tiles is the built kernels'."""
+    assert FE.bwd_tile(L) == _tile_geometry(L)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,L", [(13, 20), (7, 12)])
+def test_backward_takes_every_length_up_to_80_at_the_model_widths_on_card(cuda_device, dtype):
+    """At D=300, 10 heads, Q=200 the kernels' shared memory fits one block
+    for every L up to 80 (the CUDA-core kernels before them took up to 68),
+    and the wrapper refuses an L that does not fit."""
+    lib = FE._lib()
+    need = lambda L: lib.newsrec_fused_encoder_bwd_smem_bytes(  # noqa: E731
+        FE._DTYPE_CODE[dtype], L, 300, 10, 200)
+    assert all(need(L) <= FE.MAX_SMEM for L in range(1, 81))
+    assert need(96) > FE.MAX_SMEM
+    x, mask, w, g, _ = _inputs(2, 2, 96, 300, 200)
+    t = _t([x, mask, *w, g], cuda_device)
+    w_ = [a.to(dtype) for a in t[2:9]]
+    o1 = torch.zeros((2, 96, 300), dtype=dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        FE.fused_news_encoder_bwd(t[9], t[0].to(dtype), t[1], o1, *w_, num_heads=10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,L", [(13, 20), (7, 12), (5, 66)])
 def test_backward_launches_are_bit_equal_on_card(cuda_device, dtype, M, L):
     """No atomics and a fixed order of every sum: two backward calls on the
     same inputs give the same bits, dx and every weight gradient."""
