@@ -1,20 +1,21 @@
-"""Where the fused news encoder's forward spends its time, stage by stage, on
-one NVIDIA card.
+"""Where the first (CUDA-core) design of the fused news encoder's forward
+spent its time, stage by stage, on one NVIDIA card.
 
     python3 chip_ablate_encoder.py
 
 The counterpart of the JAX package's ``benchmarks/ablate_encoder.py``
-(``main`` and ``main2``): the six truncations of the forward kernel
-(``ops/ablate_encoder.py``; ``ops/csrc/ablate_encoder.cu`` says what each
+(``main`` and ``main2``): the six truncations of the CUDA-core forward
+kernel of the port's first slices (``ops/ablate_encoder.py``;
+``ops/csrc/ablate_encoder.cu`` says what each
 computes) at M=28,672, L=20 with the all-ones mask, as the harness runs
 them, and at M=4096, L=20 with a real mask (the training step's long block,
 a corpus-encode chunk), bf16, D=300, 10 heads, Q=200. For each stage it
 prints the kernel's time (CUDA events), its plain version's, its bound, its
 largest difference from the plain version, and for V0 the time of
 ``x.view(M, L, D).sum(1)``, the one PyTorch call of the same function; then
-the full forward kernel (``fused_news_encoder``) on the same ``x``, the line
-every stage is read against, and the differences that read as the cost of
-each part. Every timing line is tagged with the card's name and power limit.
+today's forward kernel (``fused_news_encoder``, on the tensor cores) on
+the same ``x``, and the differences that read as the cost of each part of
+the CUDA-core design. Every timing line is tagged with the card's name and power limit.
 Needs a CUDA card: without one it prints no result and exits 2.
 """
 
@@ -118,10 +119,10 @@ def report(M, real_mask, t, tag):
     print(f"{tag}   full forward (fused_news_encoder): kernel {f['ms']:.4f} ms, plain "
           f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms ({f['bound_by']})", flush=True)
     ms = {s: r["ms"] for s, r in t["stages"].items()}
-    print(f"{tag}   read as: staging + pooling (V0) {ms['passthrough']:.4f} ms; projection "
-          f"(V1 - V0) {ms['qkv'] - ms['passthrough']:.4f} ms; tail (V3 - V1) "
-          f"{ms['tail'] - ms['qkv']:.4f} ms; the forward's attention (full - V3) "
-          f"{f['ms'] - ms['tail']:.4f} ms; subtile attention (V2 - V1) "
+    print(f"{tag}   read as (the CUDA-core design): staging + pooling (V0) "
+          f"{ms['passthrough']:.4f} ms; projection (V1 - V0) "
+          f"{ms['qkv'] - ms['passthrough']:.4f} ms; tail (V3 - V1) "
+          f"{ms['tail'] - ms['qkv']:.4f} ms; subtile attention (V2 - V1) "
           f"{ms['attn'] - ms['qkv']:.4f} ms, without softmax and mask (V2b - V1) "
           f"{ms['attn_nosoftmax'] - ms['qkv']:.4f} ms", flush=True)
 

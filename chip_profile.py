@@ -29,11 +29,12 @@ import torch
 import chip_smoke as CS
 
 WARMUP, STEPS = 3, 5
-GROUPS = (("fused_encoder_fwd_kernel", "encoder forward"),
+GROUPS = (("fwd_attn_kernel", "encoder forward: attention"),
+          ("fwd_tail_kernel", "encoder forward: tail"),
           ("pool_bwd_kernel", "encoder backward: pooling"),
           ("attn_bwd_kernel", "encoder backward: attention"),
           ("dx_kernel", "encoder backward: dx"),
-          ("stage_weights_kernel", "encoder backward: weight layout"),
+          ("stage_weights_kernel", "encoder weight layout (forward and backward)"),
           ("weight_grad", "weight gradients"),
           ("ss_", "segment scatter"),
           ("index", "gathers and scatter-adds"),

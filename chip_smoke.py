@@ -7,7 +7,10 @@
    gradients, the segment scatter, the forward's stage ablation; ninja
    compiles the sources in parallel).
 2. Holds the forward kernel against its plain PyTorch version at the
-   serving shapes in float32 and bfloat16.
+   serving shapes in float32 and bfloat16, with repeat launches equal bit
+   for bit, one wrapper launch and three device kernels per call (read
+   from the profiler), and times it at every serving and training shape
+   and at M=28,672, L=20.
 3. Serves NRMS at full width (D=300, 10 heads, query dim 200, title 20,
    history 50, bf16) over HTTP on a seeded synthetic corpus of 65,238 news
    (the news count of MIND-small), in both corpus-cache modes, and checks a
@@ -30,7 +33,8 @@
    then 40 steps, then an evaluation through the two-tower path.
 7. Trains the same configuration with ``model.dedup_gather_mxu``, the
    inverse gathers' backward through the segment-scatter kernel: the kernel
-   against its plain version on a real dedup batch's indices, one step
+   against its plain version (``index_add_`` into zeros) on a real dedup
+   batch's indices, with its device time by launch, one step
    against the plain step, 40 steps; then the user workflow on the card:
    checkpoint at an evaluation, restore into a fresh trainer, evaluate
    again, write a submission file, and ``cli train`` / ``eval`` / ``submit``
@@ -72,6 +76,12 @@ SHAPES = [(4096, 20), (32, 50), (1, 50)]   # corpus chunk, score_many batch, sin
 # the training step's encoder calls: short news block, long news block, users
 TRAIN_SHAPES = [(4096, 12), (4096, 20), (512, 50)]
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# the forward timed at every serving and training shape, and at the stage
+# ablation's M=28,672
+FWD_SHAPES = SHAPES + TRAIN_SHAPES + [(28_672, 20)]
+# launches of one forward call: the wrapper's count, and the device kernels
+# (the weight layout, the attention, the tail), read from the profiler
+FWD_LAUNCHES, FWD_KERNELS = 1, 3
 # backward kernel vs plain version, max|a - b| / max|b| per output
 BWD_TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 40
@@ -210,30 +220,57 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def device_kernels(fn):
+    """Device kernels (and memsets) that one call of ``fn`` launches, from
+    the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def check_kernel(FE):
-    """Phase 2: kernel vs plain version at the serving shapes, two dtypes."""
+    """Phase 2: kernel vs plain version at the serving shapes, two dtypes,
+    one wrapper launch and FWD_KERNELS device kernels per call, repeat calls
+    equal bit for bit; then the times at every shape of FWD_SHAPES (bf16)."""
     errs, times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for M, L in SHAPES:
             args, valid = encoder_inputs(M * 100 + L, M, L, dtype)
+            before = FE.fused_news_encoder.launches
             got = FE.fused_news_encoder(*args, num_heads=H)
             torch.cuda.synchronize()
+            assert FE.fused_news_encoder.launches - before == FWD_LAUNCHES
             expect = FE.fused_news_encoder_reference(*args, num_heads=H)
             err = float((got[valid].float() - expect[valid].float()).abs().max())
             tol = TOLS[dtype]
             torch.testing.assert_close(got[valid].float(), expect[valid].float(),
                                        rtol=tol, atol=tol)
             assert torch.all(got[~valid] == 0), "an all-pad item must pool to 0"
+            # no atomics, a fixed order of every sum: the same bits again
+            assert torch.equal(got, FE.fused_news_encoder(*args, num_heads=H)), \
+                ("the forward is not deterministic", str(dtype), M, L)
             errs[(str(dtype), M, L)] = err
-            if dtype == torch.bfloat16:
-                iters = 10 if M > 1000 else 100
-                times[(M, L)] = (
-                    cuda_ms(lambda: FE.fused_news_encoder(*args, num_heads=H), iters),
-                    cuda_ms(lambda: FE.fused_news_encoder_reference(*args, num_heads=H),
-                            iters))
             print(f"kernel vs plain {str(dtype):15s} M={M:5d} L={L}: "
-                  f"max|err| {err:.3g} (tol {tol})", flush=True)
-    return errs, times
+                  f"max|err| {err:.3g} (tol {tol}); two launches equal bit for bit",
+                  flush=True)
+    kernels = device_kernels(lambda: FE.fused_news_encoder(*args, num_heads=H))
+    assert kernels == FWD_KERNELS, (kernels, FWD_KERNELS)
+    for M, L in FWD_SHAPES:
+        args, _ = encoder_inputs(M * 100 + L, M, L, torch.bfloat16)
+        iters = 5 if M > 10_000 else (10 if M > 1000 else 100)
+        times[(M, L)] = (
+            cuda_ms(lambda: FE.fused_news_encoder(*args, num_heads=H), iters),
+            cuda_ms(lambda: FE.fused_news_encoder_reference(*args, num_heads=H), iters))
+    print(f"fused_encoder_fwd: {FWD_LAUNCHES} wrapper launch and {kernels} device kernels "
+          f"per call; {FE.fwd_tile(20)[0]} items in {FE.fwd_tile(20)[1]}-row tiles at L=20",
+          flush=True)
+    return errs, times, kernels
 
 
 def check_backward(FE):
@@ -461,13 +498,38 @@ def scatter_bound(S, U, itemsize):
     return (S * D * itemsize + 4 * S + U * D * 4) / PEAK_BYTES * 1e3, "bytes"
 
 
+def scatter_split(fn, calls=20):
+    """Device time of each launch of one call of ``fn`` (every kernel and
+    memset, by name) over ``calls`` calls under ``torch.profiler``:
+    ``{name: (launches per call, us per launch)}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("<")[0].split("(")[0]
+            total[name] = total.get(name, 0.0) + e.device_time_total
+            count[name] = count.get(name, 0) + 1
+    return {n: (count[n] / calls, total[n] / count[n]) for n in total}
+
+
 def check_scatter(SS, batch):
     """Phase 7a: the segment-scatter kernel against its plain version on
     the inverse indices of a real dedup batch (the pad news holds about half
     the history slots) with bf16 cotangents; two launches equal bit for bit;
-    times beside the bound, the plain version and
-    ``embedding_dense_backward`` (one PyTorch call of the same function,
-    which the port never calls)."""
+    times beside the bound, the plain version (``scatter_add_rows_reference``,
+    which widens idx to int64 on every call), one ``index_add_`` call into
+    zeros with the int32 idx as it is (the single PyTorch call of the same
+    function, which the port's kernel path never makes) and
+    ``embedding_dense_backward``; and the kernel's device time by launch."""
     U = int(batch["unique_ids"].shape[0])
     rng = np.random.default_rng(11)
     out = {}
@@ -490,9 +552,12 @@ def check_scatter(SS, batch):
             "err": err, "abs_err": float((got - plain).abs().max()),
             "ms": cuda_ms(lambda: SS.scatter_add_rows(idx, g, U), 20),
             "plain_ms": cuda_ms(lambda: SS.scatter_add_rows_reference(idx, g, U), 20),
-            "library_ms": cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
+            "edb_ms": cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
                 g, il, U, -1, False), 20),
-            "bound": scatter_bound(S, U, 2)}
+            "library_ms": cuda_ms(lambda: torch.zeros(
+                (U, D), dtype=torch.float32, device=DEVICE).index_add_(0, idx, g.float()), 20),
+            "bound": scatter_bound(S, U, 2),
+            "split": scatter_split(lambda: SS.scatter_add_rows(idx, g, U))}
         r = out[name]
         print(f"[phase 7] segment scatter vs plain ({name}: S={S}, U={U}, D={D}, bf16; "
               f"largest row {r['max_sources']} sources, {r['empty_rows']} empty rows): max "
@@ -788,7 +853,7 @@ def main() -> int:
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. forward kernel vs plain
-    errs, times = check_kernel(FE)
+    errs, times, fwd_kernels = check_kernel(FE)
 
     # 3. serving end to end, at full width
     cfg = Config(data=DataConfig(dataset="synthetic"))
@@ -829,8 +894,9 @@ def main() -> int:
     print(f"{tag} top_k (k=10 over {rec.n_news} news): p50 {p50:.2f} ms, "
           f"p99 {p99:.2f} ms", flush=True)
     for (M, L), (k_ms, p_ms) in times.items():
-        print(f"{tag} fused_encoder_fwd bf16 M={M} L={L}: kernel {k_ms:.4f} ms/launch, "
-              f"plain {p_ms:.4f} ms, bound {bound(M, L, 2)[0]:.4f} ms", flush=True)
+        print(f"{tag} fused_encoder_fwd bf16 M={M} L={L}: kernel {k_ms:.4f} ms/call "
+              f"({fwd_kernels} device kernels), plain {p_ms:.4f} ms, bound "
+              f"{bound(M, L, 2)[0]:.4f} ms", flush=True)
     del rec
 
     # 5. backward and weight-gradient kernels vs plain
@@ -876,9 +942,12 @@ def main() -> int:
     sc = check_scatter(SS, run7["first"])
     for name, r in sc.items():
         print(f"{tag} segment_scatter bf16 {name} S={r['S']} U={r['U']} D={D}: kernel "
-              f"{r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, "
-              f"embedding_dense_backward {r['library_ms']:.4f} ms, bound "
-              f"{r['bound'][0]:.4f} ms", flush=True)
+              f"{r['ms']:.4f} ms/call, plain version {r['plain_ms']:.4f} ms, one "
+              f"index_add_ into zeros {r['library_ms']:.4f} ms, embedding_dense_backward "
+              f"{r['edb_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.4f} ms; device time by launch:", flush=True)
+        for kernel, (n, us) in r["split"].items():
+            print(f"{tag}   {kernel:28s} {n:g} per call, {us:8.2f} us", flush=True)
     vec, ckpt = workflow_run(run7["trainer"], run7["state"], ds)
     del run7
     serve_exported(vec, ckpt)
@@ -912,6 +981,10 @@ def main() -> int:
          "library_ms": None,
          "shape": {"M": SHAPES[0][0], "L": SHAPES[0][1], "D": D, "H": H, "Q": Q,
                    "dtype": "bfloat16"},
+         "launches_per_call": {"wrapper": FWD_LAUNCHES, "device_kernels": fwd_kernels},
+         "tile_rows": FE.fwd_tile(SHAPES[0][1])[1],
+         "by_shape": {f"M={M},L={L}": {"ms": k, "plain_ms": p, "bound_ms": bound(M, L, 2)[0]}
+                      for (M, L), (k, p) in times.items()},
          "train_ms": bwd_times["fwd_train"]},
         {"name": "fused_encoder_bwd", "route": "cuda", "source": src + "fused_encoder_bwd.cu",
          "replaces": tpu + "261",
@@ -940,11 +1013,15 @@ def main() -> int:
          "max_rel_err": max(r["err"] for r in sc.values()),
          "ms": sc["browsed_idx"]["ms"], "plain_ms": sc["browsed_idx"]["plain_ms"],
          "bound_ms": sc["browsed_idx"]["bound"][0], "bound_by": "bytes",
-         "library_ms": sc["browsed_idx"]["library_ms"],
+         "library_ms": sc["browsed_idx"]["library_ms"], "library_call": "index_add_",
          "shape": {"S": sc["browsed_idx"]["S"], "U": sc["browsed_idx"]["U"], "D": D,
                    "dtype": "bfloat16"},
-         "candidate": {k: sc["candidate_idx"][k] for k in ("S", "ms", "plain_ms",
-                                                            "library_ms", "bound")}},
+         "embedding_dense_backward_ms": sc["browsed_idx"]["edb_ms"],
+         "split_us": sc["browsed_idx"]["split"],
+         "candidate": {**{k: sc["candidate_idx"][k] for k in ("S", "ms", "plain_ms", "bound")},
+                       "library_ms": sc["candidate_idx"]["library_ms"],
+                       "embedding_dense_backward_ms": sc["candidate_idx"]["edb_ms"],
+                       "split_us": sc["candidate_idx"]["split"]}},
         ablation,
     ]}), flush=True)
     print(gpu, flush=True)

@@ -3,11 +3,14 @@
 //
 // Replaces the TPU kernel `build` of the JAX package's
 // benchmarks/ablate_encoder.py:30 (its bodies k_passthrough, k_qkv, k_attn,
-// k_tail, k_attn_slices, k_attn_nosoftmax): six truncations of the forward
-// (fused_encoder.cu), built from the forward's own pieces (stage_item,
-// block_product and pool_tail of common.cuh, 256 threads a block), so that
-// the difference of two stages reads as what one part of this card's
-// forward costs. Inputs in the harness's layout: x [M*L, D], mask [M*L] f32,
+// k_tail, k_attn_slices, k_attn_nosoftmax): six truncations of the fused
+// encoder's forward, built from the CUDA-core pieces that the first
+// forward kernel used (stage_item, block_product and pool_tail of
+// common.cuh, 256 threads a block, one block per item). The forward itself
+// (fused_encoder.cu) now runs on the tensor cores over tiles of whole
+// items, so the difference of two stages reads as what one part of that
+// CUDA-core design costs, not as a part of today's forward. Inputs in the
+// harness's layout: x [M*L, D], mask [M*L] f32,
 // weights in x's dtype T; out [M, D] in T. qkv = x @ Wqkv + bqkv in f32,
 // over all 3D columns in every stage but V0: the stages time that work, so
 // k and v are computed and stored even where only q reaches the output.
@@ -15,7 +18,7 @@
 //   V0 passthrough    out_m = T(sum_l x_l)           (a sum, mask not read)
 //   V1 qkv            out_m = T(sum_l T(q_l))        (q unscaled)
 //   V2a attn_slices   out_m = T(sum_l T(q_l + k_l + v_l))
-//   V3 tail           o1 = T(q), then the forward's tail (pool_tail) with no
+//   V3 tail           o1 = T(q), then the CUDA-core tail (pool_tail) with no
 //                     dropout: o2 = o1 @ Wo + bo, additive pooling
 //   V2 attn           per 160-row subtile (kSub rows = 8 items at L = 20) and
 //                     head: s = q_h k_h^T, where(mask_i mask_j [same item] >
@@ -26,7 +29,7 @@
 //   V2b attn_nosoftmax per subtile and head: o = (q_h k_h^T * scale) @ v_h,
 //                     no mask, no block diagonal (the subtile's items mix)
 //
-// Layout. V0, V1, V2a and V3 run the forward's layout: one block per item,
+// Layout. V0, V1, V2a and V3 run the CUDA-core layout: one block per item,
 // the item's rows staged in shared memory as f32, the projection head by
 // head (3 * dh columns of Wqkv each, read through L2). V2 and V2b need the
 // subtile: one block per 160 rows. For each head it stages the subtile's
@@ -42,8 +45,8 @@
 // the rest are bound by operations: 2 * L * D * 3D FLOP per item for the
 // projection (V1, V2a), + 4 * H * L^2 * dh for V2's attention within items,
 // + two 160 x 160 x dh products per subtile and head for V2b, + 2 * L * D *
-// (D + Q) for V3's Wo and aw products. Like the forward, these first
-// versions run on the CUDA cores in f32.
+// (D + Q) for V3's Wo and aw products. These stages run on the CUDA cores
+// in f32.
 
 #include "common.cuh"
 

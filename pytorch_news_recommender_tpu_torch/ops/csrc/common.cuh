@@ -1,11 +1,12 @@
 // Helpers shared by the fused encoder's forward (fused_encoder.cu),
 // backward (fused_encoder_bwd.cu) and stage ablation (ablate_encoder.cu)
 // kernels: type conversion at the TPU kernel's rounding points, warp
-// reductions, the CUDA-core block product of the forward and the ablation,
-// the tensor-core pieces of the backward and the weight gradients
-// (cp.async, the high/low bf16 split, mma.sync m16n8k16 and its ldmatrix
-// fragment loads), the dropout hash, and the forward's staging of an item
-// and its pooling tail.
+// reductions, the tensor-core primitives (cp.async, the high/low bf16
+// split, mma.sync m16n8k16 and its ldmatrix fragment loads; tiles.cuh
+// builds the tile product on them), the dropout hash, and the CUDA-core
+// pieces that only the stage ablation still uses: the block product, the
+// staging of one item and its pooling tail (the first forward kernel's
+// design).
 
 #pragma once
 

@@ -23,28 +23,40 @@
 // gives every row its sources in ascending s; a fixed partition of the
 // sorted positions then sums them, and nothing depends on the order in
 // which blocks run, so two launches give the same bits (no float atomics,
-// no integer atomics either):
+// no integer atomics either). Up to S = 4,096 (the candidate gather) steps
+// 1-4 are one single-block launch, ss_sort_small_kernel: a stable radix
+// sort of the sources by row in shared memory, which gives the same
+// positions as the counting sort, then each row's start by binary search;
+// three launches in all. Past it six:
 //   1. count:  per chunk c of kChunk sources, cnt[c][u] = the chunk's
 //              sources of row u (written by the chunk's first such source,
-//              found by comparing against the chunk's ids in shared memory);
+//              found by comparing against the chunk's ids in shared memory),
+//              after the block has zeroed its row of cnt;
 //   2. column scan: per row, the prefix of cnt over chunks, and the row's
 //              total;
 //   3. row scan: one block turns the totals into row starts rs[U + 1];
 //   4. place:  source s of chunk c goes to position rs[u] + cnt[c][u] +
 //              (earlier sources of u in the chunk): perm[pos] = s,
 //              key[pos] = u;
-//   5. reduce: block j sums the g rows of positions [j*kSeg, (j+1)*kSeg) in
-//              order, threads over columns. A row whose positions all lie in
-//              the block is written out; a row that crosses a block edge
-//              (the skewed ones) leaves its part in one of the block's two
-//              partial slots, which keeps the long rows from serialising on
-//              one block;
+//   5. reduce: block j sums the g rows of positions [j*seg, (j+1)*seg) in
+//              order, each thread over two adjacent columns (one 4-byte
+//              bf16x2 or 8-byte float2 load a row). A row whose positions
+//              all lie in the block is written out; a row that crosses a
+//              block edge (the skewed ones) leaves its part in one of the
+//              block's two partial slots, which keeps the long rows from
+//              serialising on one block. Block j also writes 0 to the rows
+//              with no source among its share of U (the output is dense);
 //   6. fixup:  one block per row that crosses an edge adds its parts: warp w
 //              takes the parts j0 + w, j0 + w + 32, ..., then the 32 warp
-//              sums are added in warp order;
-//   7. zero:   rows with no source are written 0 (the output is dense).
-// The sums are f32 in a fixed order; only that order differs from a
-// sequential sum.
+//              sums are added in warp order.
+// The segment length seg is a function of S alone (seg_of): the power of
+// two that gives the reduction about kTargetBlocks blocks, two per SM of an
+// H100, between kMinSeg and kMaxSeg positions. Each thread sums seg rows in
+// rounds of kBatch independent loads, so a short segment is a short chain:
+// at the candidate gather (S = 3,072) seg = 16 gives 192 blocks of two
+// rounds, where 128 gave 24 blocks of sixteen. The sums are f32 in a fixed
+// order; only that order differs from a sequential sum. What the launches
+// cost, measured on an H100, is in PERF.md (chip_smoke.py's phase 7a).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +64,8 @@
 namespace {
 
 constexpr int kChunk = 256;    // sources per block of the counting passes (= its threads)
-constexpr int kSeg = 128;      // sorted positions per block of the reduction
+// sorted positions per block of the reduction: a power of two from S
+constexpr int kMinSeg = 16, kMaxSeg = 128, kTargetBlocks = 264;
 constexpr int kScanThreads = 1024;
 constexpr int kFixWarps = 32;
 // loads a thread issues before it uses the first of them: the sums and
@@ -64,6 +77,13 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 long chunks(long S, int per) { return (S + per - 1) / per; }
+
+// the reduction's segment length for S sources
+int seg_of(long S) {
+  int seg = kMinSeg;
+  while (seg < kMaxSeg && (long)seg * kTargetBlocks < S) seg *= 2;
+  return seg;
+}
 
 // Loads the ids of chunk c into shared memory; returns the chunk's size.
 __device__ __forceinline__ int load_chunk(const int* __restrict__ idx, long S, int* ids) {
@@ -77,7 +97,9 @@ __device__ __forceinline__ int load_chunk(const int* __restrict__ idx, long S, i
 __global__ void __launch_bounds__(kChunk)
 ss_count_kernel(const int* __restrict__ idx, long S, int U, int* __restrict__ cnt) {
   __shared__ int ids[kChunk];
-  const int n = load_chunk(idx, S, ids);
+  int* row = cnt + (long)blockIdx.x * U;
+  for (int u = threadIdx.x; u < U; u += blockDim.x) row[u] = 0;
+  const int n = load_chunk(idx, S, ids);  // its barrier orders the zeros first
   const int t = threadIdx.x;
   if (t >= n) return;
   const int u = ids[t];
@@ -88,7 +110,7 @@ ss_count_kernel(const int* __restrict__ idx, long S, int U, int* __restrict__ cn
     total += e;
     before += e & (j < t);
   }
-  if (before == 0) cnt[(long)blockIdx.x * U + u] = total;
+  if (before == 0) row[u] = total;
 }
 
 // cnt[c][u] -> sources of row u in chunks before c; rs[u] = row u's total
@@ -160,69 +182,94 @@ ss_place_kernel(const int* __restrict__ idx, long S, int U, const int* __restric
   key[pos] = u;
 }
 
+// two adjacent columns c, c + 1 of row s (c + 1 < D or not); a vector
+// load where D is even, so that every row is aligned for it
+__device__ __forceinline__ float2 load_pair(const float* g, long s, int D, int c) {
+  const float* p = g + s * D + c;
+  if (!(D & 1)) return *reinterpret_cast<const float2*>(p);
+  return make_float2(p[0], c + 1 < D ? p[1] : 0.f);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* g, long s, int D, int c) {
+  const __nv_bfloat16* p = g + s * D + c;
+  if (!(D & 1)) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return make_float2(to_f(p[0]), c + 1 < D ? to_f(p[1]) : 0.f);
+}
+__device__ __forceinline__ void store_pair(float* p, int D, int c, float2 v) {
+  p[c] = v.x;
+  if (c + 1 < D) p[c + 1] = v.y;
+}
+
 // partial[j][0]: block j's part of the row at its first position, when that
 // row started before or at the block's start and does not end in it;
 // partial[j][1]: its part of the row at its last position, when that row
-// started inside the block and goes on past it.
+// started inside the block and goes on past it. Then the rows with no
+// source among rows [j * rows_per, (j + 1) * rows_per) are written 0.
 template <typename T>
-__global__ void ss_reduce_kernel(const T* __restrict__ g, int D, int U, const int* __restrict__ rs,
-                                 const int* __restrict__ perm, const int* __restrict__ key,
-                                 float* __restrict__ partial, float* __restrict__ out) {
-  __shared__ int sp[kSeg], sk[kSeg];
+__global__ void ss_reduce_kernel(const T* __restrict__ g, int D, int U, int seg, int rows_per,
+                                 const int* __restrict__ rs, const int* __restrict__ perm,
+                                 const int* __restrict__ key, float* __restrict__ partial,
+                                 float* __restrict__ out) {
+  __shared__ int sp[kMaxSeg], sk[kMaxSeg];
   const int n = rs[U];
-  const int p0 = blockIdx.x * kSeg;
-  if (p0 >= n) return;
-  const int m = min(kSeg, n - p0);
+  const int p0 = blockIdx.x * seg;
+  const int m = p0 < n ? min(seg, n - p0) : 0;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
     sp[i] = perm[p0 + i];
     sk[i] = key[p0 + i];
   }
   __syncthreads();
-  for (int col = threadIdx.x; col < D; col += blockDim.x) {
-    float acc = 0.f;
+  for (int col = 2 * threadIdx.x; col < D; col += 2 * blockDim.x) {
+    float2 acc = make_float2(0.f, 0.f);
     int start = 0;
     for (int i0 = 0; i0 < m; i0 += kBatch) {
-      float v[kBatch];
+      float2 v[kBatch];
 #pragma unroll
       for (int k = 0; k < kBatch; ++k)
-        v[k] = i0 + k < m ? to_f(g[(long)sp[i0 + k] * D + col]) : 0.f;
+        v[k] = i0 + k < m ? load_pair(g, sp[i0 + k], D, col) : make_float2(0.f, 0.f);
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
         const int i = i0 + k;
         if (i >= m) break;
-        acc += v[k];
+        acc.x += v[k].x;
+        acc.y += v[k].y;
         if (i + 1 == m || sk[i + 1] != sk[i]) {
           const int u = sk[i], r0 = rs[u], r1 = rs[u + 1];
           if (p0 + start == r0 && p0 + i + 1 == r1) {
-            out[(long)u * D + col] = acc;
+            store_pair(out + (long)u * D, D, col, acc);
           } else {
-            partial[((long)blockIdx.x * 2 + (r0 <= p0 ? 0 : 1)) * D + col] = acc;
+            store_pair(partial + ((long)blockIdx.x * 2 + (r0 <= p0 ? 0 : 1)) * D, D, col, acc);
           }
-          acc = 0.f;
+          acc = make_float2(0.f, 0.f);
           start = i + 1;
         }
       }
     }
   }
+  // rows with no source, threads over their columns
+  const int u0 = blockIdx.x * rows_per, u1 = min(u0 + rows_per, U);
+  for (int u = u0; u < u1; ++u) {
+    if (rs[u] != rs[u + 1]) continue;
+    for (int col = threadIdx.x; col < D; col += blockDim.x) out[(long)u * D + col] = 0.f;
+  }
 }
 
-// Block b - 1 handles the row that contains position b*kSeg and starts in
+// Block b - 1 handles the row that contains position b*seg and starts in
 // the reduction block before it: each row that crosses an edge exactly once.
 __global__ void __launch_bounds__(kFixWarps * 32)
-ss_fixup_kernel(int D, int U, const int* __restrict__ rs, const int* __restrict__ key,
+ss_fixup_kernel(int D, int U, int seg, const int* __restrict__ rs, const int* __restrict__ key,
                 const float* __restrict__ partial, float* __restrict__ out) {
   extern __shared__ float wsum[];   // [kFixWarps][D]
   const int n = rs[U];
-  const int edge = (blockIdx.x + 1) * kSeg;
+  const int edge = (blockIdx.x + 1) * seg;
   if (edge >= n) return;
   const int u = key[edge], r0 = rs[u], r1 = rs[u + 1];
-  if (!(r0 < edge && r0 >= edge - kSeg)) return;
-  const int j0 = r0 / kSeg, j1 = (r1 - 1) / kSeg;
+  if (!(r0 < edge && r0 >= edge - seg)) return;
+  const int j0 = r0 / seg, j1 = (r1 - 1) / seg;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int col = lane; col < D; col += 32) {
     float acc = 0.f;
     for (int j = j0 + w; j <= j1; j += kFixWarps)
-      acc += partial[((long)j * 2 + (r0 <= j * kSeg ? 0 : 1)) * D + col];
+      acc += partial[((long)j * 2 + (r0 <= j * seg ? 0 : 1)) * D + col];
     wsum[w * D + col] = acc;
   }
   __syncthreads();
@@ -233,53 +280,173 @@ ss_fixup_kernel(int D, int U, const int* __restrict__ rs, const int* __restrict_
   }
 }
 
-// one warp per row: rows with no source are 0
-__global__ void ss_zero_kernel(int D, int U, const int* __restrict__ rs, float* __restrict__ out) {
-  const int u = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (u >= U || rs[u] != rs[u + 1]) return;
-  for (int col = threadIdx.x & 31; col < D; col += 32) out[(long)u * D + col] = 0.f;
+// Steps 1-4 in one block for small S: a stable LSD radix sort of the
+// sources by row, 4 bits a pass, in shared memory. Thread t holds the
+// sources at positions 4t .. 4t + 3 of the current order; a pass counts
+// each digit per thread, scans the counts in (digit, thread) order, and
+// moves every source to its digit's next free position, so sources of one
+// row keep ascending s (the counting sort's order, and the same positions).
+// Invalid sources take row U and the pad past S row U + 1, both sorted
+// last. Then perm and key from the sorted order, and rs[u] = the first
+// position whose row is u or later, by binary search. No atomics: the
+// passes are a fixed sequence of scans.
+constexpr int kSmallItems = 4;                              // sources per thread
+constexpr int kSmallS = kSmallItems * kScanThreads;         // 4,096
+constexpr int kRadix = 16;                                  // 4-bit digits
+
+// the counts' flat index f in shared memory, one pad word per 32: a thread
+// reads its 16 consecutive counts from distinct banks
+__device__ __forceinline__ int hist_at(int f) { return f + (f >> 5); }
+
+// smem: two [kSmallS] key and value buffers, the [kRadix][kScanThreads]
+// counts (padded), the warps' sums
+constexpr int small_smem_bytes() {
+  return (4 * kSmallS + kRadix * kScanThreads * 33 / 32 + 32) * (int)sizeof(int);
 }
 
-long workspace_ints(long S, int U) { return chunks(S, kChunk) * U + (U + 1) + 2 * S; }
+__global__ void __launch_bounds__(kScanThreads)
+ss_sort_small_kernel(const int* __restrict__ idx, int S, int U, int* __restrict__ rs,
+                     int* __restrict__ perm, int* __restrict__ key) {
+  extern __shared__ int sm[];
+  int* ka = sm;
+  int* va = ka + kSmallS;
+  int* kb = va + kSmallS;
+  int* vb = kb + kSmallS;
+  int* hist = vb + kSmallS;                           // [kRadix][kScanThreads], padded
+  int* wsum = hist + kRadix * kScanThreads * 33 / 32;  // [32]
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  for (int i = t; i < kSmallS; i += kScanThreads) {
+    const int u = i < S ? idx[i] : U + 1;
+    ka[i] = i < S && (u < 0 || u >= U) ? U : u;
+    va[i] = i;
+  }
+  __syncthreads();
+  for (int shift = 0; (U + 1) >> shift; shift += 4) {
+    static_assert(kSmallItems == 4, "a thread's sources are one int4");
+    const int4 k4 = reinterpret_cast<const int4*>(ka)[t], v4 = reinterpret_cast<const int4*>(va)[t];
+    const int k[kSmallItems] = {k4.x, k4.y, k4.z, k4.w}, v[kSmallItems] = {v4.x, v4.y, v4.z, v4.w};
+    int d[kSmallItems];
+#pragma unroll
+    for (int i = 0; i < kSmallItems; ++i) d[i] = (k[i] >> shift) & (kRadix - 1);
+#pragma unroll
+    for (int dd = 0; dd < kRadix; ++dd) {
+      int c = 0;
+#pragma unroll
+      for (int i = 0; i < kSmallItems; ++i) c += d[i] == dd;
+      hist[hist_at(dd * kScanThreads + t)] = c;
+    }
+    __syncthreads();
+    // exclusive scan of hist in (digit, thread) order: 16 entries a thread
+    int run[kRadix], local = 0;
+#pragma unroll
+    for (int j = 0; j < kRadix; ++j) {
+      run[j] = local;
+      local += hist[hist_at(kRadix * t + j)];
+    }
+    int incl = local;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += x;
+    }
+    if (lane == 31) wsum[w] = incl;
+    __syncthreads();
+    if (w == 0) {
+      const int x = wsum[lane];
+      int wi = x;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, wi, o);
+        if (lane >= o) wi += y;
+      }
+      wsum[lane] = wi - x;
+    }
+    __syncthreads();
+    const int base = wsum[w] + incl - local;
+#pragma unroll
+    for (int j = 0; j < kRadix; ++j) hist[hist_at(kRadix * t + j)] = base + run[j];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kSmallItems; ++i) {
+      int before = 0;
+#pragma unroll
+      for (int j = 0; j < i; ++j) before += d[j] == d[i];
+      const int pos = hist[hist_at(d[i] * kScanThreads + t)] + before;
+      kb[pos] = k[i];
+      vb[pos] = v[i];
+    }
+    __syncthreads();
+    int* tk = ka; ka = kb; kb = tk;
+    int* tv = va; va = vb; vb = tv;
+  }
+  // the first position holding a row at least u
+  auto lower = [&](int u) {
+    int lo = 0, hi = kSmallS;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (ka[mid] < u) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+  };
+  const int n = lower(U);
+  for (int p = t; p < n; p += kScanThreads) {
+    perm[p] = va[p];
+    key[p] = ka[p];
+  }
+  for (int u = t; u <= U; u += kScanThreads) rs[u] = lower(u);
+}
+
+// the small path takes S sources in one block's sort
+bool small_path(long S, int U) { return S <= kSmallS && U < (1 << 30); }
+
+long workspace_ints(long S, int U) {
+  return (small_path(S, U) ? 0 : chunks(S, kChunk) * U) + (U + 1) + 2 * S;
+}
 
 template <typename T>
 cudaError_t launch(const int* idx, const T* g, long S, int D, int U, int* ws, float* partial,
                    float* out, cudaStream_t stream) {
-  const long C = chunks(S, kChunk), J = chunks(S, kSeg);
+  const int seg = seg_of(S);
+  const bool small = small_path(S, U);
+  const long C = small ? 0 : chunks(S, kChunk), J = chunks(S, seg);
   int* cnt = ws;
   int* rs = cnt + C * U;
   int* perm = rs + U + 1;
   int* key = perm + S;
   cudaError_t err = cudaSuccess;
-  if (C > 0) {
-    err = cudaMemsetAsync(cnt, 0, sizeof(int) * C * U, stream);
+  if (small) {
+    constexpr int smem = small_smem_bytes();
+    err = cudaFuncSetAttribute(ss_sort_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
     if (err != cudaSuccess) return err;
+    ss_sort_small_kernel<<<1, kScanThreads, smem, stream>>>(idx, (int)S, U, rs, perm, key);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  } else {
     ss_count_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  ss_column_scan_kernel<<<(U + 255) / 256, 256, 0, stream>>>(cnt, C, U, rs);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ss_row_scan_kernel<<<1, kScanThreads, 0, stream>>>(rs, U);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (C > 0) {
+    ss_column_scan_kernel<<<(U + 255) / 256, 256, 0, stream>>>(cnt, C, U, rs);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ss_row_scan_kernel<<<1, kScanThreads, 0, stream>>>(rs, U);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ss_place_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt, rs, perm, key);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int threads = D >= 1024 ? 1024 : (D + 31) / 32 * 32;
-    ss_reduce_kernel<T><<<(unsigned)J, threads, 0, stream>>>(g, D, U, rs, perm, key, partial,
-                                                             out);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  // at least one block, which writes the empty rows when there is no source
+  const long blocks = J > 0 ? J : 1;
+  const int threads = ((D + 1) / 2 + 31) / 32 * 32;
+  ss_reduce_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(
+      g, D, U, seg, (int)((U + blocks - 1) / blocks), rs, perm, key, partial, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (J > 1) {
     const size_t smem = sizeof(float) * kFixWarps * D;
-    err = cudaFuncSetAttribute(ss_fixup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    ss_fixup_kernel<<<(unsigned)(J - 1), kFixWarps * 32, smem, stream>>>(D, U, rs, key, partial,
-                                                                        out);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(ss_fixup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    ss_fixup_kernel<<<(unsigned)(J - 1), kFixWarps * 32, smem, stream>>>(D, U, seg, rs, key,
+                                                                        partial, out);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  ss_zero_kernel<<<(U + 7) / 8, 256, 0, stream>>>(D, U, rs, out);
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -290,7 +457,10 @@ extern "C" {
 long newsrec_segment_scatter_ws_ints(long S, int U) { return workspace_ints(S, U); }
 
 // float32 scratch for the partial sums of the rows that cross a block edge
-long newsrec_segment_scatter_partial_floats(long S, int D) { return chunks(S, kSeg) * 2 * D; }
+long newsrec_segment_scatter_partial_floats(long S, int D) { return chunks(S, seg_of(S)) * 2 * D; }
+
+// sorted positions per block of the reduction for S sources
+int newsrec_segment_scatter_seg(long S) { return seg_of(S); }
 
 // out [U, D] float32 = sum of g [S, D] rows (dtype 0 = float32, 1 =
 // bfloat16) by destination idx [S] int32; ws and partial as sized above,

@@ -33,11 +33,12 @@ gradients); their headers say what bounds them and how they are laid out.
   C interface, so no PyTorch header is compiled). Nothing is built when this
   module is imported.
 
-Two documented differences from the plain forward, both inherited from the
-TPU kernel: a news item whose tokens are all pad pools to **0** and gets
-zero gradients (the plain version returns the mean of its rows), and the
-rows of pad tokens inside a news item take another (unused) value. Only
-pooled rows of items with at least one real token are comparable.
+One documented difference from the plain forward, inherited from the TPU
+kernel: a news item whose tokens are all pad pools to **0** and gets zero
+gradients (the plain version returns the mean of its rows), so only pooled
+rows of items with at least one real token are comparable. Every row of the
+``o1`` residual, pad-token rows included, is the plain version's up to
+rounding: the forward kernel keeps each row's attention within its item.
 """
 
 from __future__ import annotations
@@ -245,23 +246,24 @@ def _lib() -> ctypes.CDLL:
     p, i, u, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     dropout = [u, i, u, fl]  # seed, rows per block, threshold, keep scale
     lib.newsrec_fused_encoder_fwd.argtypes = (
-        [i] + [p] * 11 + [i] * 5 + [fl] + dropout + [p])
+        [i] + [p] * 12 + [i] * 5 + [fl] + dropout + [p])
     lib.newsrec_fused_encoder_bwd.argtypes = (
         [i] + [p] * 20 + [i] * 5 + [fl] + dropout + [p])
     lg = ctypes.c_long
     lib.newsrec_weight_grad.argtypes = [i, p, lg, p, lg, lg, i, i, i, p, p, p]
     lib.newsrec_weight_grad_splits.argtypes = [lg, i, i]
-    lib.newsrec_fused_encoder_bwd_ws_elems.argtypes = [i, i, i]
-    lib.newsrec_fused_encoder_bwd_ws_elems.restype = lg
-    lib.newsrec_fused_encoder_bwd_tile.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
-    lib.newsrec_fused_encoder_bwd_tile.restype = None
+    for name in ("newsrec_fused_encoder_fwd_ws_elems", "newsrec_fused_encoder_bwd_ws_elems"):
+        getattr(lib, name).argtypes = [i, i, i]
+        getattr(lib, name).restype = lg
+    for name in ("newsrec_fused_encoder_fwd_tile", "newsrec_fused_encoder_bwd_tile"):
+        getattr(lib, name).argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        getattr(lib, name).restype = None
     for name in ("newsrec_fused_encoder_fwd", "newsrec_fused_encoder_bwd",
                  "newsrec_weight_grad", "newsrec_weight_grad_splits"):
         getattr(lib, name).restype = i
-    lib.newsrec_fused_encoder_smem_bytes.argtypes = [i] * 4
-    lib.newsrec_fused_encoder_bwd_smem_bytes.argtypes = [i] * 5
     for name in ("newsrec_fused_encoder_smem_bytes",
                  "newsrec_fused_encoder_bwd_smem_bytes"):
+        getattr(lib, name).argtypes = [i] * 5
         getattr(lib, name).restype = ctypes.c_long
     lib.newsrec_segment_scatter.argtypes = [i, p, p, ctypes.c_long, i, i, p, p, p, p]
     lib.newsrec_segment_scatter.restype = i
@@ -269,6 +271,8 @@ def _lib() -> ctypes.CDLL:
                  "newsrec_segment_scatter_partial_floats"):
         getattr(lib, name).argtypes = [ctypes.c_long, i]
         getattr(lib, name).restype = ctypes.c_long
+    lib.newsrec_segment_scatter_seg.argtypes = [ctypes.c_long]
+    lib.newsrec_segment_scatter_seg.restype = i
     lib.newsrec_ablate_encoder.argtypes = [i, i] + [p] * 10 + [i] * 5 + [fl, p]
     lib.newsrec_ablate_encoder.restype = i
     lib.newsrec_ablate_encoder_smem_bytes.argtypes = [i] * 5
@@ -331,13 +335,14 @@ def _on_cuda(x, what: str) -> None:
 
 
 def _prepare(x, mask, weights, num_heads, smem_fn):
-    """Contiguous operands, checked against what the kernels take."""
+    """Contiguous operands, checked against what the kernels take
+    (``smem_fn`` names the library's shared-memory need of the kernels)."""
     weights = [t.contiguous() for t in weights]
     M, L, D, Q = _check(x, mask, weights, num_heads)
     x = x.contiguous()
     mask = mask.to(torch.float32).contiguous()
     lib = _lib()
-    smem = smem_fn(lib)(L, D, num_heads, Q)
+    smem = getattr(lib, smem_fn)(_DTYPE_CODE[x.dtype], L, D, num_heads, Q)
     if smem > MAX_SMEM:
         raise ValueError(f"L={L} D={D} needs {smem} bytes of shared memory; "
                          f"one block has {MAX_SMEM}")
@@ -375,16 +380,19 @@ def fused_news_encoder(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
         return fused_news_encoder_diff(x, mask, *weights, num_heads=num_heads,
                                        dropout_rate=dropout_rate, seed=seed)
     lib, x, mask, weights, (M, L, D, Q) = _prepare(
-        x, mask, weights, num_heads, lambda lib: lib.newsrec_fused_encoder_smem_bytes)
+        x, mask, weights, num_heads, "newsrec_fused_encoder_smem_bytes")
     out = torch.empty((M, D), dtype=x.dtype, device=x.device)
-    o1 = torch.empty((M, L, D), dtype=x.dtype, device=x.device) if save_o1 else None
+    # o1 goes through device memory between the attention and the tail
+    # kernels whether or not the caller keeps it
+    o1 = torch.empty((M, L, D), dtype=x.dtype, device=x.device)
     if M == 0:
         return (out, o1) if save_o1 else out
+    ws = _weight_scratch(lib.newsrec_fused_encoder_fwd_ws_elems, x.dtype, D, num_heads, Q,
+                         x.device)
     with torch.cuda.device(x.device):
         rc = lib.newsrec_fused_encoder_fwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
-            *(t.data_ptr() for t in weights), out.data_ptr(),
-            o1.data_ptr() if save_o1 else None,
+            *(t.data_ptr() for t in weights), out.data_ptr(), o1.data_ptr(), ws.data_ptr(),
             M, L, D, num_heads, Q, 1.0 / math.sqrt(D // num_heads),
             *_dropout_args(seed, L, dropout_rate),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -435,13 +443,31 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
     return (out[:K], out[K]) if bias else out
 
 
+def _tile(fn, L: int) -> Tuple[int, int]:
+    items, rows = ctypes.c_int(), ctypes.c_int()
+    fn(L, ctypes.byref(items), ctypes.byref(rows))
+    return items.value, rows.value
+
+
+def fwd_tile(L: int) -> Tuple[int, int]:
+    """Whole items per block of the forward's kernels at item length
+    ``L``, and the block's token rows, as the built kernels take them
+    (builds the library; needs ``nvcc``)."""
+    return _tile(_lib().newsrec_fused_encoder_fwd_tile, L)
+
+
 def bwd_tile(L: int) -> Tuple[int, int]:
     """Whole items per block of the backward's pooling and attention
     kernels at item length ``L``, and the block's token rows, as the built
     kernels take them (builds the library; needs ``nvcc``)."""
-    items, rows = ctypes.c_int(), ctypes.c_int()
-    _lib().newsrec_fused_encoder_bwd_tile(L, ctypes.byref(items), ctypes.byref(rows))
-    return items.value, rows.value
+    return _tile(_lib().newsrec_fused_encoder_bwd_tile, L)
+
+
+def _weight_scratch(elems_fn, dtype, D, H, Q, device):
+    """Room for the weights as the kernels read them (bf16; f32 weights as
+    high and low parts), written once per call."""
+    parts = 2 if dtype == torch.float32 else 1
+    return torch.empty(parts * elems_fn(D, H, Q), dtype=torch.bfloat16, device=device)
 
 
 def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
@@ -450,8 +476,7 @@ def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
     intermediates the weight gradients read (o2, t, dpre, do2, d(logit),
     dqkv, each ``[M*L, *]``)."""
     lib, x, mask, weights, (M, L, D, Q) = _prepare(
-        x, mask, weights, num_heads, lambda lib: functools.partial(
-            lib.newsrec_fused_encoder_bwd_smem_bytes, _DTYPE_CODE[x.dtype]))
+        x, mask, weights, num_heads, "newsrec_fused_encoder_bwd_smem_bytes")
     if tuple(o1.shape) != (M, L, D) or o1.dtype != x.dtype or tuple(g.shape) != (M, D):
         raise ValueError(f"o1 must be [{M}, {L}, {D}] {x.dtype} and g [{M}, {D}]")
     g = g.to(torch.float32).contiguous()
@@ -464,11 +489,7 @@ def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
     o2_s, t_s, dpre_s, do2_s = empty(R, D), empty(R, Q), empty(R, Q), empty(R, D)
     ds_s, dqkv_s = empty(R, 1), empty(R, 3 * D)
     do1_s = torch.empty((R, D), dtype=x.dtype, device=dev)
-    # the weights as the kernels read them (bf16; f32 weights as high and
-    # low parts), written once per call
-    parts = 2 if x.dtype == torch.float32 else 1
-    ws = torch.empty(parts * lib.newsrec_fused_encoder_bwd_ws_elems(D, num_heads, Q),
-                     dtype=torch.bfloat16, device=dev)
+    ws = _weight_scratch(lib.newsrec_fused_encoder_bwd_ws_elems, x.dtype, D, num_heads, Q, dev)
     if M > 0:
         with torch.cuda.device(dev):
             rc = lib.newsrec_fused_encoder_bwd(

@@ -3,9 +3,12 @@
 Replaces the TPU kernel ``_scatter_kernel`` of the JAX package's
 ``ops/pallas/segment_scatter.py`` (its wrapper ``scatter_add_rows`` and the
 custom VJP ``dedup_gather``). The Hopper kernel is ``csrc/segment_scatter.cu``:
-a stable counting sort of the indices and a fixed-partition segment sum,
-bound by bytes; its header says how it handles the skew of the dedup
-inverse gathers (the pad news holds about half the history slots).
+a stable sort of the indices (a counting sort in four launches, or up to
+4,096 sources one single-block bitonic sort) and a fixed-partition segment
+sum whose segment length follows from the number of sources
+(:func:`segment_length`), bound by bytes; its header says how it handles
+the skew of the dedup inverse gathers (the pad news holds about half the
+history slots).
 
 * :func:`scatter_add_rows` is the wrapper. A tensor on the CPU goes to the
   plain version; a CUDA tensor goes to the kernel, or the call raises.
@@ -28,6 +31,13 @@ from pytorch_news_recommender_tpu_torch.ops.fused_encoder import (
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 1024  # the widest row the kernel takes
+
+
+def segment_length(S: int) -> int:
+    """Sorted positions per block of the kernel's reduction for ``S``
+    sources, as the built kernel takes them (builds the library; needs
+    ``nvcc``)."""
+    return _lib().newsrec_segment_scatter_seg(S)
 
 
 def scatter_add_rows_reference(idx: torch.Tensor, g: torch.Tensor,
@@ -65,14 +75,14 @@ def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor, num_rows: int) -> torch
     idx = idx.to(torch.int32).contiguous()
     g = g.contiguous()
     lib = _lib()
-    ws = torch.empty(lib.newsrec_segment_scatter_ws_ints(S, num_rows),
+    # one allocation: the int32 workspace, then the float32 partial sums
+    n_ws = lib.newsrec_segment_scatter_ws_ints(S, num_rows)
+    ws = torch.empty(n_ws + max(1, lib.newsrec_segment_scatter_partial_floats(S, D)),
                      dtype=torch.int32, device=g.device)
-    partial = torch.empty(max(1, lib.newsrec_segment_scatter_partial_floats(S, D)),
-                          dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         rc = lib.newsrec_segment_scatter(
             _DTYPE_CODE[g.dtype], idx.data_ptr(), g.data_ptr(), S, D, num_rows,
-            ws.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), ws.data_ptr() + 4 * n_ws, out.data_ptr(),
             torch.cuda.current_stream(g.device).cuda_stream)
     _raise_on(lib, rc, "segment scatter")
     _count(scatter_add_rows)

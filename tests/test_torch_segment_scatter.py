@@ -69,6 +69,106 @@ def test_dedup_gather_gradient_matches_plain_gather(dtype):
     torch.testing.assert_close(t.grad.float(), t32.grad.to(dtype).float(), rtol=tol, atol=tol)
 
 
+def _seg_of(S):
+    """Sorted positions per block of the kernel's reduction
+    (``csrc/segment_scatter.cu``, ``seg_of``): the power of two from 16 to
+    128 that gives about 264 blocks. ``test_segment_length_is_the_kernels_on_card``
+    holds it to the built library's."""
+    seg = 16
+    while seg < 128 and seg * 264 < S:
+        seg *= 2
+    return seg
+
+
+def _partition_model(idx, g, U):
+    """Plain model of the kernel's sums, in float32: a stable sort of the
+    sources by row, blocks of ``_seg_of(S)`` sorted positions each summed in
+    order, a row inside one block written from it, a row across a block
+    edge left in its blocks' partial slots and summed by 32 warps (warp w
+    takes the parts w, w + 32, ...), the warp sums added in warp order."""
+    S, D = g.shape
+    seg = _seg_of(S)
+    keep = (idx >= 0) & (idx < U)
+    order = np.argsort(np.where(keep, idx, U), kind="stable")[:int(keep.sum())]
+    key, rows = idx[order], g[order].astype(np.float32)
+    n = len(key)
+    starts = np.searchsorted(key, np.arange(U + 1))
+    out = np.zeros((U, D), np.float32)
+    parts = {}  # (block, row) -> the block's part of a row across an edge
+    for j in range(-(-n // seg)):
+        p0, p1 = j * seg, min((j + 1) * seg, n)
+        acc, start = np.zeros(D, np.float32), p0
+        for p in range(p0, p1):
+            acc = acc + rows[p]
+            if p + 1 == p1 or key[p + 1] != key[p]:
+                u = key[p]
+                if start == starts[u] and p + 1 == starts[u + 1]:
+                    out[u] = acc
+                else:
+                    parts[(j, u)] = acc
+                acc, start = np.zeros(D, np.float32), p + 1
+    for u in {u for _, u in parts}:
+        j0, j1 = starts[u] // seg, (starts[u + 1] - 1) // seg
+        warp = [np.zeros(D, np.float32) for _ in range(32)]
+        for j in range(j0, j1 + 1):
+            warp[(j - j0) % 32] = warp[(j - j0) % 32] + parts[(j, u)]
+        total = np.zeros(D, np.float32)
+        for w in warp:
+            total = total + w
+        out[u] = total
+    return out
+
+
+def _dedup_indices():
+    """The inverse indices of a dedup batch (browsed and candidates), from
+    the small synthetic configuration."""
+    cfg = synthetic_config()
+    ds = synthetic.generate(cfg.data, seed=2, n_train=256, n_dev=8)
+    batch = next(train_batches(ds.train, 64, np.random.default_rng(0), dedup=True,
+                               unique_buckets=(64, 128, 256, 512)))
+    U = int(batch["unique_ids"].shape[0])
+    return U, {k: batch[k].reshape(-1).astype(np.int32) for k in ("browsed_idx",
+                                                                 "candidate_idx")}
+
+
+@pytest.mark.parametrize("case", ["browsed", "candidate", "zipf-1", "zipf-127", "zipf-129",
+                                  "zipf-3072", "zipf-25600", "one-row-5000", "out-of-range"])
+def test_partition_model_equals_index_add(case):
+    """The kernel's partition (segment length from S, the fixup of rows that
+    cross a block edge) sums what ``index_add_`` sums, within 1e-6 of the
+    largest output: ``index_add_`` in float64 on every case, and the plain
+    version (float32 ``index_add_``) on a dedup batch's skewed indices (the
+    pad news holds about half the history slots); Zipf indices at the sizes
+    the card tests take; one row of 5,000 sources across many edges;
+    indices outside [0, U)."""
+    D = 24
+    rng = np.random.default_rng(3)
+    if case in ("browsed", "candidate"):
+        U, idx = _dedup_indices()
+        idx = idx[case + "_idx"]
+        assert case == "candidate" or np.bincount(idx).max() > 2 * _seg_of(len(idx))
+    elif case.startswith("zipf"):
+        S = int(case.split("-")[1])
+        U = 9216 if S >= 3072 else 130
+        idx, _ = _zipf(7, U, S, 1, pad_share=0.5)
+    elif case == "one-row-5000":
+        U, idx = 3, np.ones(5000, np.int32)
+    else:
+        U, idx = 5, np.array([0, 5, 2, -1, 2, 3, 7, 4] * 40, np.int32)
+    g = rng.standard_normal((len(idx), D)).astype(np.float32)
+    got = _partition_model(idx, g, U)
+    valid = (idx >= 0) & (idx < U)
+    iv, gv = torch.from_numpy(idx[valid]).long(), torch.from_numpy(g[valid])
+    exact = torch.zeros((U, D), dtype=torch.float64).index_add_(0, iv, gv.double()).numpy()
+    assert np.abs(got - exact).max() <= 1e-6 * np.abs(exact).max()
+    if case in ("browsed", "candidate"):
+        # the plain version's float32 sums too (at thousands of sources in
+        # one row its sequential sum drifts some 3e-6 from the exact one)
+        expect = SS.scatter_add_rows_reference(iv, gv, U).numpy()
+        assert np.abs(got - expect).max() <= 1e-6 * np.abs(expect).max()
+    assert np.all(got[np.bincount(idx[(idx >= 0) & (idx < U)], minlength=U) == 0] == 0)
+
+
 def test_cpu_tensors_take_the_plain_version_and_build_nothing():
     idx, g = _zipf(2, 40, 300, 16)
     before = SS.scatter_add_rows.launches
@@ -137,7 +237,11 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("U,S,D,pad_share", [
     (1, 1, 1, 0.0), (5, 0, 8, 0.0), (64, 200, 32, 0.0), (130, 1000, 48, 0.5),
-    (9216, 25600, 300, 0.5), (9216, 3072, 300, 0.0), (300, 100_000, 7, 0.9)])
+    (9216, 25600, 300, 0.5), (9216, 3072, 300, 0.0), (300, 100_000, 7, 0.9),
+    # heavy skew at the segment lengths of small S (16 positions a block up
+    # to S = 4,224): one source, one block, one edge, the candidate gather
+    (9216, 1, 300, 0.9), (9216, 127, 300, 0.9), (9216, 129, 300, 0.9),
+    (9216, 3072, 300, 0.9), (130, 129, 1, 0.9)])
 def test_kernel_matches_plain_on_card(cuda_device, dtype, U, S, D, pad_share):
     """Max error 1e-5 of the largest output: float32 sums of the same
     terms, in another order; rows with no source exactly 0; two launches
@@ -155,6 +259,12 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, U, S, D, pad_share):
     empty = torch.bincount(idx.long(), minlength=U) == 0
     assert torch.all(got[empty] == 0)
     assert torch.equal(got, SS.scatter_add_rows(idx, g, U))
+
+
+@pytest.mark.parametrize("S", [0, 1, 127, 129, 3072, 4224, 4225, 25_600, 100_000])
+def test_segment_length_is_the_kernels_on_card(cuda_device, S):
+    """The CPU partition model's segment length is the built kernel's."""
+    assert SS.segment_length(S) == _seg_of(S)
 
 
 def test_out_of_range_indices_match_no_row_on_card(cuda_device):
