@@ -23,11 +23,8 @@
 // gives every row its sources in ascending s; a fixed partition of the
 // sorted positions then sums them, and nothing depends on the order in
 // which blocks run, so two launches give the same bits (no float atomics,
-// no integer atomics either). Up to S = 4,096 (the candidate gather) steps
-// 1-4 are one single-block launch, ss_sort_small_kernel: a stable radix
-// sort of the sources by row in shared memory, which gives the same
-// positions as the counting sort, then each row's start by binary search;
-// three launches in all. Past it six:
+// no integer atomics either). Six launches, the fixup only where the
+// reduction has more than one block:
 //   1. count:  per chunk c of kChunk sources, cnt[c][u] = the chunk's
 //              sources of row u (written by the chunk's first such source,
 //              found by comparing against the chunk's ids in shared memory),
@@ -280,155 +277,28 @@ ss_fixup_kernel(int D, int U, int seg, const int* __restrict__ rs, const int* __
   }
 }
 
-// Steps 1-4 in one block for small S: a stable LSD radix sort of the
-// sources by row, 4 bits a pass, in shared memory. Thread t holds the
-// sources at positions 4t .. 4t + 3 of the current order; a pass counts
-// each digit per thread, scans the counts in (digit, thread) order, and
-// moves every source to its digit's next free position, so sources of one
-// row keep ascending s (the counting sort's order, and the same positions).
-// Invalid sources take row U and the pad past S row U + 1, both sorted
-// last. Then perm and key from the sorted order, and rs[u] = the first
-// position whose row is u or later, by binary search. No atomics: the
-// passes are a fixed sequence of scans.
-constexpr int kSmallItems = 4;                              // sources per thread
-constexpr int kSmallS = kSmallItems * kScanThreads;         // 4,096
-constexpr int kRadix = 16;                                  // 4-bit digits
-
-// the counts' flat index f in shared memory, one pad word per 32: a thread
-// reads its 16 consecutive counts from distinct banks
-__device__ __forceinline__ int hist_at(int f) { return f + (f >> 5); }
-
-// smem: two [kSmallS] key and value buffers, the [kRadix][kScanThreads]
-// counts (padded), the warps' sums
-constexpr int small_smem_bytes() {
-  return (4 * kSmallS + kRadix * kScanThreads * 33 / 32 + 32) * (int)sizeof(int);
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-ss_sort_small_kernel(const int* __restrict__ idx, int S, int U, int* __restrict__ rs,
-                     int* __restrict__ perm, int* __restrict__ key) {
-  extern __shared__ int sm[];
-  int* ka = sm;
-  int* va = ka + kSmallS;
-  int* kb = va + kSmallS;
-  int* vb = kb + kSmallS;
-  int* hist = vb + kSmallS;                           // [kRadix][kScanThreads], padded
-  int* wsum = hist + kRadix * kScanThreads * 33 / 32;  // [32]
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  for (int i = t; i < kSmallS; i += kScanThreads) {
-    const int u = i < S ? idx[i] : U + 1;
-    ka[i] = i < S && (u < 0 || u >= U) ? U : u;
-    va[i] = i;
-  }
-  __syncthreads();
-  for (int shift = 0; (U + 1) >> shift; shift += 4) {
-    static_assert(kSmallItems == 4, "a thread's sources are one int4");
-    const int4 k4 = reinterpret_cast<const int4*>(ka)[t], v4 = reinterpret_cast<const int4*>(va)[t];
-    const int k[kSmallItems] = {k4.x, k4.y, k4.z, k4.w}, v[kSmallItems] = {v4.x, v4.y, v4.z, v4.w};
-    int d[kSmallItems];
-#pragma unroll
-    for (int i = 0; i < kSmallItems; ++i) d[i] = (k[i] >> shift) & (kRadix - 1);
-#pragma unroll
-    for (int dd = 0; dd < kRadix; ++dd) {
-      int c = 0;
-#pragma unroll
-      for (int i = 0; i < kSmallItems; ++i) c += d[i] == dd;
-      hist[hist_at(dd * kScanThreads + t)] = c;
-    }
-    __syncthreads();
-    // exclusive scan of hist in (digit, thread) order: 16 entries a thread
-    int run[kRadix], local = 0;
-#pragma unroll
-    for (int j = 0; j < kRadix; ++j) {
-      run[j] = local;
-      local += hist[hist_at(kRadix * t + j)];
-    }
-    int incl = local;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int x = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += x;
-    }
-    if (lane == 31) wsum[w] = incl;
-    __syncthreads();
-    if (w == 0) {
-      const int x = wsum[lane];
-      int wi = x;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, wi, o);
-        if (lane >= o) wi += y;
-      }
-      wsum[lane] = wi - x;
-    }
-    __syncthreads();
-    const int base = wsum[w] + incl - local;
-#pragma unroll
-    for (int j = 0; j < kRadix; ++j) hist[hist_at(kRadix * t + j)] = base + run[j];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kSmallItems; ++i) {
-      int before = 0;
-#pragma unroll
-      for (int j = 0; j < i; ++j) before += d[j] == d[i];
-      const int pos = hist[hist_at(d[i] * kScanThreads + t)] + before;
-      kb[pos] = k[i];
-      vb[pos] = v[i];
-    }
-    __syncthreads();
-    int* tk = ka; ka = kb; kb = tk;
-    int* tv = va; va = vb; vb = tv;
-  }
-  // the first position holding a row at least u
-  auto lower = [&](int u) {
-    int lo = 0, hi = kSmallS;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ka[mid] < u) lo = mid + 1; else hi = mid;
-    }
-    return lo;
-  };
-  const int n = lower(U);
-  for (int p = t; p < n; p += kScanThreads) {
-    perm[p] = va[p];
-    key[p] = ka[p];
-  }
-  for (int u = t; u <= U; u += kScanThreads) rs[u] = lower(u);
-}
-
-// the small path takes S sources in one block's sort
-bool small_path(long S, int U) { return S <= kSmallS && U < (1 << 30); }
-
 long workspace_ints(long S, int U) {
-  return (small_path(S, U) ? 0 : chunks(S, kChunk) * U) + (U + 1) + 2 * S;
+  return chunks(S, kChunk) * U + (U + 1) + 2 * S;
 }
 
 template <typename T>
 cudaError_t launch(const int* idx, const T* g, long S, int D, int U, int* ws, float* partial,
                    float* out, cudaStream_t stream) {
   const int seg = seg_of(S);
-  const bool small = small_path(S, U);
-  const long C = small ? 0 : chunks(S, kChunk), J = chunks(S, seg);
+  const long C = chunks(S, kChunk), J = chunks(S, seg);
   int* cnt = ws;
   int* rs = cnt + C * U;
   int* perm = rs + U + 1;
   int* key = perm + S;
   cudaError_t err = cudaSuccess;
-  if (small) {
-    constexpr int smem = small_smem_bytes();
-    err = cudaFuncSetAttribute(ss_sort_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    ss_sort_small_kernel<<<1, kScanThreads, smem, stream>>>(idx, (int)S, U, rs, perm, key);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  } else {
-    ss_count_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ss_column_scan_kernel<<<(U + 255) / 256, 256, 0, stream>>>(cnt, C, U, rs);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ss_row_scan_kernel<<<1, kScanThreads, 0, stream>>>(rs, U);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ss_place_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt, rs, perm, key);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  ss_count_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ss_column_scan_kernel<<<(U + 255) / 256, 256, 0, stream>>>(cnt, C, U, rs);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ss_row_scan_kernel<<<1, kScanThreads, 0, stream>>>(rs, U);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ss_place_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt, rs, perm, key);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // at least one block, which writes the empty rows when there is no source
   const long blocks = J > 0 ? J : 1;
   const int threads = ((D + 1) / 2 + 31) / 32 * 32;

@@ -3,9 +3,9 @@
 Replaces the TPU kernel ``_scatter_kernel`` of the JAX package's
 ``ops/pallas/segment_scatter.py`` (its wrapper ``scatter_add_rows`` and the
 custom VJP ``dedup_gather``). The Hopper kernel is ``csrc/segment_scatter.cu``:
-a stable sort of the indices (a counting sort in four launches, or up to
-4,096 sources one single-block bitonic sort) and a fixed-partition segment
-sum whose segment length follows from the number of sources
+a stable counting sort of the indices in four launches and a
+fixed-partition segment sum whose segment length follows from the number
+of sources
 (:func:`segment_length`), bound by bytes; its header says how it handles
 the skew of the dedup inverse gathers (the pad news holds about half the
 history slots).
