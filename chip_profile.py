@@ -1,6 +1,6 @@
-"""Where the port's NRMS training step spends its time, on one NVIDIA card.
+"""Where the port's training step spends its time, on one NVIDIA card.
 
-    python3 chip_profile.py [--dedup-gather-mxu]
+    python3 chip_profile.py [--dedup-gather-mxu] [--model nrms_entity|tanr|hierec]
 
 Trains NRMS at the configuration of ``chip_smoke.py``'s training phase
 (the JAX package's defaults: D=300, 10 heads, Q=200, batch 512, bf16,
@@ -11,14 +11,17 @@ the device time by kernel group and by kernel (the top 15, then every kernel
 of the weight gradients, of the segment scatter and every memset, with
 launches and time per launch), and the device's busy and idle shares of the
 wall time. ``--dedup-gather-mxu`` profiles the step
-whose inverse gathers' backward is the segment-scatter kernel. Needs a CUDA
-card; prints nothing else.
+whose inverse gathers' backward is the segment-scatter kernel; ``--model``
+another family than NRMS, on the corpus of ``chip_smoke.py``'s phases 9-11
+(entities, 18 categories, 294 subcategories). Needs a CUDA card; prints
+nothing else.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import sys
 import time
 from collections import defaultdict
@@ -36,7 +39,8 @@ GROUPS = (("fwd_attn_kernel", "encoder forward: attention"),
           ("dx_kernel", "encoder backward: dx"),
           ("stage_weights_kernel", "encoder weight layout (forward and backward)"),
           ("weight_grad", "weight gradients"),
-          ("ss_", "segment scatter"),
+          ("::ss_", "segment scatter"),
+          ("gemm", "library matrix products (cuBLAS, CUTLASS)"),
           ("index", "gathers and scatter-adds"),
           ("gather", "gathers and scatter-adds"),
           ("scatter", "gathers and scatter-adds"),
@@ -58,6 +62,7 @@ def group_of(name: str) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dedup-gather-mxu", action="store_true")
+    parser.add_argument("--model", default="nrms", choices=("nrms",) + CS.FAMILIES)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card",
@@ -73,13 +78,16 @@ def main() -> int:
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer
 
     gpu = CS.card()
-    cfg = Config(data=DataConfig(dataset="synthetic"))
-    if args.dedup_gather_mxu:
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
-                                                                 dedup_gather_mxu=True))
+    if args.model == "nrms":
+        cfg = Config(data=DataConfig(dataset="synthetic"))
+        ds = synthetic.generate(cfg.data, seed=1, n_news=CS.N_NEWS, vocab_size=CS.VOCAB,
+                                n_train=(WARMUP + STEPS) * cfg.train.batch_size, n_dev=64,
+                                title_len=(11.5, 4))
+    else:
+        cfg, ds = CS.family_data()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, name=args.model, dedup_gather_mxu=args.dedup_gather_mxu))
     bs = cfg.train.batch_size
-    ds = synthetic.generate(cfg.data, seed=1, n_news=CS.N_NEWS, vocab_size=CS.VOCAB,
-                            n_train=(WARMUP + STEPS) * bs, n_dev=64, title_len=(11.5, 4))
     trainer = Trainer(cfg, ds, device="cuda")
     state = trainer.init_state(seed=0)
     host = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
@@ -91,7 +99,7 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for batch in batches:
+        for batch in itertools.islice(batches, STEPS):
             state, m = trainer.run_step(state, batch)
         float(m["loss"])
         torch.cuda.synchronize()
@@ -107,7 +115,7 @@ def main() -> int:
     for name, ms in by_kernel.items():
         by_group[group_of(name)] += ms
     tag = f"[{gpu}]"
-    print(f"{tag} {STEPS} training steps (batch {bs}, dedup_gather_mxu "
+    print(f"{tag} {args.model}: {STEPS} training steps (batch {bs}, dedup_gather_mxu "
           f"{cfg.model.dedup_gather_mxu}): {wall_ms / STEPS:.2f} ms per step "
           f"(wall); device busy {busy / STEPS:.2f} ms per step = "
           f"{100 * busy / wall_ms:.1f}% of the wall, idle {100 * (1 - busy / wall_ms):.1f}%",

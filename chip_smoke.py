@@ -45,10 +45,20 @@
    the same input) at M=28,672, L=20 with the all-ones mask and at M=4096
    with a real mask that holds an all-pad item, holds each stage's kernel
    against its plain version, and counts the launches.
+9-11. Trains, evaluates and serves the ``nrms_entity``, ``tanr`` and
+   ``hierec`` families at NRMS's full width on one corpus with 10 entities
+   per news (a 20,000-entity vocabulary, 100-d vectors), 18 categories and
+   294 subcategories: one step through the kernels against the same step
+   through the plain versions (TANR's topic loss and HieRec's gate
+   included), FAMILY_STEPS steps and an evaluation with the plain versions
+   made to raise (no fallback), then a ``Recommender`` at the trained
+   weights: corpus encode, ``score_many`` and ``top_k`` times, and its
+   scores against a recommender that runs the plain versions.
 
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
-phase raises; there is no result without a CUDA card.
+phase raises; there is no result without a CUDA card, or when the script
+is not in a checkout of the repo (the package must lie beside it).
 """
 
 from __future__ import annotations
@@ -85,6 +95,9 @@ FWD_LAUNCHES, FWD_KERNELS = 1, 3
 # backward kernel vs plain version, max|a - b| / max|b| per output
 BWD_TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
 TRAIN_STEPS = 40
+# phases 9-11: the families trained beside NRMS, and the steps of each
+FAMILIES = ("nrms_entity", "tanr", "hierec")
+FAMILY_STEPS = 12
 # launches of one backward call: the per-item kernels' (one count for the
 # pooling, attention and dx kernels of one call) and weight_grad's
 BWD_LAUNCHES = (1, 4)
@@ -389,14 +402,17 @@ def plain_kernels(FE, SS):
 
 
 def loss_and_grads(trainer, state, batch, seed):
-    """One training forward and backward (no update) -> (loss, grads)."""
-    from pytorch_news_recommender_tpu_torch.train.loop import softmax_ce_loss
+    """One training forward and backward (no update), the auxiliary losses
+    included -> (loss, grads)."""
+    from pytorch_news_recommender_tpu_torch.train.loop import training_loss
     model = state.model
     model.zero_grad(set_to_none=True)
     b = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
     scores = model(b, trainer.news_feats, deterministic=False,
                    generator=torch.Generator().manual_seed(seed))
-    loss = softmax_ce_loss(scores)
+    assert sorted(model.aux_losses) == (["topic_ce"] if model.HAS_AUX_LOSS else []), \
+        model.aux_losses
+    loss = training_loss(model, scores)
     loss.backward()
     grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
              if p.grad is not None}
@@ -422,11 +438,33 @@ def training_data():
     return cfg, ds
 
 
+@contextlib.contextmanager
+def no_plain(FE, SS):
+    """The plain versions of the kernels raise while the main path runs: on
+    the card no wrapper may fall back to them."""
+    names = {FE: ("fused_news_encoder_reference", "fused_news_encoder_bwd_reference",
+                  "weight_grad_reference"), SS: ("scatter_add_rows_reference",)}
+    saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the main path")
+        return fn
+    for m, n in saved:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+
 def train_run(FE, SS, cfg, ds, phase):
-    """NRMS training through Trainer.run_step and Trainer.evaluate: one step
-    through the kernels against the same step through the plain versions,
-    then the main path (every launch count set to 0 before it and read
-    after it): TRAIN_STEPS steps over prefetched batches and an evaluation."""
+    """Training of ``cfg.model.name`` through Trainer.run_step and
+    Trainer.evaluate: one step through the kernels against the same step
+    through the plain versions, then the main path (every launch count set
+    to 0 before it and read after it, the plain versions made to raise): a
+    step over each prefetched batch of ``ds.train`` and an evaluation."""
     from pytorch_news_recommender_tpu_torch.data.loader import (
         DEFAULT_UNIQUE_BUCKETS, train_batches,
     )
@@ -449,14 +487,16 @@ def train_run(FE, SS, cfg, ds, phase):
     names = [n for n, _ in state.model.named_parameters()]
     assert sorted(gk) == sorted(gp) == sorted(names), "a parameter got no gradient"
     assert all(float(gk[n].abs().max()) > 0 for n in names), "a zero gradient"
+    name = cfg.model.name
     scale = max(float(g.abs().max()) for g in gp.values())
     grad_err = max(float((gk[n] - gp[n]).abs().max()) for n in names) / scale
     loss_err = abs(lk - lp) / abs(lp)
     assert loss_err < 0.01 and grad_err < 2e-2, (lk, lp, grad_err)
-    print(f"[phase {phase}] train step kernel vs plain (unique {first['unique_ids'].shape[0]}, "
-          f"short {first['short_mark'].shape[0]}): loss {lk:.5f} vs {lp:.5f} (rel "
-          f"{loss_err:.3g}, tol 0.01); grads max err {grad_err:.3g} of the largest gradient "
-          f"(tol 2e-2); every tower weight and the word table get a gradient", flush=True)
+    print(f"[phase {phase}] {name} train step kernel vs plain (unique "
+          f"{first['unique_ids'].shape[0]}, short {first['short_mark'].shape[0]}): loss "
+          f"{lk:.5f} vs {lp:.5f} (rel {loss_err:.3g}, tol 0.01); grads max err "
+          f"{grad_err:.3g} of the largest gradient (tol 2e-2); each of the "
+          f"{len(names)} parameters gets a gradient", flush=True)
 
     # the main path: run_step over prefetched batches, then evaluate
     counted = {"fwd": FE.fused_news_encoder, "bwd": FE.fused_news_encoder_bwd,
@@ -465,31 +505,122 @@ def train_run(FE, SS, cfg, ds, phase):
         fn.launches = 0
     losses, step_ms, widths = [], [], []
     torch.cuda.synchronize()
-    for batch in device_prefetch(itertools.chain([first], host), DEVICE):
+    with no_plain(FE, SS):
+        for batch in device_prefetch(itertools.chain([first], host), DEVICE):
+            t0 = time.perf_counter()
+            state, m = trainer.run_step(state, batch)
+            losses.append(float(m["loss"]))   # waits for the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            widths.append((batch["unique_ids"].shape[0], batch["short_mark"].shape[0]
+                           if "short_mark" in batch else 0))
+        steps = len(ds.train) // bs
+        assert len(losses) == steps and np.all(np.isfinite(losses)), losses
+        q = max(1, steps // 4)
+        first_q, last_q = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
+        assert last_q < first_q, (first_q, last_q)
         t0 = time.perf_counter()
-        state, m = trainer.run_step(state, batch)
-        losses.append(float(m["loss"]))   # waits for the step
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        widths.append((batch["unique_ids"].shape[0], batch["short_mark"].shape[0]
-                       if "short_mark" in batch else 0))
-    assert len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses)), losses
-    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    assert last10 < first10, (first10, last10)
-    t0 = time.perf_counter()
-    metrics = trainer.evaluate(state)
-    eval_s = time.perf_counter() - t0
+        metrics = trainer.evaluate(state)
+        eval_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
     assert launches["fwd"] and launches["bwd"], launches
     # dWqkv+dbqkv, dWo+dbo, daw+dab, daq: four launches per backward call
     assert launches["wgrad"] == 4 * launches["bwd"], launches
     assert np.isfinite(metrics["auc"]) and metrics["n_impressions"] == 512, metrics
-    print(f"[phase {phase}] trained {TRAIN_STEPS} steps: loss first 10 {first10:.4f} -> "
-          f"last 10 {last10:.4f}; unique news per step "
+    print(f"[phase {phase}] {name} trained {steps} steps: loss first {q} {first_q:.4f} -> "
+          f"last {q} {last_q:.4f}; unique news per step "
           f"{np.mean([w for w, _ in widths]):.0f} (short block "
           f"{np.mean([s for _, s in widths]):.0f}); dev AUC {metrics['auc']:.4f} over 512 "
           f"impressions (eval {eval_s:.2f} s); launches {launches}", flush=True)
     return {"launches": launches, "step_ms": step_ms, "trainer": trainer, "state": state,
             "first": first, "metrics": metrics, "loss_err": loss_err, "grad_err": grad_err}
+
+
+def family_data():
+    """The data of phases 9-11: the JAX package's defaults on the 65,238-news
+    corpus with MIND's mean title length, 10 entities per news from a
+    20,000-entity vocabulary with 100-d pretrained vectors, 293 topics over
+    18 categories and 294 subcategories (each topic its own subcategory),
+    FAMILY_STEPS batches of training impressions and 512 dev impressions."""
+    from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
+    from pytorch_news_recommender_tpu_torch.data import synthetic
+
+    cfg = Config(data=DataConfig(dataset="synthetic"))
+    t0 = time.perf_counter()
+    ds = synthetic.generate(cfg.data, seed=2, n_news=N_NEWS, vocab_size=VOCAB,
+                            n_topics=293, n_categories=18, n_subcategories=294,
+                            n_entities=20_000, entities_per_news=10, entity_dim=100,
+                            n_train=FAMILY_STEPS * cfg.train.batch_size, n_dev=512,
+                            title_len=(11.5, 4))
+    assert ds.meta.entity_nums == 20_001 and cfg.model.entity_embed_size == 100
+    print(f"family data: {time.perf_counter() - t0:.1f} s ({len(ds.train)} impressions, "
+          f"{ds.news.entity.shape[1]} entities per news of {ds.meta.entity_nums - 1}, "
+          f"{ds.meta.category_nums} categories, {ds.meta.subcategory_nums} subcategories)",
+          flush=True)
+    return cfg, ds
+
+
+def family_run(FE, SS, cfg, ds, name, phase, tag):
+    """Phases 9-11, one family: training through ``train_run``, then a
+    ``Recommender`` at the trained weights, the main serving path (launch
+    counts set to 0 before it and read after it, the plain versions made to
+    raise): the corpus encode, ``score_many`` (32 x 300) and ``top_k``
+    timed; its scores held to those of a recommender built and run with the
+    plain versions of the towers. Returns the launch counts of both paths."""
+    from pytorch_news_recommender_tpu_torch.serve import Recommender
+
+    fcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name=name))
+    run = train_run(FE, SS, fcfg, ds, phase)
+    assert run["launches"]["scatter"] == 0, run["launches"]
+    params = run["state"].params
+    del run["trainer"], run["state"]
+    rng = np.random.default_rng(phase)
+    batch = [(h, rng.integers(1, N_NEWS, size=300).tolist(), 0)
+             for h, _ in make_requests(rng, Recommender.BATCH_PAD, N_NEWS + 1)]
+    hist = batch[0][0]
+    FE.fused_news_encoder.launches = 0
+    with no_plain(FE, SS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = Recommender(fcfg, ds, params, device=DEVICE)
+        torch.cuda.synchronize()
+        startup_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rec._encode_corpus(ds.news.n_news, fcfg.train.eval_encode_chunk)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        served = rec.score_many(batch)
+        score_many = latency(lambda: rec.score_many(batch), 30)
+        top = rec.top_k(hist, 10)
+        top_k = latency(lambda: rec.top_k(hist, 10), 30)
+    serve_launches = FE.fused_news_encoder.launches
+    assert serve_launches > 0, serve_launches
+    with plain_kernels(FE, SS):
+        plain = Recommender(fcfg, ds, params, device=DEVICE).score_many(batch)
+    # an empty history pools to 0 in the kernel, to the mean of its rows in
+    # the plain version (ROADMAP.md C): compared where the history is real
+    real = [i for i, (h, _, _) in enumerate(batch) if h]
+    err = max(float(np.abs(served[i] - plain[i]).max()) for i in real) / max(
+        float(np.abs(plain[i]).max()) for i in real)
+    assert all(len(a) == 300 and np.all(np.isfinite(a)) for a in served)
+    assert err <= SCORE_TOL["native"], (name, err)
+    ids, scores = top
+    assert len(ids) == 10 and np.all((ids >= 1) & (ids <= N_NEWS)), ids
+    assert np.all(np.diff(scores) <= 0) and np.all(np.isfinite(scores)), scores
+    del rec
+    steps = len(run["step_ms"])
+    p50, p99 = (float(np.percentile(run["step_ms"], q)) for q in (50, 99))
+    bs = fcfg.train.batch_size
+    print(f"[phase {phase}] {name} served at the trained weights: score_many vs the plain "
+          f"towers max err {err:.3g} of scale (tol {SCORE_TOL['native']}); "
+          f"fused_encoder_fwd launches {serve_launches}", flush=True)
+    print(f"{tag} {name} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
+          f"{p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s; dev AUC "
+          f"{run['metrics']['auc']:.4f}", flush=True)
+    print(f"{tag} {name} serving: start-up {startup_ms:.1f} ms; corpus encode "
+          f"{encode_ms:.1f} ms for {ds.news.n_news} news; score_many (32 x 300) p50 "
+          f"{score_many[0]:.2f} ms, p99 {score_many[1]:.2f} ms; top_k (k=10) p50 "
+          f"{top_k[0]:.2f} ms, p99 {top_k[1]:.2f} ms", flush=True)
+    return {"train": run["launches"], "serve": serve_launches}
 
 
 def scatter_bound(S, U, itemsize):
@@ -831,6 +962,12 @@ def latency(fn, n):
 
 
 def main() -> int:
+    try:
+        import pytorch_news_recommender_tpu_torch  # noqa: F401
+    except ModuleNotFoundError:
+        print("chip_smoke: the package pytorch_news_recommender_tpu_torch is not beside "
+              "this script; run it from the root of a checkout of the repo", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -851,6 +988,14 @@ def main() -> int:
     t0 = time.perf_counter()
     FE.build()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the next family, NAML, runs its user tower at D=800, Q=400: the
+    # library's shared-memory need there, against one block's
+    lib = FE._lib()
+    need = {f"{kind} {dt}": getattr(lib, f"newsrec_fused_encoder{sfx}_smem_bytes")(
+        code, 50, 800, 10, 400) for kind, sfx in (("forward", ""), ("backward", "_bwd"))
+        for dt, code in (("bf16", 1), ("f32", 0))}
+    print(f"shared memory at D=800, 10 heads, Q=400, L=50 (NAML's user tower): {need} "
+          f"bytes; one block has {FE.MAX_SMEM}", flush=True)
 
     # 2. forward kernel vs plain
     errs, times, fwd_kernels = check_kernel(FE)
@@ -955,6 +1100,23 @@ def main() -> int:
     # 8. the stage ablation of the forward
     ablation = ablation_run(FE, tag)
 
+    # 9-11. the nrms_entity, tanr and hierec families, trained and served
+    fcfg, fds = family_data()
+    fam = {name: family_run(FE, SS, fcfg, fds, name, 9 + i, tag)
+           for i, name in enumerate(FAMILIES)}
+    del fds
+    by_path = {
+        "fwd": {"serve": serve_launches, "train": train_launches["fwd"],
+                "train_dedup_gather_mxu": mxu_launches["fwd"]},
+        "bwd": {"train": train_launches["bwd"], "train_dedup_gather_mxu": mxu_launches["bwd"]},
+        "wgrad": {"train": train_launches["wgrad"],
+                  "train_dedup_gather_mxu": mxu_launches["wgrad"]}}
+    for name, r in fam.items():
+        by_path["fwd"][f"{name}_train"] = r["train"]["fwd"]
+        by_path["fwd"][f"{name}_serve"] = r["serve"]
+        by_path["bwd"][f"{name}_train"] = r["train"]["bwd"]
+        by_path["wgrad"][f"{name}_train"] = r["train"]["wgrad"]
+
     k_ms, p_ms = times[SHAPES[0]]
     b_ms, b_by = bound(*SHAPES[0], 2)
     bk_ms, bp_ms, bi_ms = bwd_times[TRAIN_SHAPES[1]]
@@ -973,9 +1135,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "fused_encoder_fwd", "route": "cuda", "source": src + "fused_encoder.cu",
          "replaces": tpu + "149",
-         "launches": serve_launches + train_launches["fwd"],
-         "launches_by_path": {"serve": serve_launches, "train": train_launches["fwd"],
-                              "train_dedup_gather_mxu": mxu_launches["fwd"]},
+         "launches": sum(by_path["fwd"].values()), "launches_by_path": by_path["fwd"],
          "max_abs_err": max(v for k, v in errs.items() if "bfloat16" in k[0]),
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None,
@@ -988,7 +1148,7 @@ def main() -> int:
          "train_ms": bwd_times["fwd_train"]},
         {"name": "fused_encoder_bwd", "route": "cuda", "source": src + "fused_encoder_bwd.cu",
          "replaces": tpu + "261",
-         "launches": train_launches["bwd"],
+         "launches": sum(by_path["bwd"].values()), "launches_by_path": by_path["bwd"],
          "max_abs_err": bwd_errs["bwd_abs"], "max_rel_err": bwd_errs["bwd_rel"],
          "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
          "library_ms": None, "kernels_ms": bi_ms,
@@ -997,9 +1157,7 @@ def main() -> int:
                    "dtype": "bfloat16", "dropout": 0.2}},
         {"name": "encoder_weight_grad", "route": "cuda",
          "source": src + "fused_encoder_bwd.cu", "replaces": tpu + "432",
-         "launches": train_launches["wgrad"],
-         "launches_by_path": {"train": train_launches["wgrad"],
-                              "train_dedup_gather_mxu": mxu_launches["wgrad"]},
+         "launches": sum(by_path["wgrad"].values()), "launches_by_path": by_path["wgrad"],
          "max_abs_err": max(p["max_abs_err"] for p in products.values()),
          "max_rel_err": max(p["max_rel_err"] for p in products.values()),
          "ms": w_ms, "plain_ms": wp_ms, "bound_ms": wb_ms, "bound_by": wb_by,

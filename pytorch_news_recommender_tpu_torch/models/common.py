@@ -14,6 +14,12 @@ multi-block form of the multi-process feed (``block_mark``) is not ported
 yet. With ``dedup_gather_mxu`` the inverse gathers' backward is the
 segment-scatter kernel (``ops/segment_scatter.py``). ``deterministic=False``
 is training: the news tower drops out, with seeds drawn from ``generator``.
+
+Auxiliary losses (the JAX package's ``losses`` collection): a family with
+``HAS_AUX_LOSS`` records them with :meth:`RecModel.sow_loss` while it
+encodes; each :meth:`RecModel.forward` starts with none, as each Flax
+``apply`` starts with an empty collection, and the train step adds them to
+the click loss (``train/loop.py::training_loss``).
 """
 
 from __future__ import annotations
@@ -54,6 +60,19 @@ class RecModel(nn.Module):
     # the news tower is exact under word-axis truncation of all-pad columns
     # (masks from ``ids != 0``), so length-split batches apply
     LENGTH_SPLIT_OK = True
+    # the family records auxiliary losses (``sow_loss``) for the train step
+    HAS_AUX_LOSS = False
+
+    def __init__(self):
+        super().__init__()
+        self.aux_losses: Dict[str, torch.Tensor] = {}
+
+    def sow_loss(self, name: str, value: torch.Tensor) -> None:
+        """Records an auxiliary loss under ``name``; a later call with the
+        same name replaces it (Flax ``sow`` with ``reduce_fn=lambda a, b:
+        b``). So in a length-split batch, which encodes the short block and
+        then the long block, the long block's loss is the one kept."""
+        self.aux_losses[name] = value
 
     def encode_news_feats(self, feats: Batch, deterministic: bool = True,
                           generator: Optional[torch.Generator] = None
@@ -140,7 +159,9 @@ class RecModel(nn.Module):
 
     def forward(self, batch: Batch, news_feats: Batch, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``[B, S]`` float32 candidate scores, padded candidates at -1e9."""
+        """``[B, S]`` float32 candidate scores, padded candidates at -1e9;
+        the auxiliary losses of this call are in ``aux_losses``."""
+        self.aux_losses = {}
         b_ids, c_ids, b_vecs, c_vecs = self.resolve_batch(
             batch, news_feats, deterministic, generator)
         return self.score_impression(batch, b_ids, c_ids, b_vecs, c_vecs,

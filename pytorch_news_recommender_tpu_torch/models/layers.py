@@ -1,10 +1,12 @@
-"""``nn.Module``s of the NRMS towers (port of the JAX package's
-``models/layers.py``).
+"""``nn.Module``s of the NRMS towers and the pieces the other families share
+(port of the JAX package's ``models/layers.py``).
 
 Parameters keep Flax's names and layout, so weights carry over by a plain
 copy (``models/convert.py``): ``wqkv [D, 3D]`` used as ``x @ W``, ``wo [D,
 D]``, ``aw [D, Q]``, ``ab [Q]``, ``aq [Q]``, and the word table ``[n_words,
-D]`` with row 0 as pad. Each module's ``reset_parameters(generator)`` draws
+D]`` with row 0 as pad; :class:`Dense` ``kernel [in, out]``, ``bias
+[out]``; :class:`AdditiveAttention` ``w [D, Q]``, ``b [Q]`` and ``query
+[Q]``, stored as Flax stores it (U(0, 0.2), shifted by -0.1 at use). Each module's ``reset_parameters(generator)`` draws
 Flax's initializers from a CPU ``torch.Generator``, so one seed gives the
 same weights on every device.
 
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pytorch_news_recommender_tpu_torch.ops.attention import additive_attention_with_weights
 from pytorch_news_recommender_tpu_torch.ops.fused_encoder import fused_news_encoder
 
 
@@ -36,6 +39,83 @@ def _draw(p: torch.Tensor, fill) -> None:
 def _xavier_uniform(p: nn.Parameter, g: torch.Generator) -> None:
     a = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
     _draw(p, lambda t: t.uniform_(-a, a, generator=g))
+
+
+def _lecun_normal(p: nn.Parameter, g: torch.Generator) -> None:
+    """Flax's ``lecun_normal``: a normal truncated at 2 standard deviations,
+    scaled so that its variance is ``1 / fan_in``."""
+    std = math.sqrt(1.0 / p.shape[0]) / 0.87962566103423978
+    _draw(p, lambda t: nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                             generator=g))
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias`` in the compute dtype, in Flax's layout
+    (``kernel [in, out]``, lecun-normal; ``bias [out]``, zeros); the product
+    sums in float32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _lecun_normal(self.kernel, generator)
+        _draw(self.bias, torch.zeros_like)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        y = torch.matmul(x.to(cd).float(), self.kernel.to(cd).float())
+        return y.to(cd) + self.bias.to(cd)
+
+
+class PadEmbedding(nn.Module):
+    """Table whose row 0 is pad: ids 0 look up zeros, so row 0 gets a zero
+    gradient (torch's ``padding_idx=0``, done by the mask). Every row is
+    drawn ~N(0, 1), as Flax's ``normal(1.0)``. The lookup is in the compute
+    dtype. Category, subcategory and entity tables."""
+
+    def __init__(self, num: int, dim: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, dim))
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _draw(self.embedding, lambda t: t.normal_(generator=generator))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        mask = (ids != 0).to(cd)
+        return F.embedding(ids.long(), self.embedding).to(cd) * mask[..., None]
+
+
+class AdditiveAttention(nn.Module):
+    """``softmax(tanh(xW + b) @ q)``-weighted pooling over the second-last
+    axis of ``x: [..., L, D]`` (plain PyTorch, no kernel). ``query`` is
+    stored U(0, 0.2) and used as ``query - 0.1``, as the Flax module keeps
+    it, so that its weights carry over by a plain copy."""
+
+    def __init__(self, in_features: int, query_dim: int,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(in_features, query_dim))
+        self.b = nn.Parameter(torch.empty(query_dim))
+        self.query = nn.Parameter(torch.empty(query_dim))
+        self.compute_dtype = compute_dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _xavier_uniform(self.w, generator)
+        _draw(self.b, torch.zeros_like)
+        _draw(self.query, lambda t: t.uniform_(0.0, 0.2, generator=generator))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cd = self.compute_dtype
+        pooled, _ = additive_attention_with_weights(
+            x.to(cd), self.w.to(cd), self.b.to(cd), (self.query - 0.1).to(cd), mask)
+        return pooled
 
 
 class WordEmbedding(nn.Module):

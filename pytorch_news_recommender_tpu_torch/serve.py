@@ -174,11 +174,14 @@ class Recommender:
     @torch.no_grad()
     def _score(self, browsed: np.ndarray, cand: np.ndarray) -> np.ndarray:
         """``[B, H]`` histories x ``[B, w]`` candidates -> ``[B, w]`` scores
-        (``RecModel.score_from_vecs`` with the cache-mode lookup)."""
+        (``RecModel.score_from_vecs`` with the cache-mode lookup; the
+        resident feature tables go along, for heads that gather by id, as
+        HieRec's categories)."""
         b = torch.as_tensor(browsed, device=self.device)
         c = torch.as_tensor(cand, device=self.device)
         s = self.model.score_impression({"browsed_ids": b, "candidate_ids": c},
-                                        b, c, self._lookup(b), self._lookup(c))
+                                        b, c, self._lookup(b), self._lookup(c),
+                                        self.news_feats)
         return s.cpu().numpy()
 
     def score(self, history: Sequence[int], candidates: Sequence[int],

@@ -3,8 +3,8 @@
 
 Adam with optional linear warm-up, global-norm clipping, AdamW and gradient
 accumulation, written out to follow optax's arithmetic step for step;
-softmax cross-entropy over the candidates with the positive at slot 0;
-deduplicated and length-split batches; two-tower evaluation with the
+softmax cross-entropy over the candidates with the positive at slot 0, plus
+the auxiliary losses of the families that record them (TANR); deduplicated and length-split batches; two-tower evaluation with the
 impression-level metrics of ``train/metrics.py``; the fit loop with its eval
 cadence, AUC checkpoint floor and early stopping.
 
@@ -63,6 +63,18 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 def softmax_ce_loss(scores: torch.Tensor) -> torch.Tensor:
     """(1+K)-way softmax cross-entropy with the positive at slot 0."""
     return -torch.log_softmax(scores.float(), dim=-1)[:, 0].mean()
+
+
+def training_loss(model: RecModel, scores: torch.Tensor) -> torch.Tensor:
+    """The click cross-entropy of ``scores`` plus the auxiliary losses that
+    the forward which gave them recorded (``HAS_AUX_LOSS`` families, e.g.
+    TANR's topic cross-entropy, weighted where recorded), as the JAX
+    package's step adds its ``losses`` collection."""
+    loss = softmax_ce_loss(scores)
+    if model.HAS_AUX_LOSS:
+        for name in sorted(model.aux_losses):
+            loss = loss + model.aux_losses[name].mean()
+    return loss
 
 
 class Optimizer:
@@ -312,7 +324,8 @@ class Trainer:
         model.zero_grad(set_to_none=True)
         scores = model(batch, self.news_feats, deterministic=False,
                        generator=step_generator(self.cfg.train.seed + 1, state.step))
-        loss = softmax_ce_loss(scores)
+        loss = training_loss(model, scores)
+        model.aux_losses = {}
         metrics = {"loss": loss.detach(),
                    "acc": (scores.argmax(dim=-1) == 0).float().mean()}
         skip = False
