@@ -1,6 +1,6 @@
 """Where the port's training step spends its time, on one NVIDIA card.
 
-    python3 chip_profile.py [--dedup-gather-mxu] [--model nrms_entity|tanr|hierec]
+    python3 chip_profile.py [--dedup-gather-mxu] [--model nrms_entity|tanr|hierec|naml]
 
 Trains NRMS at the configuration of ``chip_smoke.py``'s training phase
 (the JAX package's defaults: D=300, 10 heads, Q=200, batch 512, bf16,
@@ -12,9 +12,9 @@ of the weight gradients, of the segment scatter and every memset, with
 launches and time per launch), and the device's busy and idle shares of the
 wall time. ``--dedup-gather-mxu`` profiles the step
 whose inverse gathers' backward is the segment-scatter kernel; ``--model``
-another family than NRMS, on the corpus of ``chip_smoke.py``'s phases 9-11
-(entities, 18 categories, 294 subcategories). Needs a CUDA card; prints
-nothing else.
+another family than NRMS, on the corpus of ``chip_smoke.py``'s phases 9-12
+(entities, 18 categories, 294 subcategories; for ``naml`` the abstracts of
+phase 12). Needs a CUDA card; prints nothing else.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ def group_of(name: str) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dedup-gather-mxu", action="store_true")
-    parser.add_argument("--model", default="nrms", choices=("nrms",) + CS.FAMILIES)
+    parser.add_argument("--model", default="nrms", choices=("nrms",) + CS.FAMILIES + ("naml",))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card",
@@ -84,7 +84,7 @@ def main() -> int:
                                 n_train=(WARMUP + STEPS) * cfg.train.batch_size, n_dev=64,
                                 title_len=(11.5, 4))
     else:
-        cfg, ds = CS.family_data()
+        cfg, ds = CS.family_data(CS.NAML_ABST_LEN if args.model == "naml" else None)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, name=args.model, dedup_gather_mxu=args.dedup_gather_mxu))
     bs = cfg.train.batch_size

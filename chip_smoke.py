@@ -7,10 +7,12 @@
    gradients, the segment scatter, the forward's stage ablation; ninja
    compiles the sources in parallel).
 2. Holds the forward kernel against its plain PyTorch version at the
-   serving shapes in float32 and bfloat16, with repeat launches equal bit
+   serving shapes, NAML's abstract view (M=4096, L=40) and NAML's user
+   tower (M=512, 32 and 1 at L=50, D=800, 10 heads, Q=400, in the kernels'
+   wide variants) in float32 and bfloat16, with repeat launches equal bit
    for bit, one wrapper launch and three device kernels per call (read
-   from the profiler), and times it at every serving and training shape
-   and at M=28,672, L=20.
+   from the profiler), and times it at every serving and training shape,
+   at M=28,672, L=20 and at NAML's shapes.
 3. Serves NRMS at full width (D=300, 10 heads, query dim 200, title 20,
    history 50, bf16) over HTTP on a seeded synthetic corpus of 65,238 news
    (the news count of MIND-small), in both corpus-cache modes, and checks a
@@ -18,14 +20,15 @@
 4. Times the serving paths.
 5. Holds the backward and weight-gradient kernels, and the forward with
    dropout and the ``o1`` residual, against their plain versions at the
-   training step's shapes, float32 and bfloat16, dropout 0 and 0.2, with
-   two backward calls equal bit for bit and one backward launch and four
-   weight-gradient launches per call, and times the backward whole and its
-   per-item kernels alone; then
-   the weight-gradient kernel alone at each product of one backward call
-   over the long block's R=81,920 token rows (dWqkv with bf16 and f32 ``a``,
-   dWo, daw with the bias fused, daq without), against the plain version
-   and ``torch.mm``.
+   training step's shapes, float32 and bfloat16, dropout 0 and 0.2, and at
+   NAML's abstract view and user tower (dropout 0), with two backward calls
+   equal bit for bit and one backward launch and four weight-gradient
+   launches per call, and times the backward whole and its per-item kernels
+   alone; then the weight-gradient kernel alone at each product of one
+   backward call over the long block's R=81,920 token rows (dWqkv with bf16
+   and f32 ``a``, dWo, daw with the bias fused, daq without) and over NAML's
+   user tower's R=25,600 (K=800), against the plain version and
+   ``torch.mm``.
 6. Trains NRMS at the JAX package's default configuration (batch 512, bf16
    activations, f32 parameters, dropout 0.2, dedup and a length split at 12
    words) on a synthetic corpus with MIND's mean title length: one step
@@ -53,7 +56,14 @@
    included), FAMILY_STEPS steps and an evaluation with the plain versions
    made to raise (no fallback), then a ``Recommender`` at the trained
    weights: corpus encode, ``score_many`` and ``top_k`` times, and its
-   scores against a recommender that runs the plain versions.
+   scores and top-10 scores against a recommender that runs the plain
+   versions.
+12. The same for ``naml`` (title and abstract towers at D=300, the user
+   tower at D=800) on that corpus with abstracts of NAML_ABST_LEN real
+   words, and one ``add_news`` with a title, an abstract and a category,
+   its vector held to the plain towers'; then a checkpoint of the trained
+   state restored into a fresh trainer and evaluated, and ``cli train`` /
+   ``eval`` / ``serve --model naml`` at the small synthetic size.
 
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
@@ -81,14 +91,27 @@ import torch
 
 N_NEWS = 65_238          # MIND-small's news count; the table adds the pad row
 VOCAB = 32_000
-D, H, Q = 300, 10, 200
+D, H, Q = 300, 10, 200   # NRMS's widths: every family's title (and abstract) tower
+WIDTH = (D, H, Q)
+# NAML's user tower: the 800-wide news vector, 10 heads of 80, query dim 400
+NAML_USER = (800, 10, 400)
 SHAPES = [(4096, 20), (32, 50), (1, 50)]   # corpus chunk, score_many batch, single user
 # the training step's encoder calls: short news block, long news block, users
 TRAIN_SHAPES = [(4096, 12), (4096, 20), (512, 50)]
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-# the forward timed at every serving and training shape, and at the stage
-# ablation's M=28,672
-FWD_SHAPES = SHAPES + TRAIN_SHAPES + [(28_672, 20)]
+# phase 2's checks, (M, L, (D, H, Q)): NRMS's serving shapes, NAML's
+# abstract view (a corpus chunk at L=40) and its user tower at the training
+# batch, the score_many batch and one user
+CHECK_SHAPES = ([(M, L, WIDTH) for M, L in SHAPES] + [(4096, 40, WIDTH)]
+                + [(M, 50, NAML_USER) for M in (512, 32, 1)])
+# the forward timed at every serving and training shape, at the stage
+# ablation's M=28,672, and at NAML's
+FWD_SHAPES = ([(M, L, WIDTH) for M, L in SHAPES + TRAIN_SHAPES + [(28_672, 20)]]
+              + CHECK_SHAPES[len(SHAPES):])
+# phase 5's checks, (M, L, (D, H, Q), dropout rates): NRMS's training step,
+# then NAML's abstract view and user tower (no dropout in NAML's towers)
+BWD_SHAPES = ([(M, L, WIDTH, (0.0, 0.2)) for M, L in TRAIN_SHAPES]
+              + [(4096, 40, WIDTH, (0.0,)), (512, 50, NAML_USER, (0.0,))])
 # launches of one forward call: the wrapper's count, and the device kernels
 # (the weight layout, the attention, the tail), read from the profiler
 FWD_LAUNCHES, FWD_KERNELS = 1, 3
@@ -98,6 +121,9 @@ TRAIN_STEPS = 40
 # phases 9-11: the families trained beside NRMS, and the steps of each
 FAMILIES = ("nrms_entity", "tanr", "hierec")
 FAMILY_STEPS = 12
+# phase 12: NAML on the same corpus with abstracts of 28 real words on
+# average (sd 8, clipped to 1..40), the synthetic generator's default fill
+NAML_ABST_LEN = (28.0, 8.0)
 # launches of one backward call: the per-item kernels' (one count for the
 # pooling, attention and dx kernels of one call) and weight_grad's
 BWD_LAUNCHES = (1, 4)
@@ -116,13 +142,21 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM
 # split of each f32 operand), only the order and the split's 2^-16 differ
 WGRAD_TOL = 1e-4
 # the weight-gradient products of one backward call in bf16 training (name,
-# a's width K, b's width N, a's dtype, bias fused): dWqkv, dWo, daw, daq;
-# and dWqkv with an f32 a, as in f32 training
-WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True),
-                  ("wgrad_f32", D, 3 * D, torch.float32, True),
-                  ("wgrad_dwo", D, D, torch.bfloat16, True),
-                  ("wgrad_daw", D, Q, torch.float32, True),
-                  ("wgrad_daq", Q, 1, torch.float32, False)]
+# a's width K, b's width N, a's dtype, bias fused, token rows R): dWqkv,
+# dWo, daw, daq over the long block's rows; dWqkv with an f32 a, as in f32
+# training; and the four at NAML's user tower (K+1 = 801 spans three of the
+# kernel's 320-row output tiles)
+R_LONG = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
+R_NAML = 512 * 50
+WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True, R_LONG),
+                  ("wgrad_f32", D, 3 * D, torch.float32, True, R_LONG),
+                  ("wgrad_dwo", D, D, torch.bfloat16, True, R_LONG),
+                  ("wgrad_daw", D, Q, torch.float32, True, R_LONG),
+                  ("wgrad_daq", Q, 1, torch.float32, False, R_LONG),
+                  ("naml_wgrad", 800, 2400, torch.bfloat16, True, R_NAML),
+                  ("naml_wgrad_dwo", 800, 800, torch.bfloat16, True, R_NAML),
+                  ("naml_wgrad_daw", 800, 400, torch.float32, True, R_NAML),
+                  ("naml_wgrad_daq", 400, 1, torch.float32, False, R_NAML)]
 # ablation kernel vs plain version, max|a - b| / max|b| per stage: both
 # round to bf16 at the same points, their f32 sums run in another order, so
 # a value at a rounding edge may land one bf16 step away
@@ -136,8 +170,29 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def encoder_inputs(seed, M, L, dtype, scales=(0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1)):
-    """Seeded masked tokens (rows of 0..L real tokens) and encoder weights."""
+def init_scales(width):
+    """The standard deviations of the encoder's own init at ``(D, H, Q)``
+    (``AttentionPoolTower.reset_parameters``): Xavier-uniform matrices,
+    sqrt(2 / (fan_in + fan_out)); aq uniform on ±0.1; biases 0.01 (zero at
+    init, nonzero after training). NAML's user tower is checked with them: at
+    D=800 the D=300 scales below put the bf16 rounding-point differences
+    between the kernel and the plain chain alone past the elementwise 2e-2
+    (``tests/test_torch_fused_encoder.py::
+    test_bf16_rounding_points_alone_set_the_d800_input_scale``)."""
+    D_, _, Q_ = width
+    return (math.sqrt(2 / (4 * D_)), 0.01, math.sqrt(2 / (2 * D_)), 0.01,
+            math.sqrt(2 / (D_ + Q_)), 0.01, 0.1 / math.sqrt(3))
+
+
+def encoder_inputs(seed, M, L, dtype, scales=None, width=WIDTH):
+    """Seeded masked tokens (rows of 0..L real tokens) and encoder weights
+    at ``width = (D, H, Q)``; the weights' scales default to 0.05 (matrices),
+    0.01 (biases) and 0.1 (aq) at NRMS's width, to the encoder's own init
+    scales elsewhere."""
+    D, _, Q = width
+    if scales is None:
+        scales = (0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1) if width == WIDTH \
+            else init_scales(width)
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, L + 1, size=M)
     if M > 1:
@@ -153,11 +208,12 @@ def encoder_inputs(seed, M, L, dtype, scales=(0.05, 0.01, 0.05, 0.01, 0.05, 0.01
             torch.as_tensor(lens > 0, device=DEVICE))
 
 
-def bound(M, L, itemsize):
+def bound(M, L, itemsize, width=WIDTH):
     """(ms, "bytes" | "operations"): the least time for the work, the larger
     of the bytes moved once over the memory rate and the operations over the
     peak rate for the operand type. The kernel does the same work whatever
     the mask, so the shapes decide it."""
+    D, H, Q = width
     flops = M * (2 * L * D * (3 * D + D + Q) + 4 * H * L * L * (D // H))
     weights = D * 3 * D + 3 * D + D * D + D + D * Q + 2 * Q
     nbytes = (M * L * D + weights + M * D) * itemsize + M * L * 4
@@ -192,11 +248,12 @@ def ablation_bound(stage, M, L, itemsize=2):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bwd_bound(M, L, itemsize=2):
+def bwd_bound(M, L, itemsize=2, width=WIDTH):
     """Backward bound: 6·L·D·(3D+D+Q) + 10·H·L²·dh FLOP per item (the
     projections for the recompute, dx and the weight gradients, and the
     attention products) over the bf16 peak; bytes are g, x, o1 and the mask
     in, dx and the weight gradients out."""
+    D, H, Q = width
     flops = M * (6 * L * D * (3 * D + D + Q) + 10 * H * L * L * (D // H))
     wgrads = (D * 3 * D + 3 * D + D * D + D + D * Q + 2 * Q) * 4
     nbytes = M * D * 4 + 3 * M * L * D * itemsize + M * L * 4 + wgrads
@@ -248,38 +305,44 @@ def device_kernels(fn):
 
 
 def check_kernel(FE):
-    """Phase 2: kernel vs plain version at the serving shapes, two dtypes,
-    one wrapper launch and FWD_KERNELS device kernels per call, repeat calls
+    """Phase 2: kernel vs plain version at CHECK_SHAPES, two dtypes, one
+    wrapper launch and FWD_KERNELS device kernels per call, repeat calls
     equal bit for bit; then the times at every shape of FWD_SHAPES (bf16)."""
     errs, times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for M, L in SHAPES:
-            args, valid = encoder_inputs(M * 100 + L, M, L, dtype)
+        for M, L, width in CHECK_SHAPES:
+            h = width[1]
+            args, valid = encoder_inputs(M * 100 + L, M, L, dtype, width=width)
             before = FE.fused_news_encoder.launches
-            got = FE.fused_news_encoder(*args, num_heads=H)
+            got = FE.fused_news_encoder(*args, num_heads=h)
             torch.cuda.synchronize()
             assert FE.fused_news_encoder.launches - before == FWD_LAUNCHES
-            expect = FE.fused_news_encoder_reference(*args, num_heads=H)
+            expect = FE.fused_news_encoder_reference(*args, num_heads=h)
             err = float((got[valid].float() - expect[valid].float()).abs().max())
             tol = TOLS[dtype]
             torch.testing.assert_close(got[valid].float(), expect[valid].float(),
                                        rtol=tol, atol=tol)
             assert torch.all(got[~valid] == 0), "an all-pad item must pool to 0"
             # no atomics, a fixed order of every sum: the same bits again
-            assert torch.equal(got, FE.fused_news_encoder(*args, num_heads=H)), \
-                ("the forward is not deterministic", str(dtype), M, L)
-            errs[(str(dtype), M, L)] = err
-            print(f"kernel vs plain {str(dtype):15s} M={M:5d} L={L}: "
-                  f"max|err| {err:.3g} (tol {tol}); two launches equal bit for bit",
-                  flush=True)
-    kernels = device_kernels(lambda: FE.fused_news_encoder(*args, num_heads=H))
-    assert kernels == FWD_KERNELS, (kernels, FWD_KERNELS)
-    for M, L in FWD_SHAPES:
-        args, _ = encoder_inputs(M * 100 + L, M, L, torch.bfloat16)
+            assert torch.equal(got, FE.fused_news_encoder(*args, num_heads=h)), \
+                ("the forward is not deterministic", str(dtype), M, L, width)
+            errs[(str(dtype), M, L, width[0])] = err
+            print(f"kernel vs plain {str(dtype):15s} M={M:5d} L={L} D={width[0]}: "
+                  f"max|err| {err:.3g} (tol {tol}); two launches equal bit for bit; "
+                  f"wide variants {FE.variant(dtype, L, *width) or 'none'}", flush=True)
+    # the device kernels of one call, in today's layout and in the wide one
+    # (the last shape checked: NAML's user tower)
+    nrms_args, _ = encoder_inputs(1, *SHAPES[-1], torch.bfloat16)
+    kernels = device_kernels(lambda: FE.fused_news_encoder(*nrms_args, num_heads=H))
+    wide = device_kernels(lambda: FE.fused_news_encoder(*args, num_heads=h))
+    assert kernels == wide == FWD_KERNELS, (kernels, wide, FWD_KERNELS)
+    for M, L, width in FWD_SHAPES:
+        args, _ = encoder_inputs(M * 100 + L, M, L, torch.bfloat16, width=width)
         iters = 5 if M > 10_000 else (10 if M > 1000 else 100)
-        times[(M, L)] = (
-            cuda_ms(lambda: FE.fused_news_encoder(*args, num_heads=H), iters),
-            cuda_ms(lambda: FE.fused_news_encoder_reference(*args, num_heads=H), iters))
+        fn = lambda: FE.fused_news_encoder(*args, num_heads=width[1])  # noqa: E731
+        plain = lambda: FE.fused_news_encoder_reference(  # noqa: E731
+            *args, num_heads=width[1])
+        times[(M, L, width[0])] = (cuda_ms(fn, iters), cuda_ms(plain, iters))
     print(f"fused_encoder_fwd: {FWD_LAUNCHES} wrapper launch and {kernels} device kernels "
           f"per call; {FE.fwd_tile(20)[0]} items in {FE.fwd_tile(20)[1]}-row tiles at L=20",
           flush=True)
@@ -288,26 +351,28 @@ def check_kernel(FE):
 
 def check_backward(FE):
     """Phase 5: the forward with dropout and the o1 residual, the backward
-    and the weight-gradient kernels against their plain versions at the
-    training step's shapes, two dtypes, dropout 0 and 0.2. Returns the worst
-    errors and the timings (bf16, dropout 0.2)."""
+    and the weight-gradient kernels against their plain versions at
+    BWD_SHAPES, two dtypes. Returns the worst errors and the timings (bf16,
+    dropout 0.2 at NRMS's shapes, 0 at NAML's)."""
     # pooling weights large enough that the tanh bends: the bias gradient
     # dab = -aq sum_l ds_l t_l^2 is otherwise all rounding
     scales = (0.05, 0.01, 0.05, 0.01, 0.3, 0.5, 0.1)
     errs = {"bwd_abs": 0.0, "bwd_rel": 0.0}
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for rate in (0.0, 0.2):
-            for M, L in TRAIN_SHAPES:
-                args, valid = encoder_inputs(M * 7 + L, M, L, dtype, scales)
+        for M, L, width, rates in BWD_SHAPES:
+            Dw, h, _ = width
+            for rate in rates:
+                args, valid = encoder_inputs(M * 7 + L, M, L, dtype,
+                                             scales if width == WIDTH else None, width)
                 x, mask, w = args[0], args[1], args[2:]
-                g = torch.as_tensor(np.random.default_rng(M + L).normal(size=(M, D)),
+                g = torch.as_tensor(np.random.default_rng(M + L).normal(size=(M, Dw)),
                                     dtype=torch.float32, device=DEVICE)
-                out, o1 = FE.fused_news_encoder(*args, num_heads=H, dropout_rate=rate,
+                out, o1 = FE.fused_news_encoder(*args, num_heads=h, dropout_rate=rate,
                                                 seed=1234, save_o1=True)
                 torch.cuda.synchronize()
                 ref, ref_o1 = FE.fused_news_encoder_reference(
-                    *args, num_heads=H, dropout_rate=rate, seed=1234, save_o1=True)
+                    *args, num_heads=h, dropout_rate=rate, seed=1234, save_o1=True)
                 tol = TOLS[dtype]
                 torch.testing.assert_close(out[valid].float(), ref[valid].float(),
                                            rtol=tol, atol=tol)
@@ -317,11 +382,11 @@ def check_backward(FE):
                 # a few bf16 steps: held to the tensor's scale
                 real = mask > 0
                 o1_err = rel_err(o1[real], ref_o1[real])
-                assert o1_err < BWD_TOLS[dtype], (str(dtype), rate, M, L, o1_err)
+                assert o1_err < BWD_TOLS[dtype], (str(dtype), rate, M, L, Dw, o1_err)
                 assert torch.all(out[~valid] == 0), "an all-pad item must pool to 0"
                 before = (FE.fused_news_encoder_bwd.launches, FE.weight_grad.launches)
                 bwd = lambda: FE.fused_news_encoder_bwd(  # noqa: E731
-                    g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234)
+                    g, x, mask, o1, *w, num_heads=h, dropout_rate=rate, seed=1234)
                 got = bwd()
                 torch.cuda.synchronize()
                 launched = (FE.fused_news_encoder_bwd.launches - before[0],
@@ -329,37 +394,39 @@ def check_backward(FE):
                 assert launched == BWD_LAUNCHES, (launched, BWD_LAUNCHES)
                 # no atomics, a fixed order of every sum: the same bits again
                 assert all(torch.equal(a, b) for a, b in zip(got, bwd())), \
-                    ("the backward is not deterministic", str(dtype), rate, M, L)
+                    ("the backward is not deterministic", str(dtype), rate, M, L, Dw)
                 expect = FE.fused_news_encoder_bwd_reference(
-                    g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234)
+                    g, x, mask, o1, *w, num_heads=h, dropout_rate=rate, seed=1234)
                 each = {name: rel_err(a, b) for name, a, b in zip(
                     ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "daw", "dab", "daq"), got, expect)}
                 worst = max(each.values())
-                assert worst < BWD_TOLS[dtype], (str(dtype), rate, M, L, each)
+                assert worst < BWD_TOLS[dtype], (str(dtype), rate, M, L, Dw, each)
                 assert torch.all(got[0][~valid] == 0), "an all-pad item must get zero dx"
                 if dtype == torch.bfloat16:
                     errs["bwd_rel"] = max(errs["bwd_rel"], worst)
                     errs["bwd_abs"] = max(errs["bwd_abs"], *(
                         float((a.float() - b.float()).abs().max()) for a, b in zip(got, expect)))
-                if dtype == torch.bfloat16 and rate > 0:
-                    times[(M, L)] = (
+                if dtype == torch.bfloat16 and rate == max(rates):
+                    times[(M, L, Dw)] = (
                         cuda_ms(bwd, 5),
                         cuda_ms(lambda: FE.fused_news_encoder_bwd_reference(
-                            g, x, mask, o1, *w, num_heads=H, dropout_rate=rate, seed=1234), 5),
+                            g, x, mask, o1, *w, num_heads=h, dropout_rate=rate, seed=1234), 5),
                         # the per-item kernels alone, without the weight gradients
-                        cuda_ms(lambda: FE._bwd_per_item(g, x, mask, o1, w, H, rate, 1234), 5))
-                    if (M, L) == TRAIN_SHAPES[1]:
+                        cuda_ms(lambda: FE._bwd_per_item(g, x, mask, o1, w, h, rate, 1234), 5))
+                    if (M, L, width) == (*TRAIN_SHAPES[1], WIDTH):
                         times["fwd_train"] = cuda_ms(lambda: FE.fused_news_encoder(
-                            *args, num_heads=H, dropout_rate=rate, seed=1234, save_o1=True), 10)
+                            *args, num_heads=h, dropout_rate=rate, seed=1234, save_o1=True), 10)
+                    if width != WIDTH:
+                        times[("fwd_o1", M, L, Dw)] = cuda_ms(lambda: FE.fused_news_encoder(
+                            *args, num_heads=h, save_o1=True), 10)
                 print(f"backward kernel vs plain {str(dtype):15s} dropout {rate} M={M:5d} "
-                      f"L={L}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); two calls equal "
-                      f"bit for bit; forward with dropout + o1 ok", flush=True)
+                      f"L={L} D={Dw}: max rel err {worst:.3g} (tol {BWD_TOLS[dtype]}); two "
+                      f"calls equal bit for bit; forward with dropout + o1 ok", flush=True)
     # the weight-gradient kernel alone, each product of one backward call
-    # over the long block's rows, each held to its own largest output
-    R = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
+    # over its token rows, each held to its own largest output
     rng = np.random.default_rng(5)
     flat = lambda outs: torch.cat([o.reshape(-1) for o in outs])  # noqa: E731
-    for key, K, N, dtype, bias in WGRAD_PRODUCTS:
+    for key, K, N, dtype, bias, R in WGRAD_PRODUCTS:
         a = torch.as_tensor(rng.normal(size=(R, K)), dtype=torch.float32,
                             device=DEVICE).to(dtype)
         b = torch.as_tensor(rng.normal(size=(R, N)) * 1e-3, dtype=torch.float32,
@@ -514,6 +581,7 @@ def train_run(FE, SS, cfg, ds, phase):
             widths.append((batch["unique_ids"].shape[0], batch["short_mark"].shape[0]
                            if "short_mark" in batch else 0))
         steps = len(ds.train) // bs
+        step_launches = {k: fn.launches for k, fn in counted.items()}
         assert len(losses) == steps and np.all(np.isfinite(losses)), losses
         q = max(1, steps // 4)
         first_q, last_q = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
@@ -531,16 +599,19 @@ def train_run(FE, SS, cfg, ds, phase):
           f"{np.mean([w for w, _ in widths]):.0f} (short block "
           f"{np.mean([s for _, s in widths]):.0f}); dev AUC {metrics['auc']:.4f} over 512 "
           f"impressions (eval {eval_s:.2f} s); launches {launches}", flush=True)
-    return {"launches": launches, "step_ms": step_ms, "trainer": trainer, "state": state,
-            "first": first, "metrics": metrics, "loss_err": loss_err, "grad_err": grad_err}
+    return {"launches": launches, "step_launches": step_launches, "step_ms": step_ms,
+            "trainer": trainer, "state": state, "first": first, "metrics": metrics,
+            "loss_err": loss_err, "grad_err": grad_err}
 
 
-def family_data():
-    """The data of phases 9-11: the JAX package's defaults on the 65,238-news
+def family_data(abst_len=None):
+    """The data of phases 9-12: the JAX package's defaults on the 65,238-news
     corpus with MIND's mean title length, 10 entities per news from a
     20,000-entity vocabulary with 100-d pretrained vectors, 293 topics over
     18 categories and 294 subcategories (each topic its own subcategory),
-    FAMILY_STEPS batches of training impressions and 512 dev impressions."""
+    FAMILY_STEPS batches of training impressions and 512 dev impressions;
+    ``abst_len`` (mean, sd) of the abstracts' real words, the generator's
+    fixed 70% fill when None."""
     from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
     from pytorch_news_recommender_tpu_torch.data import synthetic
 
@@ -550,7 +621,7 @@ def family_data():
                             n_topics=293, n_categories=18, n_subcategories=294,
                             n_entities=20_000, entities_per_news=10, entity_dim=100,
                             n_train=FAMILY_STEPS * cfg.train.batch_size, n_dev=512,
-                            title_len=(11.5, 4))
+                            title_len=(11.5, 4), abst_len=abst_len)
     assert ds.meta.entity_nums == 20_001 and cfg.model.entity_embed_size == 100
     print(f"family data: {time.perf_counter() - t0:.1f} s ({len(ds.train)} impressions, "
           f"{ds.news.entity.shape[1]} entities per news of {ds.meta.entity_nums - 1}, "
@@ -559,19 +630,58 @@ def family_data():
     return cfg, ds
 
 
-def family_run(FE, SS, cfg, ds, name, phase, tag):
-    """Phases 9-11, one family: training through ``train_run``, then a
+def family_cli_run(name, phase):
+    """The CLI with ``--model name`` on the card at the small synthetic
+    size: ``train`` (checkpoints), ``eval`` of the best step, and ``serve``'s
+    HTTP daemon answering one ``/score``."""
+    from pytorch_news_recommender_tpu_torch import cli
+
+    save = WORK / f"cli_{name}"
+    shutil.rmtree(save, ignore_errors=True)
+    data = ["--data", "synthetic", "--model", name]
+    assert cli.main(["train", *data, "--epochs", "1", "--eval-step", "16",
+                     "--save-dir", str(save)]) == 0
+    ckpt = str(save / name)
+    assert cli.main(["eval", *data, "--ckpt", ckpt]) == 0
+    srv = cli.build_server(cli.build_parser().parse_args(
+        ["serve", *data, "--ckpt", ckpt, "--port", "0"]))
+    assert type(srv.rec.model).__name__.lower() == name
+    assert srv.rec.device.type == torch.device(DEVICE).type, srv.rec.device
+    srv.start(block=False)
+    try:
+        scores = post(srv.port, "/score", {"history": [1, 2, 3], "candidates": [4, 5, 6]})
+    finally:
+        srv.stop()
+    assert len(scores["scores"]) == 3 and np.all(np.isfinite(scores["scores"])), scores
+    print(f"[phase {phase}] cli train / eval / serve --model {name} ran on the card (one "
+          f"/score answered)", flush=True)
+
+
+def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False):
+    """Phases 9-12, one family: training through ``train_run``, then a
     ``Recommender`` at the trained weights, the main serving path (launch
     counts set to 0 before it and read after it, the plain versions made to
     raise): the corpus encode, ``score_many`` (32 x 300) and ``top_k``
-    timed; its scores held to those of a recommender built and run with the
-    plain versions of the towers. Returns the launch counts of both paths."""
+    timed, and for a family that reads abstracts one ``add_news`` with a
+    title, an abstract and a category; its scores, its top-10 scores and the
+    fresh news vector held to those of a recommender built and run with the
+    plain versions of the towers. With ``workflow``, also a checkpoint of the
+    trained state restored and evaluated (``restore_run``) and the CLI
+    (``family_cli_run``), off the counted paths. Returns the launch counts of
+    both paths."""
     from pytorch_news_recommender_tpu_torch.serve import Recommender
 
     fcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name=name))
     run = train_run(FE, SS, fcfg, ds, phase)
     assert run["launches"]["scatter"] == 0, run["launches"]
     params = run["state"].params
+    if workflow:
+        shutil.rmtree(WORK / name, ignore_errors=True)
+        _, _, auc = restore_run(run["trainer"], run["state"], ds, WORK / name)
+        print(f"[phase {phase}] {name} checkpoint at step {run['state'].step} restored into "
+              f"a fresh trainer: parameters, optimizer state, step and dev AUC ({auc:.6f}) "
+              f"equal", flush=True)
+        family_cli_run(name, phase)
     del run["trainer"], run["state"]
     rng = np.random.default_rng(phase)
     batch = [(h, rng.integers(1, N_NEWS, size=300).tolist(), 0)
@@ -592,10 +702,23 @@ def family_run(FE, SS, cfg, ds, name, phase, tag):
         score_many = latency(lambda: rec.score_many(batch), 30)
         top = rec.top_k(hist, 10)
         top_k = latency(lambda: rec.top_k(hist, 10), 30)
+        fresh = None
+        if "abst" in rec.model.FEAT_KEYS:
+            words = list(ds.dicts["word"])
+            fresh = dict(title=" ".join(words[200:209]), abstract=" ".join(words[300:330]),
+                         category=next(iter(ds.dicts["category"])))
+            nid = rec.add_news(**fresh)
+            assert nid == N_NEWS + 1, nid
+            fresh_vec = rec._lookup(torch.as_tensor([nid], device=DEVICE)).float()[0]
     serve_launches = FE.fused_news_encoder.launches
     assert serve_launches > 0, serve_launches
     with plain_kernels(FE, SS):
-        plain = Recommender(fcfg, ds, params, device=DEVICE).score_many(batch)
+        plain_rec = Recommender(fcfg, ds, params, device=DEVICE)
+        plain = plain_rec.score_many(batch)
+        plain_top = plain_rec.top_k(hist, 10)
+        if fresh is not None:
+            plain_fresh = torch.as_tensor(plain_rec.encode_new_news(**fresh), device=DEVICE)
+        del plain_rec
     # an empty history pools to 0 in the kernel, to the mean of its rows in
     # the plain version (ROADMAP.md C): compared where the history is real
     real = [i for i, (h, _, _) in enumerate(batch) if h]
@@ -606,13 +729,25 @@ def family_run(FE, SS, cfg, ds, name, phase, tag):
     ids, scores = top
     assert len(ids) == 10 and np.all((ids >= 1) & (ids <= N_NEWS)), ids
     assert np.all(np.diff(scores) <= 0) and np.all(np.isfinite(scores)), scores
+    # the ten best scores, kernel and plain towers, at the same tolerance
+    top_err = float(np.abs(scores - plain_top[1]).max() / np.abs(plain_top[1]).max())
+    assert top_err <= SCORE_TOL["native"], (name, top_err)
+    fresh_note = ""
+    if fresh is not None:
+        tol = TOLS[torch.bfloat16]
+        torch.testing.assert_close(fresh_vec, plain_fresh.float(), rtol=tol, atol=tol)
+        fresh_note = (f"; add_news (title {len(fresh['title'].split())} words, abstract "
+                      f"{len(fresh['abstract'].split())}, category) vector vs the plain towers "
+                      f"max err {float((fresh_vec - plain_fresh.float()).abs().max()):.3g} "
+                      f"(tol {tol})")
     del rec
     steps = len(run["step_ms"])
     p50, p99 = (float(np.percentile(run["step_ms"], q)) for q in (50, 99))
     bs = fcfg.train.batch_size
     print(f"[phase {phase}] {name} served at the trained weights: score_many vs the plain "
-          f"towers max err {err:.3g} of scale (tol {SCORE_TOL['native']}); "
-          f"fused_encoder_fwd launches {serve_launches}", flush=True)
+          f"towers max err {err:.3g} of scale, top_k's ten scores {top_err:.3g} (tol "
+          f"{SCORE_TOL['native']}){fresh_note}; fused_encoder_fwd launches {serve_launches}",
+          flush=True)
     print(f"{tag} {name} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
           f"{p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s; dev AUC "
           f"{run['metrics']['auc']:.4f}", flush=True)
@@ -620,7 +755,9 @@ def family_run(FE, SS, cfg, ds, name, phase, tag):
           f"{encode_ms:.1f} ms for {ds.news.n_news} news; score_many (32 x 300) p50 "
           f"{score_many[0]:.2f} ms, p99 {score_many[1]:.2f} ms; top_k (k=10) p50 "
           f"{top_k[0]:.2f} ms, p99 {top_k[1]:.2f} ms", flush=True)
-    return {"train": run["launches"], "serve": serve_launches}
+    per_step = {k: v / steps for k, v in run["step_launches"].items() if k != "scatter"}
+    print(f"[phase {phase}] {name} launches per training step: {per_step}", flush=True)
+    return {"train": run["launches"], "serve": serve_launches, "per_step": per_step}
 
 
 def scatter_bound(S, U, itemsize):
@@ -697,20 +834,16 @@ def check_scatter(SS, batch):
     return out
 
 
-def workflow_run(trainer, state, ds):
-    """Phase 7c: the user workflow on the card. A checkpoint at an
-    evaluation, restored into a fresh trainer, gives the same parameters,
-    optimizer state, step and AUC; a submission file from it has one ranking
-    per test impression; then the CLI at the small synthetic size."""
-    from pytorch_news_recommender_tpu_torch import cli
+def restore_run(trainer, state, ds, directory):
+    """A checkpoint of ``state`` at an evaluation, written to ``directory``
+    and restored into a fresh trainer, gives the same parameters, optimizer
+    state, step and AUC. Returns the fresh trainer, the restored state and
+    the AUC."""
     from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer
-    from pytorch_news_recommender_tpu_torch.train.submit import write_submission
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    WORK.mkdir(parents=True)
     metrics = trainer.evaluate(state)
-    mngr = CheckpointManager(WORK / "ckpt", trainer.cfg)
+    mngr = CheckpointManager(directory, trainer.cfg)
     mngr.save(state.step, state, metrics)
     fresh = Trainer(trainer.cfg, ds, device=DEVICE)
     restored = mngr.restore(fresh.init_state(seed=5))
@@ -723,6 +856,20 @@ def workflow_run(trainer, state, ds):
         assert all(torch.equal(a[tree][k], b[tree][k]) for k in a[tree]), tree
     again = fresh.evaluate(restored)
     assert again["auc"] == metrics["auc"], (again["auc"], metrics["auc"])
+    return fresh, restored, again["auc"]
+
+
+def workflow_run(trainer, state, ds):
+    """Phase 7c: the user workflow on the card. A checkpoint at an
+    evaluation, restored into a fresh trainer, gives the same parameters,
+    optimizer state, step and AUC; a submission file from it has one ranking
+    per test impression; then the CLI at the small synthetic size."""
+    from pytorch_news_recommender_tpu_torch import cli
+    from pytorch_news_recommender_tpu_torch.train.submit import write_submission
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    fresh, restored, auc = restore_run(trainer, state, ds, WORK / "ckpt")
     path = write_submission(fresh, restored, path=WORK / "submission.txt")
     lines = path.read_text().splitlines()
     n_imp = sum(1 for i in range(len(ds.test)) if len(ds.test.impression(i)[0]))
@@ -732,9 +879,8 @@ def workflow_run(trainer, state, ds):
         ranks = [int(r) for r in ranks.strip("[]").split(",")]
         assert int(key) == i + 1 and sorted(ranks) == list(range(1, len(ranks) + 1)), line
     print(f"[phase 7] checkpoint at step {state.step} restored into a fresh trainer: "
-          f"parameters, optimizer state and step equal; dev AUC {again['auc']:.6f} = "
-          f"{metrics['auc']:.6f}; submission: {len(lines)} lines, each a permutation",
-          flush=True)
+          f"parameters, optimizer state, step and dev AUC ({auc:.6f}) equal; submission: "
+          f"{len(lines)} lines, each a permutation", flush=True)
 
     # the CLI at the small synthetic size, on the card
     save, data = WORK / "cli", ["--data", "synthetic"]
@@ -988,14 +1134,24 @@ def main() -> int:
     t0 = time.perf_counter()
     FE.build()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s", flush=True)
-    # the next family, NAML, runs its user tower at D=800, Q=400: the
-    # library's shared-memory need there, against one block's
+    # the variants the kernels take: today's layout at NRMS's widths, the
+    # wide variants where it does not fit one block (NAML's user tower), and
+    # the library's shared-memory need there
     lib = FE._lib()
-    need = {f"{kind} {dt}": getattr(lib, f"newsrec_fused_encoder{sfx}_smem_bytes")(
-        code, 50, 800, 10, 400) for kind, sfx in (("forward", ""), ("backward", "_bwd"))
-        for dt, code in (("bf16", 1), ("f32", 0))}
-    print(f"shared memory at D=800, 10 heads, Q=400, L=50 (NAML's user tower): {need} "
-          f"bytes; one block has {FE.MAX_SMEM}", flush=True)
+    variants = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for L in (12, 20, 40, 50):
+            assert FE.variant(dt, L, *WIDTH) == (), (dt, L)
+        variants[str(dt)] = FE.variant(dt, 50, *NAML_USER)
+        code = FE._DTYPE_CODE[dt]
+        need = [getattr(lib, f"newsrec_fused_encoder{sfx}_smem_bytes")(code, 50, *NAML_USER)
+                for sfx in ("", "_bwd")]
+        assert max(need) <= FE.MAX_SMEM, (dt, need)
+        print(f"variants {str(dt)}: none at D=300 (L=12, 20, 40, 50); at NAML's user tower "
+              f"(L=50, D=800, 10 heads, Q=400) {variants[str(dt)]}, shared memory forward "
+              f"{need[0]} and backward {need[1]} bytes of one block's {FE.MAX_SMEM}",
+              flush=True)
+    assert variants["torch.bfloat16"] == ("fwd_tail", "pool_bwd"), variants
 
     # 2. forward kernel vs plain
     errs, times, fwd_kernels = check_kernel(FE)
@@ -1038,10 +1194,11 @@ def main() -> int:
     p50, p99 = latency(lambda: rec.top_k(hist, 10), 50)
     print(f"{tag} top_k (k=10 over {rec.n_news} news): p50 {p50:.2f} ms, "
           f"p99 {p99:.2f} ms", flush=True)
-    for (M, L), (k_ms, p_ms) in times.items():
-        print(f"{tag} fused_encoder_fwd bf16 M={M} L={L}: kernel {k_ms:.4f} ms/call "
-              f"({fwd_kernels} device kernels), plain {p_ms:.4f} ms, bound "
-              f"{bound(M, L, 2)[0]:.4f} ms", flush=True)
+    for M, L, width in FWD_SHAPES:
+        k_ms, p_ms = times[(M, L, width[0])]
+        print(f"{tag} fused_encoder_fwd bf16 M={M} L={L} D={width[0]}: kernel {k_ms:.4f} "
+              f"ms/call ({fwd_kernels} device kernels), plain {p_ms:.4f} ms, bound "
+              f"{bound(M, L, 2, width)[0]:.4f} ms", flush=True)
     del rec
 
     # 5. backward and weight-gradient kernels vs plain
@@ -1059,13 +1216,19 @@ def main() -> int:
           f"{p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s", flush=True)
     print(f"{tag} fused_encoder_fwd bf16 M={TRAIN_SHAPES[1][0]} L={TRAIN_SHAPES[1][1]} "
           f"with dropout 0.2 + o1: {bwd_times['fwd_train']:.4f} ms/launch", flush=True)
-    for M, L in TRAIN_SHAPES:
-        k_ms, p_ms, i_ms = bwd_times[(M, L)]
-        print(f"{tag} fused_encoder_bwd bf16 dropout 0.2 M={M} L={L}: kernels "
-              f"{k_ms:.4f} ms/call (incl. 4 weight_grad; per-item kernels {i_ms:.4f} ms, "
-              f"{FE.bwd_tile(L)[0]} items in {FE.bwd_tile(L)[1]}-row tiles), plain "
-              f"{p_ms:.4f} ms, bound {bwd_bound(M, L)[0]:.4f} ms; "
-              f"{train_launches['bwd'] / steps:.1f} calls per step", flush=True)
+    for M, L, width, rates in BWD_SHAPES:
+        k_ms, p_ms, i_ms = bwd_times[(M, L, width[0])]
+        print(f"{tag} fused_encoder_bwd bf16 dropout {max(rates)} M={M} L={L} D={width[0]}: "
+              f"kernels {k_ms:.4f} ms/call (incl. 4 weight_grad; per-item kernels "
+              f"{i_ms:.4f} ms, {FE.bwd_tile(L)[0]} items in {FE.bwd_tile(L)[1]}-row tiles), "
+              f"plain {p_ms:.4f} ms, bound {bwd_bound(M, L, 2, width)[0]:.4f} ms", flush=True)
+        if width != WIDTH:
+            f_ms = bwd_times[("fwd_o1", M, L, width[0])]
+            print(f"{tag} fused_encoder_fwd bf16 M={M} L={L} D={width[0]} with o1 (the "
+                  f"training forward): {f_ms:.4f} ms/call, bound "
+                  f"{bound(M, L, 2, width)[0]:.4f} ms", flush=True)
+    print(f"{tag} NRMS training: {train_launches['bwd'] / steps:.1f} backward calls per step",
+          flush=True)
     for key, *_ in WGRAD_PRODUCTS:
         w_ms, wp_ms, wl_ms, (R, K, N, itemsize, bias) = bwd_times[key]
         wb = wgrad_bound(R, K, N, itemsize, bias)
@@ -1105,6 +1268,19 @@ def main() -> int:
     fam = {name: family_run(FE, SS, fcfg, fds, name, 9 + i, tag)
            for i, name in enumerate(FAMILIES)}
     del fds
+
+    # 12. NAML (title and abstract towers at D=300, the user tower at D=800
+    # in the kernels' wide variants), trained and served on the same corpus
+    # with abstracts
+    fcfg, fds = family_data(NAML_ABST_LEN)
+    fill = fds.news.abst[1:] != 0
+    fds.dicts = {"word": word_dict(VOCAB), "category": {"sports": 3},
+                 "subcategory": {"golf": 7}}
+    print(f"[phase 12] naml corpus: abstracts of {fds.news.abst.shape[1]} slots, "
+          f"{float(fill.sum(1).mean()):.2f} real words on average (sd "
+          f"{float(fill.sum(1).std()):.2f})", flush=True)
+    fam["naml"] = family_run(FE, SS, fcfg, fds, "naml", 12, tag, workflow=True)
+    del fds
     by_path = {
         "fwd": {"serve": serve_launches, "train": train_launches["fwd"],
                 "train_dedup_gather_mxu": mxu_launches["fwd"]},
@@ -1117,9 +1293,9 @@ def main() -> int:
         by_path["bwd"][f"{name}_train"] = r["train"]["bwd"]
         by_path["wgrad"][f"{name}_train"] = r["train"]["wgrad"]
 
-    k_ms, p_ms = times[SHAPES[0]]
+    k_ms, p_ms = times[(*SHAPES[0], D)]
     b_ms, b_by = bound(*SHAPES[0], 2)
-    bk_ms, bp_ms, bi_ms = bwd_times[TRAIN_SHAPES[1]]
+    bk_ms, bp_ms, bi_ms = bwd_times[(*TRAIN_SHAPES[1], D)]
     bb_ms, bb_by = bwd_bound(*TRAIN_SHAPES[1])
     w_ms, wp_ms, wl_ms, (R, K, N, _, _) = bwd_times["wgrad"]
     wb_ms, wb_by = wgrad_bound(R, K, N, 2)
@@ -1143,15 +1319,22 @@ def main() -> int:
                    "dtype": "bfloat16"},
          "launches_per_call": {"wrapper": FWD_LAUNCHES, "device_kernels": fwd_kernels},
          "tile_rows": FE.fwd_tile(SHAPES[0][1])[1],
-         "by_shape": {f"M={M},L={L}": {"ms": k, "plain_ms": p, "bound_ms": bound(M, L, 2)[0]}
-                      for (M, L), (k, p) in times.items()},
-         "train_ms": bwd_times["fwd_train"]},
+         "by_shape": {f"M={M},L={L}" + ("" if w == WIDTH else f",D={w[0]}"): {
+             "ms": times[(M, L, w[0])][0], "plain_ms": times[(M, L, w[0])][1],
+             "bound_ms": bound(M, L, 2, w)[0]} for M, L, w in FWD_SHAPES},
+         "train_ms": bwd_times["fwd_train"],
+         "naml_user_train_ms": bwd_times[("fwd_o1", *BWD_SHAPES[-1][:2], NAML_USER[0])],
+         "variants_naml_user": variants},
         {"name": "fused_encoder_bwd", "route": "cuda", "source": src + "fused_encoder_bwd.cu",
          "replaces": tpu + "261",
          "launches": sum(by_path["bwd"].values()), "launches_by_path": by_path["bwd"],
          "max_abs_err": bwd_errs["bwd_abs"], "max_rel_err": bwd_errs["bwd_rel"],
          "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": bb_ms, "bound_by": bb_by,
          "library_ms": None, "kernels_ms": bi_ms,
+         "by_shape": {f"M={M},L={L},D={w[0]}": {
+             "dropout": max(rates), "ms": bwd_times[(M, L, w[0])][0],
+             "plain_ms": bwd_times[(M, L, w[0])][1], "kernels_ms": bwd_times[(M, L, w[0])][2],
+             "bound_ms": bwd_bound(M, L, 2, w)[0]} for M, L, w, rates in BWD_SHAPES},
          "tile_rows": FE.bwd_tile(TRAIN_SHAPES[1][1])[1],
          "shape": {"M": TRAIN_SHAPES[1][0], "L": TRAIN_SHAPES[1][1], "D": D, "H": H, "Q": Q,
                    "dtype": "bfloat16", "dropout": 0.2}},

@@ -1,17 +1,19 @@
-"""Model registry. The port has the ``nrms``, ``nrms_entity``, ``tanr`` and
-``hierec`` families so far; the JAX package's other families are listed in
-``ROADMAP.md`` as still to port."""
+"""Model registry. The port has the ``nrms``, ``nrms_entity``, ``tanr``,
+``hierec`` and ``naml`` families so far; the JAX package's other families
+are listed in ``ROADMAP.md`` as still to port."""
 
 from __future__ import annotations
 
 from pytorch_news_recommender_tpu_torch.config import ModelConfig
 from pytorch_news_recommender_tpu_torch.models.common import RecModel
 from pytorch_news_recommender_tpu_torch.models.hierec import HieRec
+from pytorch_news_recommender_tpu_torch.models.naml import NAML
 from pytorch_news_recommender_tpu_torch.models.nrms import NRMS
 from pytorch_news_recommender_tpu_torch.models.nrms_entity import NRMSEntity
 from pytorch_news_recommender_tpu_torch.models.tanr import TANR
 
-_REGISTRY = {"nrms": NRMS, "nrms_entity": NRMSEntity, "tanr": TANR, "hierec": HieRec}
+_REGISTRY = {"nrms": NRMS, "nrms_entity": NRMSEntity, "tanr": TANR, "hierec": HieRec,
+             "naml": NAML}
 
 
 def available_models() -> list[str]:

@@ -91,6 +91,36 @@ class PadEmbedding(nn.Module):
         return F.embedding(ids.long(), self.embedding).to(cd) * mask[..., None]
 
 
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm(dtype=compute_dtype)`` over the last axis, in
+    its layout and arithmetic: ``scale`` (ones) and ``bias`` (zeros) in
+    float32; the statistics reduced in float32 with the fast variance
+    ``E[x²] − E[x]²`` clamped at 0, each mean a float32 sum times the
+    float32 ``1/n`` (as XLA lowers a mean); ``epsilon`` 1e-6; ``(x − mean) ·
+    (rsqrt(var + eps) · scale) + bias`` in float32, returned in the compute
+    dtype. (``torch.nn.LayerNorm`` names its parameters ``weight``, takes
+    eps 1e-5 and the two-pass variance.)"""
+
+    def __init__(self, dim: int, compute_dtype: torch.dtype, epsilon: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.compute_dtype = compute_dtype
+        self.epsilon = epsilon
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _draw(self.scale, torch.ones_like)
+        _draw(self.bias, torch.zeros_like)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        inv_n = 1.0 / xf.shape[-1]
+        mean = xf.sum(-1, keepdim=True) * inv_n
+        var = ((xf * xf).sum(-1, keepdim=True) * inv_n - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.float()
+        return ((xf - mean) * mul + self.bias.float()).to(self.compute_dtype)
+
+
 class AdditiveAttention(nn.Module):
     """``softmax(tanh(xW + b) @ q)``-weighted pooling over the second-last
     axis of ``x: [..., L, D]`` (plain PyTorch, no kernel). ``query`` is

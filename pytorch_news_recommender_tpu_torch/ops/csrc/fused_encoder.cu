@@ -69,6 +69,21 @@
 //   token row, which no tiling changes.
 // * Shared memory limits L: at D=300, Q=200 every L up to 80 fits in both
 //   dtypes (newsrec_fused_encoder_smem_bytes; the wrapper raises past 227 KB).
+// * Wide D (NAML's user tower: D=800, 10 heads of 80, Q=400, L=50). There
+//   fwd_tail's f32 o2 rows alone take 206,848 B (372,736 B in all in bf16)
+//   and, in f32, fwd_attn's x tiles another 206,848 B (331,456 B in all).
+//   A kernel whose layout does not fit one block takes its wide variant
+//   (fwd_variant; tiles.cuh's kVar* bits), for tiles of at most 64 rows:
+//   fwd_tail writes o2 to device memory (the caller's f32 scratch [M*L, D])
+//   in the Wo product's epilogue and reads it back for T(o2) and for the
+//   pooled sum, the same f32 values summed in the same order; in bf16 o1's
+//   tile, then T(o2)'s, stays in shared memory (217,088 B), in f32 both
+//   are streamed through the ring (132,096 B). fwd_attn in f32 streams x
+//   through the ring (AStream, split in registers; 161,472 B) and keeps its
+//   bf16 layout (180,416 B). At D=300 every kernel keeps its layout,
+//   launches and bits. dh = 80 needs no other change: a head's q|k|v
+//   columns are three 96-wide chunks (Cfg::Attn), the o1 product five
+//   16-column units per row block.
 //
 // Bound. At L=20 an item needs 2*L*D*(3D+D+Q) + 4*H*L^2*dh = 17.3 MFLOP
 // and moves 12 KB (bf16 tokens in, one vector out), so the work is bound by
@@ -87,31 +102,59 @@ constexpr int kAllHeadsTiles = 264;
 // their rows, as attn_bwd's T(P)
 __host__ __device__ inline long fwd_scores_bytes(long Rt) { return Rt * (Rt + 4) * 4; }
 
-// shared memory of fwd_attn: x's A tiles; a head's q, k, v tiles (high and,
-// in f32, low); the weight ring, aliased by the scores; the mask, the rows'
-// items, the row sums; the head's biases
-template <bool kF32> __host__ __device__ inline long attn_fwd_smem_bytes(int L, int D, int H) {
+// shared memory of fwd_attn: x's A tiles (none when x is streamed); a
+// head's q, k, v tiles (high and, in f32, low); the weight ring (with x's
+// stages when streamed), aliased by the scores; the mask, the rows' items,
+// the row sums; the head's biases
+template <bool kF32, bool kStream = false>
+__host__ __device__ inline long attn_fwd_smem_bytes(int L, int D, int H) {
   using C = typename Cfg<kF32>::Attn;
   const long Rt = tile_rows(L), ldh = round16(D / H) + 8, parts = kF32 ? 2 : 1;
   const long sc = fwd_scores_bytes(Rt);
-  const long ring = C::ST * b_stage_bytes<C::NT>(kF32);
-  return parts * (2 * Rt * lda_of(D) + 6 * Rt * ldh) + (sc > ring ? sc : ring) + 12 * Rt +
-         12 * round16(D / H);
+  const long ring = C::ST * ((kStream ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32));
+  return (kStream ? 0 : parts * 2 * Rt * lda_of(D)) + parts * 6 * Rt * ldh +
+         (sc > ring ? sc : ring) + 12 * Rt + 12 * round16(D / H);
 }
 
 // shared memory of fwd_tail: o1's A tiles (high and low), later the
 // pooling terms [Rt, Q / 2]; o2 in f32 [Rt, lda_of(D)]; the weight ring;
-// the mask, the logits, the items' denominators; bo, ab, aq
-template <bool kF32, bool kWide> __host__ __device__ inline long tail_fwd_smem_bytes_of(int L, int D, int Q) {
+// the mask, the logits, the items' denominators; bo, ab, aq. The wide
+// variant (kWideD) keeps o2 in device memory: in bf16 o1's tile, then
+// T(o2)'s, one part, beside the terms; in f32 both streamed through the ring.
+template <bool kF32, bool kWide, bool kWideD = false>
+__host__ __device__ inline long tail_fwd_smem_bytes_of(int L, int D, int Q) {
   using C = PoolCfg<kF32, kWide>;
   const long Rt = tile_rows(L), parts = kF32 ? 2 : 1;
-  const long a = parts * 2 * Rt * lda_of(D), terms = 2L * Rt * Q;
-  return (a > terms ? a : terms) + 4 * Rt * lda_of(D) + C::ST * b_stage_bytes<C::NT>(kF32) +
-         12 * Rt + 4L * (D + 2 * Q);
+  const long terms = 2L * Rt * Q, small = 12 * Rt + 4L * (D + 2 * Q);
+  if (kWideD)
+    return (kF32 ? 0 : 2 * Rt * lda_of(D)) + terms +
+           C::ST * ((kF32 ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32)) + small;
+  const long a = parts * 2 * Rt * lda_of(D);
+  return (a > terms ? a : terms) + 4 * Rt * lda_of(D) + C::ST * b_stage_bytes<C::NT>(kF32) + small;
 }
 template <bool kF32> __host__ __device__ inline long tail_fwd_smem_bytes(int L, int D, int Q) {
   return tile_rows(L) > kTileRows ? tail_fwd_smem_bytes_of<kF32, true>(L, D, Q)
                                   : tail_fwd_smem_bytes_of<kF32, false>(L, D, Q);
+}
+
+// The forward's wide variants at these shapes (kVarFwdAttn, kVarFwdTail):
+// only where a kernel's layout does not fit one block, for tiles of at
+// most 64 rows; x is streamed in f32 only
+template <bool kF32> int fwd_variant(int L, int D, int H, int Q) {
+  if (tile_rows(L) > kTileRows) return 0;
+  return (kF32 && attn_fwd_smem_bytes<kF32>(L, D, H) > kMaxSmem ? kVarFwdAttn : 0) |
+         (tail_fwd_smem_bytes<kF32>(L, D, Q) > kMaxSmem ? kVarFwdTail : 0);
+}
+
+// the most shared memory one block of the forward's kernels needs, in the
+// variants fwd_variant chooses
+template <bool kF32> long fwd_smem_bytes(int L, int D, int H, int Q) {
+  const int v = fwd_variant<kF32>(L, D, H, Q);
+  const long a = v & kVarFwdAttn ? attn_fwd_smem_bytes<kF32, true>(L, D, H)
+                                 : attn_fwd_smem_bytes<kF32>(L, D, H);
+  const long t = v & kVarFwdTail ? tail_fwd_smem_bytes_of<kF32, false, true>(L, D, Q)
+                                 : tail_fwd_smem_bytes<kF32>(L, D, Q);
+  return a > t ? a : t;
 }
 
 // An f32 A operand held whole in shared memory (rows of ld floats, ld % 32
@@ -175,13 +218,15 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int rows, 
 // = T(x Wqkv + b) over the head's columns (each of q, k, v padded from dh to
 // round16(dh) with zeros), the scores over the tile's block diagonal, the
 // softmax (8 lanes a row up to 64 rows), o1 = T((T(e) v) / rowsum); writes
-// the head's columns of o1 for the tile's rows.
-template <typename T>
+// the head's columns of o1 for the tile's rows. kStream (f32 only): x's
+// rows are streamed from device memory with the weights, not held whole.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(256, 1)
 fwd_attn_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqkv,
                 const T* __restrict__ bqkv, T* __restrict__ o1_g, int M, int L, int D, int H,
                 int hpb, float scale) {
   constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(!kStream || kF32, "x is streamed in f32 only");
   extern __shared__ __align__(16) unsigned char smem[];
   const int Rt = tile_rows(L), ipt = items_per_tile(L);
   const int dh = D / H, dhp = round16(dh), ldh = dhp + 8, ldX = lda_of(D);
@@ -191,17 +236,18 @@ fwd_attn_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   const int ldS = Rt + 4, ldP = 2 * ldS;
   using C = typename Cfg<kF32>::Attn;
   constexpr int parts = kF32 ? 2 : 1;  // low parts in f32 only
-  __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX]
+  __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX], unless kStream
   __nv_bfloat16* x_lo = x_hi + Rt * ldX;
   // q, k, v of one head, [Rt, ldh] each: high parts, then low parts
-  __nv_bfloat16* hd = x_hi + parts * Rt * ldX;
+  __nv_bfloat16* hd = x_hi + (kStream ? 0 : parts * Rt * ldX);
   auto head_hi = [=](int i) { return hd + i * Rt * ldh; };
   auto head_lo = [=](int i) { return hd + (3 + i) * Rt * ldh; };
   unsigned char* ring = reinterpret_cast<unsigned char*>(hd + parts * 3 * Rt * ldh);
   float* S = reinterpret_cast<float*>(ring);                   // [Rt, ldS] scores
   __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(S);  // [Rt, ldP] T(e)
   __nv_bfloat16* p_lo = p_hi + Rt + 8;
-  const long sc = fwd_scores_bytes(Rt), rb = C::ST * b_stage_bytes<C::NT>(kF32);
+  const long sc = fwd_scores_bytes(Rt),
+             rb = C::ST * ((kStream ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32));
   float* mk = reinterpret_cast<float*>(ring + (sc > rb ? sc : rb));  // [Rt] mask
   int* itm = reinterpret_cast<int*>(mk + Rt);                        // [Rt] item of a row
   float* rs = reinterpret_cast<float*>(itm + Rt);                    // [Rt] softmax row sums
@@ -211,7 +257,7 @@ fwd_attn_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
   const long row0 = (long)item0 * L;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  stage_rows(x + row0 * D, nrows, D, Rt, x_hi, x_lo, ldX);
+  if (!kStream) stage_rows(x + row0 * D, nrows, D, Rt, x_hi, x_lo, ldX);
   for (int r = tid; r < Rt; r += blockDim.x) {
     mk[r] = r < nrows ? mask[row0 + r] : 0.f;
     itm[r] = r / L;  // rows past the last item fall in items of their own
@@ -233,18 +279,24 @@ fwd_attn_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
     BOp b = wqkv;
     b.hi += h * 3 * dhp;
     if (kF32) b.lo += h * 3 * dhp;
-    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
-        ASmem{x_hi, x_lo, ldX}, b, Rt, ring, [=](int r, int n, float a0, float a1) {
-          const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
-          float v0 = 0.f, v1 = 0.f;
-          if (d < dh) {
-            v0 = a0 + hb[n];
-            v1 = a1 + hb[n + 1];
-            if (seg == 0) { v0 *= scale; v1 *= scale; }
-          }
-          put(head_hi(seg), head_lo(seg), r * ldh + d, rnd<T>(v0), kF32);
-          put(head_hi(seg), head_lo(seg), r * ldh + d + 1, rnd<T>(v1), kF32);
-        });
+    auto qkv_epi = [=](int r, int n, float a0, float a1) {
+      const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
+      float v0 = 0.f, v1 = 0.f;
+      if (d < dh) {
+        v0 = a0 + hb[n];
+        v1 = a1 + hb[n + 1];
+        if (seg == 0) { v0 *= scale; v1 *= scale; }
+      }
+      put(head_hi(seg), head_lo(seg), r * ldh + d, rnd<T>(v0), kF32);
+      put(head_hi(seg), head_lo(seg), r * ldh + d + 1, rnd<T>(v1), kF32);
+    };
+    if constexpr (kStream)
+      tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
+          AStream{reinterpret_cast<const float*>(x) + row0 * D, D, nrows, D, Rt}, b, Rt, ring,
+          qkv_epi);
+    else
+      tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
+          ASmem{x_hi, x_lo, ldX}, b, Rt, ring, qkv_epi);
     // scores q k^T + penalty over the tile, 16 x 32 units
     for (int u = warp; u < nm * nn; u += C::W) {
       const int m0 = u / nn * 16, n0 = u % nn * 32;
@@ -361,26 +413,34 @@ fwd_attn_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
 
 // One block per tile of whole items: o2 = o1 Wo + bo (dropout) into f32
 // rows, the pooling terms tanh(T(o2) aw + ab) aq summed per row, the pooling
-// softmax per item and out = T(sum_l w_l o2_l / max(den, 1e-30)).
-template <typename T, bool kWide>
+// softmax per item and out = T(sum_l w_l o2_l / max(den, 1e-30)). kWideD:
+// o2's f32 rows go to device memory (o2_g) and are read back from there,
+// the same values in the same order of sums; in bf16 o1's tile, then
+// T(o2)'s, stays in shared memory, in f32 both are streamed.
+template <typename T, bool kWide, bool kWideD>
 __global__ void __launch_bounds__(512, 1)
 fwd_tail_kernel(const float* __restrict__ mask, const T* __restrict__ o1, BOp wo, BOp aw,
                 const T* __restrict__ bo, const T* __restrict__ ab, const T* __restrict__ aq,
-                T* __restrict__ out, int M, int L, int D, int Q, unsigned seed, int block_rows,
-                unsigned threshold, float keep_scale) {
+                T* __restrict__ out, float* __restrict__ o2_g, int M, int L, int D, int Q,
+                unsigned seed, int block_rows, unsigned threshold, float keep_scale) {
   constexpr bool kF32 = sizeof(T) == 4;
+  constexpr bool kStreamA = kWideD && kF32;  // the A operands streamed from device memory
   using C = PoolCfg<kF32, kWide>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Rt = tile_rows(L), ipt = items_per_tile(L);
   const int ldA = lda_of(D), D16 = round16(D), Qh = Q / 2;
   constexpr int parts = kF32 ? 2 : 1;
-  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldA] o1
+  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldA] o1 (kWideD: T(o2))
   __nv_bfloat16* a_lo = a_hi + Rt * ldA;
-  float* terms = reinterpret_cast<float*>(smem);                  // [Rt, Qh], after o1
-  const long a_bytes = (long)parts * 2 * Rt * ldA, t_bytes = 4L * Rt * Qh;
-  float* o2s = reinterpret_cast<float*>(smem + (a_bytes > t_bytes ? a_bytes : t_bytes));
-  unsigned char* ring = reinterpret_cast<unsigned char*>(o2s + Rt * ldA);  // o2 [Rt, ldA]
-  float* mk = reinterpret_cast<float*>(ring + C::ST * b_stage_bytes<C::NT>(kF32));
+  const long a_bytes = kWideD ? (kF32 ? 0 : 2L * Rt * ldA) : (long)parts * 2 * Rt * ldA;
+  const long t_bytes = 4L * Rt * Qh;
+  // [Rt, Qh] after o1, or beside T(o2)
+  float* terms = reinterpret_cast<float*>(kWideD ? smem + a_bytes : smem);
+  float* o2s = reinterpret_cast<float*>(  // o2 [Rt, ldA], unless kWideD
+      smem + (kWideD ? a_bytes + t_bytes : (a_bytes > t_bytes ? a_bytes : t_bytes)));
+  unsigned char* ring = reinterpret_cast<unsigned char*>(o2s + (kWideD ? 0 : Rt * ldA));
+  float* mk = reinterpret_cast<float*>(
+      ring + C::ST * ((kStreamA ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32)));
   float* pw = mk + Rt;    // pooling logits, then exp(logit - max)
   float* dn = pw + Rt;    // [Rt] an item's max(den, 1e-30)
   float* bos = dn + Rt;   // bo, ab, aq in f32
@@ -391,7 +451,7 @@ fwd_tail_kernel(const float* __restrict__ mask, const T* __restrict__ o1, BOp wo
   const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
   const long row0 = (long)item0 * L;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  stage_rows(o1 + row0 * D, nrows, D, Rt, a_hi, a_lo, ldA);
+  if (!kStreamA) stage_rows(o1 + row0 * D, nrows, D, Rt, a_hi, a_lo, ldA);
   for (int r = tid; r < Rt; r += blockDim.x) mk[r] = r < nrows ? mask[row0 + r] : 0.f;
   for (int i = tid; i < D; i += blockDim.x) bos[i] = to_f(bo[i]);
   for (int i = tid; i < Q; i += blockDim.x) {
@@ -399,27 +459,46 @@ fwd_tail_kernel(const float* __restrict__ mask, const T* __restrict__ o1, BOp wo
     aqs[i] = to_f(aq[i]);
   }
   // o2's columns past D are the next product's zero depth pad
-  for (int i = tid; i < Rt * (D16 - D); i += blockDim.x)
-    o2s[i / (D16 - D) * ldA + D + i % (D16 - D)] = 0.f;
+  if (!kWideD)
+    for (int i = tid; i < Rt * (D16 - D); i += blockDim.x)
+      o2s[i / (D16 - D) * ldA + D + i % (D16 - D)] = 0.f;
 
   // o2 = o1 @ Wo + bo, then dropout on the items' rows (rows past them 0)
-  tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
-      ASmem{a_hi, a_lo, ldA}, wo, Rt, ring, [=](int r, int n, float a0, float a1) {
-        float v0 = 0.f, v1 = 0.f;
-        if (r < nrows) {
-          v0 = dropout(a0 + bos[n], seed, block_rows, row0 + r, n, threshold, keep_scale);
-          v1 = dropout(a1 + bos[n + 1], seed, block_rows, row0 + r, n + 1, threshold,
-                       keep_scale);
-        }
-        store2(o2s + r * ldA + n, v0, v1);
-      });
-  // tanh(T(o2) @ aw + ab) * aq, two columns summed per term (o1 is spent)
-  tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
-      ASmemF32{o2s, ldA}, aw, Rt, ring, [=](int r, int n, float a0, float a1) {
-        if (r < nrows)
-          terms[r * Qh + n / 2] =
-              tanhf(a0 + abs_[n]) * aqs[n] + tanhf(a1 + abs_[n + 1]) * aqs[n + 1];
-      });
+  auto o2_epi = [=](int r, int n, float a0, float a1) {
+    float v0 = 0.f, v1 = 0.f;
+    if (r < nrows) {
+      v0 = dropout(a0 + bos[n], seed, block_rows, row0 + r, n, threshold, keep_scale);
+      v1 = dropout(a1 + bos[n + 1], seed, block_rows, row0 + r, n + 1, threshold, keep_scale);
+    }
+    if (!kWideD)
+      store2(o2s + r * ldA + n, v0, v1);
+    else if (r < nrows)
+      store2(o2_g + (row0 + r) * D + n, v0, v1);
+  };
+  if constexpr (kStreamA)
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
+        AStream{reinterpret_cast<const float*>(o1) + row0 * D, D, nrows, D, Rt}, wo, Rt, ring,
+        o2_epi);
+  else
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(ASmem{a_hi, a_lo, ldA}, wo, Rt,
+                                                                ring, o2_epi);
+  // tanh(T(o2) @ aw + ab) * aq, two columns summed per term
+  auto term_epi = [=](int r, int n, float a0, float a1) {
+    if (r < nrows)
+      terms[r * Qh + n / 2] = tanhf(a0 + abs_[n]) * aqs[n] + tanhf(a1 + abs_[n + 1]) * aqs[n + 1];
+  };
+  if constexpr (!kWideD) {
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(ASmemF32{o2s, ldA}, aw, Rt, ring,
+                                                                term_epi);
+  } else if constexpr (kF32) {
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
+        AStream{o2_g + row0 * D, D, nrows, D, Rt}, aw, Rt, ring, term_epi);
+  } else {
+    // T(o2) into o1's tile (o1 is spent), from the rows just written
+    stage_tile<4>(o2_g + row0 * D, D, nrows, D, Rt, D16, a_hi, a_lo, ldA, false);
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(ASmem{a_hi, a_lo, ldA}, aw, Rt,
+                                                                ring, term_epi);
+  }
   // pooling logits, one warp per row, the terms in a fixed order
   for (int r = warp; r < nrows; r += C::W) {
     float s = 0.f;
@@ -446,12 +525,15 @@ fwd_tail_kernel(const float* __restrict__ mask, const T* __restrict__ o1, BOp wo
     if (lane == 0) dn[it] = fmaxf(den, 1e-30f);
   }
   __syncthreads();
+  // o2's rows, from shared or device memory
+  const float* o2r = kWideD ? o2_g + row0 * D : o2s;
+  const int ldo = kWideD ? D : ldA;
   for (int e = tid; e < nitems * D; e += blockDim.x) {
     const int it = e / D, d = e % D;
     const float* p = pw + it * L;
-    const float* o = o2s + (long)it * L * ldA + d;
+    const float* o = o2r + (long)it * L * ldo + d;
     float num = 0.f;
-    for (int i = 0; i < L; ++i) num = fmaf(p[i], o[i * ldA], num);
+    for (int i = 0; i < L; ++i) num = fmaf(p[i], o[i * ldo], num);
     out[(long)(item0 + it) * D + d] = from_f<T>(num / dn[it]);
   }
 }
@@ -459,8 +541,8 @@ fwd_tail_kernel(const float* __restrict__ mask, const T* __restrict__ o1, BOp wo
 template <typename T>
 cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                    const void* wo, const void* bo, const void* aw, const void* ab,
-                   const void* aq, void* out, void* o1, void* ws, int M, int L, int D, int H,
-                   int Q, float scale, unsigned seed, int block_rows, unsigned threshold,
+                   const void* aq, void* out, void* o1, void* ws, void* o2, int M, int L, int D,
+                   int H, int Q, float scale, unsigned seed, int block_rows, unsigned threshold,
                    float keep_scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr bool kF32 = sizeof(T) == 4;
@@ -483,17 +565,26 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
   const BOp qkv_head{w_hi + wl.head, lo_of(wl.head), wl.ld_head, D, 3 * dhp, dhp, D / H};
 
   const bool wide = tile_rows(L) > kTileRows;
-  auto tail_kernel = wide ? fwd_tail_kernel<T, true> : fwd_tail_kernel<T, false>;
-  const int attn_smem = (int)attn_fwd_smem_bytes<kF32>(L, D, H);
-  const int tail_smem = (int)tail_fwd_smem_bytes<kF32>(L, D, Q);
-  if ((err = cudaFuncSetAttribute(fwd_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int var = fwd_variant<kF32>(L, D, H, Q);
+  if ((var & kVarFwdTail) && o2 == nullptr) return cudaErrorInvalidValue;
+  auto tail_kernel = wide ? fwd_tail_kernel<T, true, false>
+                          : (var & kVarFwdTail ? fwd_tail_kernel<T, false, true>
+                                               : fwd_tail_kernel<T, false, false>);
+  auto attn_kernel = fwd_attn_kernel<T, false>;
+  if constexpr (kF32)
+    if (var & kVarFwdAttn) attn_kernel = fwd_attn_kernel<T, true>;
+  const int attn_smem = (int)(var & kVarFwdAttn ? attn_fwd_smem_bytes<kF32, true>(L, D, H)
+                                                : attn_fwd_smem_bytes<kF32>(L, D, H));
+  const int tail_smem = (int)(var & kVarFwdTail ? tail_fwd_smem_bytes_of<kF32, false, true>(L, D, Q)
+                                                : tail_fwd_smem_bytes<kF32>(L, D, Q));
+  if ((err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   attn_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   tail_smem)) != cudaSuccess)
     return err;
   const int hpb = tiles >= kAllHeadsTiles ? H : 1;
-  fwd_attn_kernel<T><<<dim3(tiles, (H + hpb - 1) / hpb), 32 * Cfg<kF32>::Attn::W, attn_smem,
-                       stream>>>(static_cast<const T*>(x), static_cast<const float*>(mask),
+  attn_kernel<<<dim3(tiles, (H + hpb - 1) / hpb), 32 * Cfg<kF32>::Attn::W, attn_smem,
+                stream>>>(static_cast<const T*>(x), static_cast<const float*>(mask),
                                  qkv_head, static_cast<const T*>(bqkv), static_cast<T*>(o1), M,
                                  L, D, H, hpb, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -501,7 +592,8 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
   tail_kernel<<<tiles, 32 * Cfg<kF32>::Pool::W, tail_smem, stream>>>(
       static_cast<const float*>(mask), static_cast<const T*>(o1), wo_b, aw_b,
       static_cast<const T*>(bo), static_cast<const T*>(ab), static_cast<const T*>(aq),
-      static_cast<T*>(out), M, L, D, Q, seed, block_rows, threshold, keep_scale);
+      static_cast<T*>(out), static_cast<float*>(o2), M, L, D, Q, seed, block_rows, threshold,
+      keep_scale);
   return cudaGetLastError();
 }
 
@@ -509,11 +601,16 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
 
 extern "C" {
 
+// the backward's wide variants (fused_encoder_bwd.cu)
+int newsrec_fused_encoder_bwd_variant(int dtype, int L, int D, int H, int Q);
+
 // dtype: 0 = float32, 1 = bfloat16 (x, weights, out and o1); mask is
 // float32. o1 [M, L, D] is always written (the caller's scratch when it
 // does not want the residual). ws: room for
 // newsrec_fused_encoder_fwd_ws_elems(D, H, Q) bfloat16 values, twice that
-// for float32 (the weights as the kernels read them). Dropout: seed, token
+// for float32 (the weights as the kernels read them). o2: float32 scratch
+// [M * L, D] where newsrec_fused_encoder_variant has kVarFwdTail (2), else
+// unused and may be null. Dropout: seed, token
 // rows per hash block, threshold = rate * 2^32, keep_scale = 1 / (1 - rate);
 // threshold 0 and keep_scale 1 mean no dropout. Needs Q % 2 == 0 and an
 // even head width. All operands contiguous on one device, 16-byte aligned.
@@ -521,25 +618,31 @@ extern "C" {
 int newsrec_fused_encoder_fwd(int dtype, const void* x, const void* mask, const void* wqkv,
                               const void* bqkv, const void* wo, const void* bo, const void* aw,
                               const void* ab, const void* aq, void* out, void* o1, void* ws,
-                              int M, int L, int D, int H, int Q, float scale, unsigned seed,
-                              int block_rows, unsigned threshold, float keep_scale,
+                              void* o2, int M, int L, int D, int H, int Q, float scale,
+                              unsigned seed, int block_rows, unsigned threshold, float keep_scale,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, ws, M, L, D, H, Q,
+    return launch<float>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, ws, o2, M, L, D, H, Q,
                          scale, seed, block_rows, threshold, keep_scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, ws, M, L, D,
-                                 H, Q, scale, seed, block_rows, threshold, keep_scale, s);
+    return launch<__nv_bfloat16>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, ws, o2, M, L,
+                                 D, H, Q, scale, seed, block_rows, threshold, keep_scale, s);
   return cudaErrorInvalidValue;
 }
 
-// the most shared memory one block of the forward's kernels needs
+// the most shared memory one block of the forward's kernels needs, in the
+// variants they take at these shapes
 long newsrec_fused_encoder_smem_bytes(int dtype, int L, int D, int H, int Q) {
-  const bool f32 = dtype == 0;
-  const long a = f32 ? attn_fwd_smem_bytes<true>(L, D, H) : attn_fwd_smem_bytes<false>(L, D, H);
-  const long t = f32 ? tail_fwd_smem_bytes<true>(L, D, Q) : tail_fwd_smem_bytes<false>(L, D, Q);
-  return a > t ? a : t;
+  return dtype == 0 ? fwd_smem_bytes<true>(L, D, H, Q) : fwd_smem_bytes<false>(L, D, H, Q);
+}
+
+// the wide variants the forward's and the backward's kernels take at these
+// shapes: kVarFwdAttn 1, kVarFwdTail 2, kVarPoolBwd 4, kVarAttnBwd 8 (0 at
+// every shape where each kernel's layout fits one block)
+int newsrec_fused_encoder_variant(int dtype, int L, int D, int H, int Q) {
+  const int f = dtype == 0 ? fwd_variant<true>(L, D, H, Q) : fwd_variant<false>(L, D, H, Q);
+  return f | newsrec_fused_encoder_bwd_variant(dtype, L, D, H, Q);
 }
 
 // the forward's tiles at item length L: whole items per block, and the

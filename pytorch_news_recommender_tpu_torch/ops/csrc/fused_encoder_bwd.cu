@@ -63,6 +63,20 @@
 //   scores and pool_bwd's operand tiles bound it elsewhere (L up to 144
 //   at D = 64 in bf16, 128 in f32); newsrec_fused_encoder_bwd_smem_bytes
 //   gives the need, and the wrapper raises past 227 KB.
+// * Wide D (NAML's user tower: D=800, Q=400, L=50). There pool_bwd's operand
+//   tiles and f32 rows take 413,696 B before the ring (476,672 B in all in
+//   bf16), and in f32 attn_bwd's x tiles 206,848 B (353,728 B in all). A
+//   kernel whose layout does not fit one block takes its wide variant
+//   (bwd_variant; tiles.cuh's kVar* bits), for tiles of at most 64 rows:
+//   pool_bwd reads o2, t, dpre and do2 back from the device memory it
+//   writes them to for weight_grad, instead of keeping them in shared
+//   memory (the same values, sums in the same order); in bf16 o1's, then
+//   T(o2)'s tile (one part) and dpre's high and low tiles stay whole in
+//   shared memory and do2 is streamed through the ring (222,720 B); in f32
+//   every A operand is streamed (81,408 B). attn_bwd in f32 streams x
+//   through the ring (183,744 B). At D = 300 every kernel keeps its layout,
+//   launches and bits. weight_grad at K = 800 spans three 320-row output
+//   tiles; nothing in it depends on K fitting one.
 // * The attention runs over the tile's block diagonal: one Rt x Rt score
 //   tile per head, with the TPU kernel's penalty (m_i m_j - 1) * 1e9 within
 //   an item and -1e9 between items. exp(-1e9 - max) is 0 in f32, so a real
@@ -173,12 +187,21 @@ __host__ __device__ constexpr int wg_smem_bytes() {
 
 // shared memory of pool_bwd: o1 / T(o2) / dpre as A tiles (high and low);
 // o2, then t in f32, then do2's A tiles; the weight ring; five [Rt] rows;
-// bo, ab, aq
-template <bool kF32, bool kWide> __host__ __device__ inline long pool_smem_bytes_of(int L, int D, int Q) {
+// bo, ab, aq. The wide variant (kWideD) keeps o2, t, dpre and do2 in device
+// memory: in bf16 o1's, then T(o2)'s tile (one part), then dpre's high and
+// low tiles take the A region, and the ring has room for do2's streamed
+// stages; in f32 every A operand is streamed.
+template <bool kF32, bool kWide, bool kWideD = false>
+__host__ __device__ inline long pool_smem_bytes_of(int L, int D, int Q) {
   using C = PoolCfg<kF32, kWide>;
-  const long Rt = tile_rows(L);
+  const long Rt = tile_rows(L), small = 20 * Rt + 4L * (D + 2 * Q);
+  if (kWideD) {
+    const long one = 2 * Rt * lda_of(D), dpre = 4 * Rt * lda_of(Q);
+    return (kF32 ? 0 : (one > dpre ? one : dpre)) +
+           C::ST * (AStream::stage_bytes(Rt) + b_stage_bytes<C::NT>(kF32)) + small;
+  }
   return 4 * Rt * lda_of(imax(D, Q)) + Rt * imax(imax(4 * D, 4 * Q), 4 * lda_of(D)) +
-         C::ST * b_stage_bytes<C::NT>(kF32) + 20 * Rt + 4L * (D + 2 * Q);
+         C::ST * b_stage_bytes<C::NT>(kF32) + small;
 }
 template <bool kF32> __host__ __device__ inline long pool_smem_bytes(int L, int D, int Q) {
   return tile_rows(L) > kTileRows ? pool_smem_bytes_of<kF32, true>(L, D, Q)
@@ -189,14 +212,17 @@ template <bool kF32> __host__ __device__ inline long pool_smem_bytes(int L, int 
 // and, in f32, low) overwrite them row by row
 __host__ __device__ inline long attn_scratch_bytes(long Rt) { return 2 * Rt * (Rt + 4) * 4; }
 
-// shared memory of attn_bwd: x's A tiles; a head's q, k, v and dO1 tiles
-// (high and, in f32, low); the weight ring, aliased by the scratch above
-template <bool kF32> __host__ __device__ inline long attn_smem_bytes(int L, int D, int H) {
+// shared memory of attn_bwd: x's A tiles (none when x is streamed); a
+// head's q, k, v and dO1 tiles (high and, in f32, low); the weight ring
+// (with x's stages when streamed), aliased by the scratch above
+template <bool kF32, bool kStream = false>
+__host__ __device__ inline long attn_smem_bytes(int L, int D, int H) {
+  using C = typename Cfg<kF32>::Attn;
   const long Rt = tile_rows(L), ldh = round16(D / H) + 8, parts = kF32 ? 2 : 1;
   const long att = attn_scratch_bytes(Rt);
-  const long ring = Cfg<kF32>::Attn::ST * b_stage_bytes<Cfg<kF32>::Attn::NT>(kF32);
-  return parts * (2 * Rt * lda_of(D) + 8 * Rt * ldh) + (att > ring ? att : ring) + 8 * Rt +
-         12 * round16(D / H);
+  const long ring = C::ST * ((kStream ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32));
+  return (kStream ? 0 : parts * 2 * Rt * lda_of(D)) + parts * 8 * Rt * ldh +
+         (att > ring ? att : ring) + 8 * Rt + 12 * round16(D / H);
 }
 
 template <bool kF32> __host__ __device__ inline long dx_smem_bytes() {
@@ -204,12 +230,37 @@ template <bool kF32> __host__ __device__ inline long dx_smem_bytes() {
   return C::ST * (AStream::stage_bytes(kTileRows) + b_stage_bytes<C::NT>(kF32));
 }
 
+// The backward's wide variants at these shapes (kVarPoolBwd, kVarAttnBwd):
+// only where a kernel's layout does not fit one block, for tiles of at
+// most 64 rows; x is streamed in f32 only
+template <bool kF32> int bwd_variant(int L, int D, int H, int Q) {
+  if (tile_rows(L) > kTileRows) return 0;
+  return (pool_smem_bytes<kF32>(L, D, Q) > kMaxSmem ? kVarPoolBwd : 0) |
+         (kF32 && attn_smem_bytes<kF32>(L, D, H) > kMaxSmem ? kVarAttnBwd : 0);
+}
+
+// the most shared memory one block of the backward's kernels needs, in the
+// variants bwd_variant chooses
+template <bool kF32> long bwd_smem_bytes(int L, int D, int H, int Q) {
+  const int v = bwd_variant<kF32>(L, D, H, Q);
+  const long p = v & kVarPoolBwd ? pool_smem_bytes_of<kF32, false, true>(L, D, Q)
+                                 : pool_smem_bytes<kF32>(L, D, Q);
+  const long a = v & kVarAttnBwd ? attn_smem_bytes<kF32, true>(L, D, H)
+                                 : attn_smem_bytes<kF32>(L, D, H);
+  const long d = dx_smem_bytes<kF32>();
+  return p > a ? (p > d ? p : d) : (a > d ? a : d);
+}
+
 // One block per tile of whole items: o2 = o1 Wo + bo (dropout), t =
 // tanh(T(o2) aw + ab), the pooling softmax per item, d(logit), dpre, do2 =
 // w g + dpre aw^T (dropout), do1 = T(do2 Wo^T); writes o2, t, dpre, do2,
 // d(logit) (f32) and do1 (T). wo and aw are the products with Wo and aw;
 // the products with their transposes read the same matrices by columns.
-template <typename T, bool kWide>
+// kWideD: o2, t, dpre and do2 are read back from device memory where they
+// are written, not kept in shared memory (the same values, in the same
+// order of sums); in bf16 o1, T(o2) and dpre stay whole in shared memory
+// as A tiles and do2 is streamed, in f32 every A operand is streamed.
+template <typename T, bool kWide, bool kWideD>
 __global__ void __launch_bounds__(512, 1)
 pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
                 const T* __restrict__ o1, BOp wo, BOp aw,
@@ -219,19 +270,26 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
                 int M, int L, int D, int Q, unsigned seed, int block_rows, unsigned threshold,
                 float keep_scale) {
   constexpr bool kF32 = sizeof(T) == 4;
+  constexpr bool kStreamA = kWideD && kF32;  // every A operand streamed from device memory
   extern __shared__ __align__(16) unsigned char smem[];
   const int Rt = tile_rows(L), ipt = items_per_tile(L);
   const int ldA = lda_of(imax(D, Q)), ldD = lda_of(D), D16 = round16(D), Q16 = round16(Q);
-  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(smem);   // [Rt, ldA]
-  __nv_bfloat16* a_lo = a_hi + Rt * ldA;
-  unsigned char* r2 = smem + 4L * Rt * ldA;
+  // row strides of the A tiles: o1 and T(o2) (ld1), dpre (ldP, high and low parts)
+  const int ld1 = kWideD ? ldD : ldA, ldP = kWideD ? lda_of(Q) : ldA;
+  __nv_bfloat16* a_hi = reinterpret_cast<__nv_bfloat16*>(smem);   // [Rt, ld1] / [Rt, ldP]
+  __nv_bfloat16* a_lo = a_hi + Rt * ld1;
+  __nv_bfloat16* p_lo = a_hi + Rt * ldP;
+  const long a_region =
+      kWideD ? (kF32 ? 0 : imax(2 * Rt * ldD, 4 * Rt * ldP)) : 4L * Rt * ldA;
+  unsigned char* r2 = smem + a_region;                             // unless kWideD:
   float* o2s = reinterpret_cast<float*>(r2);                       // [Rt, D]  o2
   float* ts = o2s;                                                 // [Rt, Q]  t
   __nv_bfloat16* d_hi = reinterpret_cast<__nv_bfloat16*>(r2);     // [Rt, ldD] do2
   __nv_bfloat16* d_lo = d_hi + Rt * ldD;
-  unsigned char* ring = r2 + (long)Rt * imax(imax(4 * D, 4 * Q), 4 * ldD);
+  unsigned char* ring = kWideD ? r2 : r2 + (long)Rt * imax(imax(4 * D, 4 * Q), 4 * ldD);
   using C = PoolCfg<kF32, kWide>;
-  float* mk = reinterpret_cast<float*>(ring + C::ST * b_stage_bytes<C::NT>(kF32));
+  float* mk = reinterpret_cast<float*>(
+      ring + C::ST * ((kWideD ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32)));
   float* pw = mk + Rt;    // pooling logits, then weights w
   float* dwf = pw + Rt;   // o2 . g per row
   float* ds = dwf + Rt;   // d(logit)
@@ -244,8 +302,11 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
   const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
   const long row0 = (long)item0 * L;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // o2's and t's rows of the tile (row stride D and Q), in shared or device memory
+  const float* o2r = kWideD ? o2_g + row0 * D : o2s;
+  const float* tr = kWideD ? t_g + row0 * Q : ts;
   auto gval = [=](int r, int n) { return g[(long)gi[r] * D + n]; };
-  stage_tile<4>(o1 + row0 * D, D, nrows, D, Rt, D16, a_hi, a_lo, ldA, kF32);
+  if (!kStreamA) stage_tile<4>(o1 + row0 * D, D, nrows, D, Rt, D16, a_hi, a_lo, ld1, kF32);
   for (int r = tid; r < Rt; r += blockDim.x) {
     mk[r] = r < nrows ? mask[row0 + r] : 0.f;
     gi[r] = item0 + (r < nrows ? r / L : 0);
@@ -257,42 +318,56 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
   }
 
   // o2 = o1 @ Wo + bo, then dropout
-  tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
-      ASmem{a_hi, a_lo, ldA}, wo, Rt, ring, [=](int r, int n, float a0, float a1) {
-        float v0 = 0.f, v1 = 0.f;
-        if (r < nrows) {
-          v0 = dropout(a0 + bos[n], seed, block_rows, row0 + r, n, threshold, keep_scale);
-          v1 = dropout(a1 + bos[n + 1], seed, block_rows, row0 + r, n + 1, threshold,
-                       keep_scale);
-          store2(o2_g + (row0 + r) * D + n, v0, v1);
-        }
-        store2(o2s + r * D + n, v0, v1);
-      });
+  auto o2_epi = [=](int r, int n, float a0, float a1) {
+    float v0 = 0.f, v1 = 0.f;
+    if (r < nrows) {
+      v0 = dropout(a0 + bos[n], seed, block_rows, row0 + r, n, threshold, keep_scale);
+      v1 = dropout(a1 + bos[n + 1], seed, block_rows, row0 + r, n + 1, threshold, keep_scale);
+      store2(o2_g + (row0 + r) * D + n, v0, v1);
+    }
+    if (!kWideD) store2(o2s + r * D + n, v0, v1);
+  };
+  if constexpr (kStreamA)
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
+        AStream{reinterpret_cast<const float*>(o1) + row0 * D, D, nrows, D, Rt}, wo, Rt, ring,
+        o2_epi);
+  else
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(ASmem{a_hi, a_lo, ld1}, wo, Rt,
+                                                                ring, o2_epi);
   // o2 . g per row; T(o2) as the next A
   for (int r = warp; r < nrows; r += C::W) {
     float dw = 0.f;
-    for (int d = lane; d < D; d += 32) dw = fmaf(o2s[r * D + d], gval(r, d), dw);
+    for (int d = lane; d < D; d += 32) dw = fmaf(o2r[r * D + d], gval(r, d), dw);
     dw = warp_sum(dw);
     if (lane == 0) dwf[r] = dw;
   }
-  for (int i = tid; i < Rt * D16; i += blockDim.x) {
-    const int r = i / D16, c = i % D16;
-    put(a_hi, a_lo, r * ldA + c, c < D ? rnd<T>(o2s[r * D + c]) : 0.f, kF32);
+  if constexpr (!kWideD) {
+    for (int i = tid; i < Rt * D16; i += blockDim.x) {
+      const int r = i / D16, c = i % D16;
+      put(a_hi, a_lo, r * ldA + c, c < D ? rnd<T>(o2s[r * D + c]) : 0.f, kF32);
+    }
+  } else if constexpr (!kF32) {
+    stage_tile<4>(o2_g + row0 * D, D, nrows, D, Rt, D16, a_hi, a_lo, ld1, false);
   }
   __syncthreads();
   // t = tanh(T(o2) @ aw + ab)
-  tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
-      ASmem{a_hi, a_lo, ldA}, aw, Rt, ring, [=](int r, int n, float a0, float a1) {
-        const float t0 = tanhf(a0 + abs_[n]), t1 = tanhf(a1 + abs_[n + 1]);
-        store2(ts + r * Q + n, t0, t1);
-        if (r < nrows) {
-          store2(t_g + (row0 + r) * Q + n, t0, t1);
-        }
-      });
+  auto t_epi = [=](int r, int n, float a0, float a1) {
+    const float t0 = tanhf(a0 + abs_[n]), t1 = tanhf(a1 + abs_[n + 1]);
+    if (!kWideD) store2(ts + r * Q + n, t0, t1);
+    if (r < nrows) {
+      store2(t_g + (row0 + r) * Q + n, t0, t1);
+    }
+  };
+  if constexpr (kStreamA)
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(
+        AStream{o2_g + row0 * D, D, nrows, D, Rt}, aw, Rt, ring, t_epi);
+  else
+    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(ASmem{a_hi, a_lo, ld1}, aw, Rt,
+                                                                ring, t_epi);
   // pooling logits t . aq, one warp per row
   for (int r = warp; r < nrows; r += C::W) {
     float s = 0.f;
-    for (int q = lane; q < Q; q += 32) s = fmaf(ts[r * Q + q], aqs[q], s);
+    for (int q = lane; q < Q; q += 32) s = fmaf(tr[r * Q + q], aqs[q], s);
     s = warp_sum(s);
     if (lane == 0) pw[r] = mk[r] > 0.f ? s : -1e9f;
   }
@@ -328,51 +403,68 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
     const int r = i / Q16, q = i % Q16;
     float v = 0.f;
     if (r < nrows && q < Q) {
-      const float t = ts[r * Q + q];
+      const float t = tr[r * Q + q];
       v = (ds[r] * aqs[q]) * (1.f - t * t);
       dpre_g[(row0 + r) * Q + q] = v;
     }
-    put(a_hi, a_lo, r * ldA + q, v, true);
+    if (!kStreamA) put(a_hi, p_lo, r * ldP + q, v, true);
   }
   __syncthreads();
   // t is spent: do2's tiles take its place, their columns past D zeroed
-  for (int i = tid; i < Rt * (D16 - D); i += blockDim.x) {
-    const int r = i / (D16 - D), c = D + i % (D16 - D);
-    d_hi[r * ldD + c] = d_lo[r * ldD + c] = __float2bfloat16_rn(0.f);
+  if (!kWideD) {
+    for (int i = tid; i < Rt * (D16 - D); i += blockDim.x) {
+      const int r = i / (D16 - D), c = D + i % (D16 - D);
+      d_hi[r * ldD + c] = d_lo[r * ldD + c] = __float2bfloat16_rn(0.f);
+    }
   }
   // do2 = w g + dpre @ aw^T, then the dropout scale
-  tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
-      ASmem{a_hi, a_lo, ldA}, transposed(aw), Rt, ring, [=](int r, int n, float a0, float a1) {
-        float v0 = 0.f, v1 = 0.f;
-        if (r < nrows) {
-          v0 = dropout(pw[r] * gval(r, n) + a0, seed, block_rows, row0 + r, n, threshold,
-                       keep_scale);
-          v1 = dropout(pw[r] * gval(r, n + 1) + a1, seed, block_rows, row0 + r, n + 1,
-                       threshold, keep_scale);
-          store2(do2_g + (row0 + r) * D + n, v0, v1);
-        }
-        put(d_hi, d_lo, r * ldD + n, v0, true);
-        put(d_hi, d_lo, r * ldD + n + 1, v1, true);
-      });
+  auto do2_epi = [=](int r, int n, float a0, float a1) {
+    float v0 = 0.f, v1 = 0.f;
+    if (r < nrows) {
+      v0 = dropout(pw[r] * gval(r, n) + a0, seed, block_rows, row0 + r, n, threshold,
+                   keep_scale);
+      v1 = dropout(pw[r] * gval(r, n + 1) + a1, seed, block_rows, row0 + r, n + 1, threshold,
+                   keep_scale);
+      store2(do2_g + (row0 + r) * D + n, v0, v1);
+    }
+    if (!kWideD) {
+      put(d_hi, d_lo, r * ldD + n, v0, true);
+      put(d_hi, d_lo, r * ldD + n + 1, v1, true);
+    }
+  };
+  if constexpr (kStreamA)
+    tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+        AStream{dpre_g + row0 * Q, Q, nrows, Q, Rt}, transposed(aw), Rt, ring, do2_epi);
+  else
+    tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+        ASmem{a_hi, p_lo, ldP}, transposed(aw), Rt, ring, do2_epi);
   // do1 = T(do2 @ Wo^T)
-  tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
-      ASmem{d_hi, d_lo, ldD}, transposed(wo), Rt, ring, [=](int r, int n, float a0, float a1) {
-        if (r < nrows) {
-          store2(do1_g + (row0 + r) * D + n, a0, a1);
-        }
-      });
+  auto do1_epi = [=](int r, int n, float a0, float a1) {
+    if (r < nrows) {
+      store2(do1_g + (row0 + r) * D + n, a0, a1);
+    }
+  };
+  if constexpr (kWideD)
+    tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+        AStream{do2_g + row0 * D, D, nrows, D, Rt}, transposed(wo), Rt, ring, do1_epi);
+  else
+    tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
+        ASmem{d_hi, d_lo, ldD}, transposed(wo), Rt, ring, do1_epi);
 }
 
 // One block per tile of whole items, head by head: q|k|v of the head
 // recomputed from x (x Wqkv on the tensor cores), the attention over the
 // tile's block diagonal (a penalty of 1e9 between items, and on pad tokens
 // within one, as the TPU kernel masks), dS, and dq, dk, dv; writes dqkv (f32).
-template <typename T>
+// kStream (f32 only): x's rows are streamed from device memory with the
+// weights, not held whole.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(256, 1)
 attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqkv,
                 const T* __restrict__ bqkv, const T* __restrict__ do1_g,
                 float* __restrict__ dqkv_g, int M, int L, int D, int H, float scale) {
   constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(!kStream || kF32, "x is streamed in f32 only");
   extern __shared__ __align__(16) unsigned char smem[];
   const int Rt = tile_rows(L), ipt = items_per_tile(L);
   const int dh = D / H, dhp = round16(dh), ldh = dhp + 8, ldX = lda_of(D), D16 = round16(D);
@@ -382,10 +474,10 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   const int ldS = Rt + 4, ldP = 2 * ldS;
   using C = typename Cfg<kF32>::Attn;
   constexpr int parts = kF32 ? 2 : 1;  // low parts in f32 only
-  __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX]
+  __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX], unless kStream
   __nv_bfloat16* x_lo = x_hi + Rt * ldX;
   // q, k, v, dO1 of one head, [Rt, ldh] each: high parts, then low parts
-  __nv_bfloat16* hd = x_hi + parts * Rt * ldX;
+  __nv_bfloat16* hd = x_hi + (kStream ? 0 : parts * Rt * ldX);
   auto head_hi = [=](int i) { return hd + i * Rt * ldh; };
   auto head_lo = [=](int i) { return hd + (4 + i) * Rt * ldh; };
   unsigned char* ring = reinterpret_cast<unsigned char*>(hd + parts * 4 * Rt * ldh);
@@ -395,7 +487,8 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   __nv_bfloat16* p_lo = p_hi + Rt + 8;
   __nv_bfloat16* s_hi = reinterpret_cast<__nv_bfloat16*>(DP);  // [Rt, ldP] dS
   __nv_bfloat16* s_lo = s_hi + Rt + 8;
-  const long att = attn_scratch_bytes(Rt), rb = C::ST * b_stage_bytes<C::NT>(kF32);
+  const long att = attn_scratch_bytes(Rt),
+             rb = C::ST * ((kStream ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32));
   float* mk = reinterpret_cast<float*>(ring + (att > rb ? att : rb));  // [Rt] mask
   int* itm = reinterpret_cast<int*>(mk + Rt);                          // [Rt] item of a row
   float* hb = reinterpret_cast<float*>(itm + Rt);  // [3 dhp] the head's q|k|v biases
@@ -404,7 +497,7 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
   const long row0 = (long)item0 * L, ld3 = 3L * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  stage_tile<4>(x + row0 * D, D, nrows, D, Rt, D16, x_hi, x_lo, ldX, kF32);
+  if (!kStream) stage_tile<4>(x + row0 * D, D, nrows, D, Rt, D16, x_hi, x_lo, ldX, kF32);
   for (int r = tid; r < Rt; r += blockDim.x) {
     mk[r] = r < nrows ? mask[row0 + r] : 0.f;
     itm[r] = r / L;  // rows past the last item fall in items of their own
@@ -438,18 +531,24 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
     BOp b = wqkv;
     b.hi += h * 3 * dhp;
     if (kF32) b.lo += h * 3 * dhp;
-    tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
-        ASmem{x_hi, x_lo, ldX}, b, Rt, ring, [=](int r, int n, float a0, float a1) {
-          const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
-          float v0 = 0.f, v1 = 0.f;
-          if (d < dh) {
-            v0 = a0 + hb[n];
-            v1 = a1 + hb[n + 1];
-            if (seg == 0) { v0 *= scale; v1 *= scale; }
-          }
-          put(head_hi(seg), head_lo(seg), r * ldh + d, rnd<T>(v0), kF32);
-          put(head_hi(seg), head_lo(seg), r * ldh + d + 1, rnd<T>(v1), kF32);
-        });
+    auto qkv_epi = [=](int r, int n, float a0, float a1) {
+      const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
+      float v0 = 0.f, v1 = 0.f;
+      if (d < dh) {
+        v0 = a0 + hb[n];
+        v1 = a1 + hb[n + 1];
+        if (seg == 0) { v0 *= scale; v1 *= scale; }
+      }
+      put(head_hi(seg), head_lo(seg), r * ldh + d, rnd<T>(v0), kF32);
+      put(head_hi(seg), head_lo(seg), r * ldh + d + 1, rnd<T>(v1), kF32);
+    };
+    if constexpr (kStream)
+      tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
+          AStream{reinterpret_cast<const float*>(x) + row0 * D, D, nrows, D, Rt}, b, Rt, ring,
+          qkv_epi);
+    else
+      tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
+          ASmem{x_hi, x_lo, ldX}, b, Rt, ring, qkv_epi);
     // scores q k^T + penalty and dP = dO1 v^T over the tile, 16 x 32 units
     for (int u = warp; u < nm * nn; u += C::W) {
       const int m0 = u / nn * 16, n0 = u % nn * 32;
@@ -884,12 +983,21 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
   const BOp qkv_head{w_hi + wl.head, lo_of(wl.head), wl.ld_head, D, 3 * dhp, dhp, D / H};
 
   const bool wide = tile_rows(L) > kTileRows;
-  auto pool_kernel = wide ? pool_bwd_kernel<T, true> : pool_bwd_kernel<T, false>;
-  const int pool_smem = (int)pool_smem_bytes<kF32>(L, D, Q);
-  const int attn_smem = (int)attn_smem_bytes<kF32>(L, D, H), dx_smem = (int)dx_smem_bytes<kF32>();
+  const int var = bwd_variant<kF32>(L, D, H, Q);
+  auto pool_kernel = wide ? pool_bwd_kernel<T, true, false>
+                          : (var & kVarPoolBwd ? pool_bwd_kernel<T, false, true>
+                                               : pool_bwd_kernel<T, false, false>);
+  auto attn_kernel = attn_bwd_kernel<T, false>;
+  if constexpr (kF32)
+    if (var & kVarAttnBwd) attn_kernel = attn_bwd_kernel<T, true>;
+  const int pool_smem = (int)(var & kVarPoolBwd ? pool_smem_bytes_of<kF32, false, true>(L, D, Q)
+                                                : pool_smem_bytes<kF32>(L, D, Q));
+  const int attn_smem = (int)(var & kVarAttnBwd ? attn_smem_bytes<kF32, true>(L, D, H)
+                                                : attn_smem_bytes<kF32>(L, D, H));
+  const int dx_smem = (int)dx_smem_bytes<kF32>();
   if ((err = cudaFuncSetAttribute(pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   pool_smem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   attn_smem)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   dx_smem)) != cudaSuccess)
@@ -902,7 +1010,7 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
       static_cast<float*>(dpre_s), static_cast<float*>(do2_s), static_cast<float*>(ds_s),
       static_cast<T*>(do1_s), M, L, D, Q, seed, block_rows, threshold, keep_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_kernel<T><<<tiles, 32 * Cfg<kF32>::Attn::W, attn_smem, stream>>>(
+  attn_kernel<<<tiles, 32 * Cfg<kF32>::Attn::W, attn_smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(mask), qkv_head,
       static_cast<const T*>(bqkv), static_cast<const T*>(do1_s), static_cast<float*>(dqkv_s), M,
       L, D, H, scale);
@@ -979,14 +1087,16 @@ int newsrec_fused_encoder_bwd(int dtype, const void* g, const void* x, const voi
   return cudaErrorInvalidValue;
 }
 
-// the most shared memory one block of the backward's kernels needs (dtype
-// as for newsrec_fused_encoder_bwd)
+// the most shared memory one block of the backward's kernels needs, in the
+// variants they take at these shapes (dtype as for newsrec_fused_encoder_bwd)
 long newsrec_fused_encoder_bwd_smem_bytes(int dtype, int L, int D, int H, int Q) {
-  const bool f32 = dtype == 0;
-  const long p = f32 ? pool_smem_bytes<true>(L, D, Q) : pool_smem_bytes<false>(L, D, Q);
-  const long a = f32 ? attn_smem_bytes<true>(L, D, H) : attn_smem_bytes<false>(L, D, H);
-  const long d = f32 ? dx_smem_bytes<true>() : dx_smem_bytes<false>();
-  return p > a ? (p > d ? p : d) : (a > d ? a : d);
+  return dtype == 0 ? bwd_smem_bytes<true>(L, D, H, Q) : bwd_smem_bytes<false>(L, D, H, Q);
+}
+
+// the backward's wide variants at these shapes: kVarPoolBwd (4) and
+// kVarAttnBwd (8), as newsrec_fused_encoder_variant reports them
+int newsrec_fused_encoder_bwd_variant(int dtype, int L, int D, int H, int Q) {
+  return dtype == 0 ? bwd_variant<true>(L, D, H, Q) : bwd_variant<false>(L, D, H, Q);
 }
 
 // the tiles of pool_bwd and attn_bwd at item length L: whole items per

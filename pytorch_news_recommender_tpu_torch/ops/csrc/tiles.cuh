@@ -62,6 +62,23 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline int round8(int v) { return (v + 7) & ~7; }
 
+// The dynamic shared memory of one block on Hopper (bytes)
+constexpr long kMaxSmem = 232448;
+
+// The wide variants of the per-item kernels, one bit each. A kernel whose
+// layout does not fit kMaxSmem at the shapes (D = 800, Q = 400 in NAML's
+// user tower) takes its wide variant, for tiles of at most 64 rows; at
+// every shape where it fits it keeps its layout, launches and bits.
+//   kVarFwdAttn, kVarAttnBwd (f32 only): x is not held whole in shared
+//     memory but streamed through the weight ring (AStream), 64 columns a
+//     stage, and split into high and low parts in registers.
+//   kVarFwdTail, kVarPoolBwd: the f32 rows (o2; in pool_bwd also t, dpre,
+//     do2) live in device memory, not in shared memory. In bf16 the A
+//     operands that fit stay whole in shared memory, one part wide (o1,
+//     T(o2), and dpre's high and low parts), and do2 is streamed; in f32
+//     every A operand is streamed.
+enum : int { kVarFwdAttn = 1, kVarFwdTail = 2, kVarPoolBwd = 4, kVarAttnBwd = 8 };
+
 // The weights as the per-item kernels read them, written once per call
 // into `ws` (bf16: the weights, or for f32 weights their high parts, then
 // as many low parts): Wqkv with each head's q, k and v columns side by

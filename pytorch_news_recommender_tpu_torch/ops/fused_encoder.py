@@ -63,6 +63,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Hopper's shared-memory limit for one block (bytes)
 MAX_SMEM = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' wide variants (``newsrec_fused_encoder_variant``'s bits)
+VARIANTS = {"fwd_attn": 1, "fwd_tail": 2, "pool_bwd": 4, "attn_bwd": 8}
 _COUNT_LOCK = threading.Lock()  # serving threads launch concurrently
 
 
@@ -246,7 +248,7 @@ def _lib() -> ctypes.CDLL:
     p, i, u, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     dropout = [u, i, u, fl]  # seed, rows per block, threshold, keep scale
     lib.newsrec_fused_encoder_fwd.argtypes = (
-        [i] + [p] * 12 + [i] * 5 + [fl] + dropout + [p])
+        [i] + [p] * 13 + [i] * 5 + [fl] + dropout + [p])
     lib.newsrec_fused_encoder_bwd.argtypes = (
         [i] + [p] * 20 + [i] * 5 + [fl] + dropout + [p])
     lg = ctypes.c_long
@@ -265,6 +267,8 @@ def _lib() -> ctypes.CDLL:
                  "newsrec_fused_encoder_bwd_smem_bytes"):
         getattr(lib, name).argtypes = [i] * 5
         getattr(lib, name).restype = ctypes.c_long
+    lib.newsrec_fused_encoder_variant.argtypes = [i] * 5
+    lib.newsrec_fused_encoder_variant.restype = i
     lib.newsrec_segment_scatter.argtypes = [i, p, p, ctypes.c_long, i, i, p, p, p, p]
     lib.newsrec_segment_scatter.restype = i
     for name in ("newsrec_segment_scatter_ws_ints",
@@ -389,10 +393,15 @@ def fused_news_encoder(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
         return (out, o1) if save_o1 else out
     ws = _weight_scratch(lib.newsrec_fused_encoder_fwd_ws_elems, x.dtype, D, num_heads, Q,
                          x.device)
+    # the tail's wide variant keeps o2's f32 rows in device memory
+    wide = lib.newsrec_fused_encoder_variant(_DTYPE_CODE[x.dtype], L, D, num_heads, Q)
+    o2 = (torch.empty((M * L, D), dtype=torch.float32, device=x.device)
+          if wide & VARIANTS["fwd_tail"] else None)
     with torch.cuda.device(x.device):
         rc = lib.newsrec_fused_encoder_fwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
             *(t.data_ptr() for t in weights), out.data_ptr(), o1.data_ptr(), ws.data_ptr(),
+            None if o2 is None else o2.data_ptr(),
             M, L, D, num_heads, Q, 1.0 / math.sqrt(D // num_heads),
             *_dropout_args(seed, L, dropout_rate),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -441,6 +450,14 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
     if a is None:
         return out[0]
     return (out[:K], out[K]) if bias else out
+
+
+def variant(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> Tuple[str, ...]:
+    """The wide variants (names of :data:`VARIANTS`) that the kernels take
+    at these shapes, as the built library chooses them: none wherever each
+    kernel's layout fits one block (builds the library; needs ``nvcc``)."""
+    bits = _lib().newsrec_fused_encoder_variant(_DTYPE_CODE[dtype], L, D, H, Q)
+    return tuple(name for name, bit in VARIANTS.items() if bits & bit)
 
 
 def _tile(fn, L: int) -> Tuple[int, int]:

@@ -21,10 +21,10 @@ from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
 torch.set_num_threads(1)
 
 
-def _inputs(seed, M, L, D, Q, pads=()):
-    """Masked tokens with rows of 0..L real tokens, and weights, as numpy.
-    Item 0 and the items in ``pads`` are all pad, item 1 is full (one item
-    alone is full)."""
+def _inputs(seed, M, L, D, Q, pads=(), scales=None):
+    """Masked tokens with rows of 0..L real tokens, and weights (normal,
+    of standard deviation ``scales``), as numpy. Item 0 and the items in
+    ``pads`` are all pad, item 1 is full (one item alone is full)."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, L + 1, size=M)
     if M > 1:
@@ -35,9 +35,18 @@ def _inputs(seed, M, L, D, Q, pads=()):
     mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
     x = (rng.normal(size=(M, L, D)) * mask[..., None]).astype(np.float32)
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D, Q), (Q,), (Q,)]
-    scales = [0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1]
+    scales = scales or [0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1]
     w = [(rng.normal(size=s) * c).astype(np.float32) for s, c in zip(shapes, scales)]
     return x, mask, w, lens
+
+
+def init_scales(D, Q):
+    """The standard deviations of the encoder's own init at widths D, Q
+    (``AttentionPoolTower.reset_parameters``): Xavier-uniform matrices,
+    sqrt(2 / (fan_in + fan_out)); aq uniform on ±0.1; biases 0.01 (zero at
+    init, nonzero after training)."""
+    return [np.sqrt(2 / (4 * D)), 0.01, np.sqrt(2 / (2 * D)), 0.01, np.sqrt(2 / (D + Q)),
+            0.01, 0.1 / np.sqrt(3)]
 
 
 def _torch_plain(x, mask, w, H):
@@ -236,7 +245,11 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, M, L, D, H, Q, pads):
     """The pooled rows of items with a real token, and every row of ``o1``
     (pad rows included), held to the plain version; all-pad items pool to
     exactly 0; one wrapper launch per call."""
-    x, mask, w, lens = _inputs(4, M, L, D, Q, pads)
+    _kernel_matches_plain(cuda_device, dtype, M, L, D, H, Q, pads)
+
+
+def _kernel_matches_plain(cuda_device, dtype, M, L, D, H, Q, pads, scales=None):
+    x, mask, w, lens = _inputs(4, M, L, D, Q, pads, scales)
     t = [torch.from_numpy(a).to(cuda_device) for a in (x, mask, *w)]
     args = [t[0].to(dtype), t[1], *(a.to(dtype) for a in t[2:])]
     before = FE.fused_news_encoder.launches
@@ -303,3 +316,97 @@ def test_forward_takes_every_length_up_to_80_at_the_model_widths_on_card(cuda_de
 def test_tile_geometry_is_the_kernels_on_card(cuda_device, L):
     """The CPU tiling test's model of the tiles is the built kernels'."""
     assert FE.fwd_tile(L) == _tile_geometry(L)
+
+
+# NAML's user tower: L=50, D=800, 10 heads (dh=80), Q=400
+NAML_USER = (50, 800, 10, 400)
+# the library's shared-memory need there, the sums of the layouts of the
+# variants it takes (the headers of csrc/fused_encoder.cu and
+# csrc/fused_encoder_bwd.cu): bf16 forward = fwd_tail's wide variant (o1's
+# tile 103,424 + terms 51,200 + ring 55,296 + 7,168), backward = pool_bwd's
+# (dpre's tiles 104,448 + ring with do2's stages 110,592 + 7,680); f32
+# forward = fwd_attn with x streamed (heads 67,584 + ring 92,160 + 1,728),
+# backward = dx's ring (221,184)
+NAML_SMEM = {torch.bfloat16: (217_088, 222_720), torch.float32: (161_472, 221_184)}
+
+
+@pytest.mark.parametrize("dtype,wide", [
+    (torch.bfloat16, ("fwd_tail", "pool_bwd")), (torch.float32, tuple(FE.VARIANTS))])
+def test_variant_chooser_widens_only_where_the_layout_does_not_fit_on_card(
+        cuda_device, dtype, wide):
+    """At NRMS's widths every kernel keeps its layout (no wide variant); at
+    NAML's user tower the kernels whose layout does not fit one block take
+    their wide variant, and the library's need is then within one block."""
+    for L in (1, 12, 20, 40, 50, 64, 65, 80):
+        assert FE.variant(dtype, L, 300, 10, 200) == (), L
+    assert FE.variant(dtype, *NAML_USER) == wide
+    lib, code = FE._lib(), FE._DTYPE_CODE[dtype]
+    need = (lib.newsrec_fused_encoder_smem_bytes(code, *NAML_USER),
+            lib.newsrec_fused_encoder_bwd_smem_bytes(code, *NAML_USER))
+    assert need == NAML_SMEM[dtype] and max(need) <= FE.MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,L,pads", [(1, 50, ()), (5, 50, (2,)), (7, 20, (4,))])
+def test_kernel_matches_plain_at_naml_user_tower_on_card(cuda_device, dtype, M, L, pads):
+    """NAML's user tower (D=800, 10 heads of 80, Q=400) in the kernels' wide
+    variants, one user, a few, and items of 20 rows three to a tile, with
+    weights at the tower's own init scale (at D=800 the D=300 test scales
+    put the bf16 rounding-point differences between the kernel and the
+    plain chain alone past the tolerance:
+    ``test_bf16_rounding_points_alone_set_the_d800_input_scale``); the
+    checks and tolerances of ``test_kernel_matches_plain_on_card``."""
+    D, H, Q = 800, 10, 400
+    _kernel_matches_plain(cuda_device, dtype, M, L, D, H, Q, pads, init_scales(D, Q))
+
+
+def _kernel_rounding_forward(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *, num_heads,
+                             dropout_rate=0.0, seed=0):
+    """The Hopper forward's arithmetic in float32 on the CPU, rounding to
+    ``x``'s dtype where the kernel does (csrc/fused_encoder.cu's head): q
+    (scaled), k, v once after the bias, e before the v product, o1, T(o2)
+    for the logit; o2 and the pooled sum in float32."""
+    T, f = x.dtype, (lambda t: t.float())
+    M, L, D = x.shape
+    dh = D // num_heads
+    qkv = f(x) @ f(wqkv) + f(bqkv)
+    q = (qkv[..., :D] / np.sqrt(dh)).to(T).float()
+    k, v = qkv[..., D:2 * D].to(T).float(), qkv[..., 2 * D:].to(T).float()
+    heads = lambda t: t.reshape(M, L, num_heads, dh).transpose(1, 2)  # noqa: E731
+    m = f(mask)
+    s = heads(q) @ heads(k).transpose(-1, -2)
+    s = s + (m[:, None, :, None] * m[:, None, None, :] - 1.0) * 1e9
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o1 = (e.to(T).float() @ heads(v)) / e.sum(-1, keepdim=True)
+    o2 = o1.to(T).float().transpose(1, 2).reshape(M, L, D) @ f(wo) + f(bo)
+    if dropout_rate > 0.0:
+        keep = FE.dropout_keep(seed, M, L, D, dropout_rate)
+        o2 = torch.where(keep, o2 / (1.0 - dropout_rate), 0.0)
+    logit = torch.tanh(o2.to(T).float() @ f(aw) + f(ab)) @ f(aq)
+    w = torch.where(m > 0, torch.exp(logit - torch.where(m > 0, logit, -1e9).amax(
+        -1, keepdim=True)), 0.0)
+    return ((w[..., None] * o2).sum(1) / w.sum(-1, keepdim=True).clamp_min(1e-30)).to(T)
+
+
+def test_bf16_rounding_points_alone_set_the_d800_input_scale():
+    """Why NAML's user-tower checks draw weights at the tower's init scale:
+    with the D=300 test scales (0.05) at D=800, the kernel's rounding points
+    (``_kernel_rounding_forward``, f32 on the CPU) and the plain chain's
+    differ by more than the card tests' bf16 tolerance on some pooled
+    element, with no kernel in play; at the init scale they stay within it.
+    At D=300 the test scales stay within it too. The shape is one of
+    ``test_kernel_matches_plain_at_naml_user_tower_on_card``'s."""
+    M, L, pads = 7, 20, (4,)
+
+    def excess(D, Q, scales):
+        x, mask, w, lens = _inputs(4, M, L, D, Q, pads, scales)
+        t = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, *w)]
+        args = [t[0], torch.from_numpy(mask), *t[1:]]
+        plain = FE.fused_news_encoder_reference(*args, num_heads=10).float()
+        emul = _kernel_rounding_forward(*args, num_heads=10).float()
+        valid = torch.from_numpy(lens > 0)
+        tol = TOLS[torch.bfloat16]
+        return float(((emul - plain).abs() - tol - tol * plain.abs())[valid].max())
+    assert excess(800, 400, None) > 0
+    assert excess(800, 400, init_scales(800, 400)) < 0
+    assert excess(300, 200, None) < 0

@@ -17,14 +17,15 @@ import pytest
 import torch
 
 from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from test_torch_fused_encoder import init_scales
 
 torch.set_num_threads(1)
 
 
-def _inputs(seed, M, L, D, Q, pads=()):
-    """Masked tokens with rows of 0..L real tokens, weights and a pooled
-    cotangent, as numpy float32. Item 0 and the items in ``pads`` are all
-    pad, item 1 is full."""
+def _inputs(seed, M, L, D, Q, pads=(), scales=None):
+    """Masked tokens with rows of 0..L real tokens, weights (normal, of
+    standard deviation ``scales``) and a pooled cotangent, as numpy float32.
+    Item 0 and the items in ``pads`` are all pad, item 1 is full."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, L + 1, size=M)
     lens[0], lens[1] = 0, L
@@ -34,7 +35,7 @@ def _inputs(seed, M, L, D, Q, pads=()):
     shapes = [(D, 3 * D), (3 * D,), (D, D), (D,), (D, Q), (Q,), (Q,)]
     # aw and ab large enough that the pooling tanh bends: the bias gradient
     # dab = -aq sum_l ds_l t_l^2 (sum_l ds_l = 0) is otherwise all rounding
-    scales = [0.05, 0.01, 0.05, 0.01, 0.3, 0.5, 0.1]
+    scales = scales or [0.05, 0.01, 0.05, 0.01, 0.3, 0.5, 0.1]
     w = [(rng.normal(size=s) * c).astype(np.float32) for s, c in zip(shapes, scales)]
     g = rng.normal(size=(M, D)).astype(np.float32)
     return x, mask, w, g, lens
@@ -304,7 +305,11 @@ TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
     # past one tile at the model's widths: pool_bwd's narrower weight tiles
     (4, 66, 300, 10, 200, (2,))])
 def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D, H, Q, pads):
-    x, mask, w, g, _ = _inputs(6, M, L, D, Q, pads)
+    _backward_matches_plain(cuda_device, dtype, rate, M, L, D, H, Q, pads)
+
+
+def _backward_matches_plain(cuda_device, dtype, rate, M, L, D, H, Q, pads, scales=None):
+    x, mask, w, g, _ = _inputs(6, M, L, D, Q, pads, scales)
     t = _t([x, mask, *w, g], cuda_device)
     x_, mask_, w_, g_ = t[0].to(dtype), t[1], [a.to(dtype) for a in t[2:9]], t[9]
     out, o1 = FE.fused_news_encoder(x_, mask_, *w_, num_heads=H, dropout_rate=rate,
@@ -322,6 +327,23 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, rate, M, L, D
         assert _rel(a.float().cpu(), b.float().cpu()) < TOLS[dtype]
     for i in (0, *pads):
         assert torch.all(got[0][i] == 0), "an all-pad item gets zero dx"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("M,L,pads", [(5, 50, (2,)), (7, 20, (4,))])
+def test_backward_matches_plain_at_naml_user_tower_on_card(cuda_device, dtype, rate, M, L,
+                                                           pads):
+    """NAML's user tower (D=800, 10 heads of 80, Q=400) in the wide
+    variants, and items of 20 rows three to a tile there, with weights at
+    the tower's own init scale (``init_scales``; at D=800 larger scales put
+    the bf16 rounding-point differences between the kernel and the plain
+    chain alone past the tolerance, as
+    ``test_bf16_rounding_points_alone_set_the_d800_input_scale`` shows for
+    the forward); the checks and tolerances of
+    ``test_backward_kernel_matches_plain_on_card``."""
+    D, H, Q = 800, 10, 400
+    _backward_matches_plain(cuda_device, dtype, rate, M, L, D, H, Q, pads, init_scales(D, Q))
 
 
 @pytest.mark.parametrize("L", [1, 7, 12, 20, 33, 50, 64, 65, 70, 80])
@@ -392,6 +414,10 @@ def test_cuda_call_under_autograd_has_grad_fn_and_plain_gradients(cuda_device):
 # width N, a's dtype in bf16 training, bias): dWqkv, dWo, daw, daq
 WGRAD_PRODUCTS = [(300, 900, torch.bfloat16, True), (300, 300, torch.bfloat16, True),
                   (300, 200, torch.float32, True), (200, 1, torch.float32, False)]
+# the same at NAML's user tower (D=800, Q=400): K+1 = 801 spans three of
+# the kernel's 320-row output tiles
+WGRAD_NAML = [(800, 2400, torch.bfloat16, True), (800, 800, torch.bfloat16, True),
+              (800, 400, torch.float32, True), (400, 1, torch.float32, False)]
 # small widths: a bf16 row of K=6 (12 bytes) takes 4-byte copies, K=4
 # 8-byte ones; b's rows of N=10 and 8 take 8- and 16-byte copies
 WGRAD_SMALL = [(6, 10, torch.bfloat16), (4, 8, torch.bfloat16)]
@@ -407,7 +433,8 @@ def _wgrad_err(got, expect):
 
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("a_dtype", ["table", torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,N,dtype", [p[:3] for p in WGRAD_PRODUCTS] + WGRAD_SMALL)
+@pytest.mark.parametrize("K,N,dtype", [p[:3] for p in WGRAD_PRODUCTS + WGRAD_NAML]
+                         + WGRAD_SMALL)
 @pytest.mark.parametrize("R", [25_600, 5_003, 37, 0])
 def test_weight_grad_kernel_matches_plain_on_card(cuda_device, R, K, N, dtype, a_dtype, bias):
     """Every product of the backward, and two small widths, at the user
@@ -456,7 +483,7 @@ def test_weight_grad_keeps_f32_accuracy_over_a_wide_range_on_card(cuda_device, d
     assert _wgrad_err(one_pass, expect) > 1e-4
 
 
-@pytest.mark.parametrize("K,N,dtype,bias", WGRAD_PRODUCTS)
+@pytest.mark.parametrize("K,N,dtype,bias", WGRAD_PRODUCTS + WGRAD_NAML)
 def test_weight_grad_launches_are_bit_equal_on_card(cuda_device, K, N, dtype, bias):
     R = 5_003
     rng = np.random.default_rng(K * N)
@@ -479,3 +506,21 @@ def test_backward_launches_four_weight_gradients_on_card(cuda_device):
     FE.fused_news_encoder_bwd(t[9], t[0], t[1], o1, *t[2:9], num_heads=H)
     assert (FE.fused_news_encoder_bwd.launches, FE.weight_grad.launches) == (
         before[0] + 1, before[1] + 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_variants_are_bit_equal_on_card(cuda_device, dtype):
+    """NAML's user tower in the wide variants: repeat forward calls (with
+    dropout) and repeat backward calls give the same bits."""
+    M, L, D, H, Q = 5, 50, 800, 10, 400
+    x, mask, w, g, _ = _inputs(9, M, L, D, Q, (3,))
+    t = _t([x, mask, *w, g], cuda_device)
+    x_, w_ = t[0].to(dtype), [a.to(dtype) for a in t[2:9]]
+    fwd = lambda: FE.fused_news_encoder(x_, t[1], *w_, num_heads=H,  # noqa: E731
+                                        dropout_rate=0.2, seed=5, save_o1=True)
+    out, o1 = fwd()
+    assert all(torch.equal(a, b) for a, b in zip((out, o1), fwd()))
+    bwd = lambda: FE.fused_news_encoder_bwd(t[9], x_, t[1], o1, *w_,  # noqa: E731
+                                            num_heads=H, dropout_rate=0.2, seed=5)
+    first = bwd()
+    assert all(torch.equal(a, b) for a, b in zip(first, bwd()))
