@@ -206,6 +206,16 @@ class AttentionPoolTower(nn.Module):
             _draw(b, torch.zeros_like)
         _draw(self.aq, lambda t: t.uniform_(-0.1, 0.1, generator=generator))
 
+    @staticmethod
+    def init_scales(D: int, Q: int) -> list:
+        """The standard deviations of :meth:`reset_parameters`'s draws at
+        widths ``D``, ``Q``, in the order wqkv, bqkv, wo, bo, aw, ab, aq:
+        Xavier-uniform matrices, sqrt(2 / (fan_in + fan_out)), and aq uniform
+        on ±0.1. The biases start at 0; 0.01 stands for them, a trained
+        bias's scale, so that weights drawn at these scales exercise them."""
+        return [math.sqrt(2 / (4 * D)), 0.01, math.sqrt(2 / (2 * D)), 0.01,
+                math.sqrt(2 / (D + Q)), 0.01, 0.1 / math.sqrt(3)]
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 dropout_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -13,10 +13,11 @@ tower over LayerNorm-ed clicked-news vectors (port of the JAX package's
   mask drawn on the vectors' device from a seed of the step's
   ``torch.Generator``: another stream than the JAX package's ``make_rng``,
   as for the kernel's dropout);
-* user tower: ``norm`` over the clicked-news vectors, then the fused
-  encoder at the news width (10 heads of 80, query dim 400), history pads
-  masked; the corpus cache holds un-normed vectors, as in the JAX two-tower
-  path;
+* user tower: the fused encoder at the news width (10 heads of 80, query
+  dim 400), history pads masked; ``score_impression`` runs it over the
+  ``norm``-ed clicked-news vectors, ``top_k`` (``encode_user``) over the
+  cached vectors as they are, as the JAX package's serving does (ROADMAP C);
+  the corpus cache holds un-normed vectors, as in the JAX two-tower path;
 * dot-product scoring, padded candidates at -1e9.
 
 Every encoder call (title, abstract, user) goes through the fused encoder
@@ -69,9 +70,11 @@ class NAML(RecModel):
         return self.text_tower(self.word_embedding(ids, mask), mask)
 
     def encode_user(self, browsed_vecs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """``[B, H, D]`` clicked-news vectors (un-normed, as the corpus cache
-        holds them) -> ``[B, D]`` user vector."""
-        return self.user_encoder(self.norm(browsed_vecs), mask)
+        """``[B, H, D]`` clicked-news vectors -> ``[B, D]`` user vector, by
+        the user tower alone: ``norm`` is applied by ``score_impression``
+        only, so ``top_k`` ranks with the un-normed cached vectors, as the
+        JAX package's ``top_k`` does (``user_encoder``, ROADMAP C)."""
+        return self.user_encoder(browsed_vecs, mask)
 
     def encode_news_feats(self, feats: Batch, deterministic: bool = True,
                           generator: Optional[torch.Generator] = None
@@ -93,5 +96,5 @@ class NAML(RecModel):
     def score_impression(self, batch, browsed_ids, cand_ids, browsed_vecs,
                          cand_vecs, news_feats=None,
                          deterministic: bool = True) -> torch.Tensor:
-        user_vec = self.encode_user(browsed_vecs, (browsed_ids != 0).float())
+        user_vec = self.encode_user(self.norm(browsed_vecs), (browsed_ids != 0).float())
         return dot_product_scores(user_vec, cand_vecs, cand_ids != 0)

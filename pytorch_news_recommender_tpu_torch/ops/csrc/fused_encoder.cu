@@ -608,9 +608,9 @@ int newsrec_fused_encoder_bwd_variant(int dtype, int L, int D, int H, int Q);
 // float32. o1 [M, L, D] is always written (the caller's scratch when it
 // does not want the residual). ws: room for
 // newsrec_fused_encoder_fwd_ws_elems(D, H, Q) bfloat16 values, twice that
-// for float32 (the weights as the kernels read them). o2: float32 scratch
-// [M * L, D] where newsrec_fused_encoder_variant has kVarFwdTail (2), else
-// unused and may be null. Dropout: seed, token
+// for float32 (the weights as the kernels read them). o2: float32 scratch of
+// newsrec_fused_encoder_fwd_o2_elems(...) values; where that is 0, unused
+// and may be null. Dropout: seed, token
 // rows per hash block, threshold = rate * 2^32, keep_scale = 1 / (1 - rate);
 // threshold 0 and keep_scale 1 mean no dropout. Needs Q % 2 == 0 and an
 // even head width. All operands contiguous on one device, 16-byte aligned.
@@ -638,11 +638,24 @@ long newsrec_fused_encoder_smem_bytes(int dtype, int L, int D, int H, int Q) {
 }
 
 // the wide variants the forward's and the backward's kernels take at these
-// shapes: kVarFwdAttn 1, kVarFwdTail 2, kVarPoolBwd 4, kVarAttnBwd 8 (0 at
-// every shape where each kernel's layout fits one block)
+// shapes, as tiles.cuh's kVar* bits (0 at every shape where each kernel's
+// layout fits one block)
 int newsrec_fused_encoder_variant(int dtype, int L, int D, int H, int Q) {
   const int f = dtype == 0 ? fwd_variant<true>(L, D, H, Q) : fwd_variant<false>(L, D, H, Q);
   return f | newsrec_fused_encoder_bwd_variant(dtype, L, D, H, Q);
+}
+
+// the name of the wide variant of bit 1 << i, null past the last
+const char* newsrec_fused_encoder_variant_name(int i) {
+  constexpr int n = sizeof(kVarNames) / sizeof(kVarNames[0]);
+  return i >= 0 && i < n ? kVarNames[i] : nullptr;
+}
+
+// float32 values of the forward's o2 scratch at these shapes: [M * L, D]
+// where the tail takes its wide variant (kVarFwdTail), else 0
+long newsrec_fused_encoder_fwd_o2_elems(int dtype, long M, int L, int D, int H, int Q) {
+  const int f = dtype == 0 ? fwd_variant<true>(L, D, H, Q) : fwd_variant<false>(L, D, H, Q);
+  return f & kVarFwdTail ? M * L * D : 0;
 }
 
 // the forward's tiles at item length L: whole items per block, and the

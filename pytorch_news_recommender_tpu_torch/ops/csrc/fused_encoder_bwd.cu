@@ -1093,8 +1093,8 @@ long newsrec_fused_encoder_bwd_smem_bytes(int dtype, int L, int D, int H, int Q)
   return dtype == 0 ? bwd_smem_bytes<true>(L, D, H, Q) : bwd_smem_bytes<false>(L, D, H, Q);
 }
 
-// the backward's wide variants at these shapes: kVarPoolBwd (4) and
-// kVarAttnBwd (8), as newsrec_fused_encoder_variant reports them
+// the backward's wide variants at these shapes (kVarPoolBwd, kVarAttnBwd),
+// as newsrec_fused_encoder_variant reports them
 int newsrec_fused_encoder_bwd_variant(int dtype, int L, int D, int H, int Q) {
   return dtype == 0 ? bwd_variant<true>(L, D, H, Q) : bwd_variant<false>(L, D, H, Q);
 }

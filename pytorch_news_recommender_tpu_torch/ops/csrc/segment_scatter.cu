@@ -291,14 +291,20 @@ cudaError_t launch(const int* idx, const T* g, long S, int D, int U, int* ws, fl
   int* perm = rs + U + 1;
   int* key = perm + S;
   cudaError_t err = cudaSuccess;
-  ss_count_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // with no source there is no chunk to count or place (a grid of 0 blocks
+  // is an invalid launch); the scans then give every row an empty range
+  if (C > 0) {
+    ss_count_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   ss_column_scan_kernel<<<(U + 255) / 256, 256, 0, stream>>>(cnt, C, U, rs);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ss_row_scan_kernel<<<1, kScanThreads, 0, stream>>>(rs, U);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ss_place_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt, rs, perm, key);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (C > 0) {
+    ss_place_kernel<<<(unsigned)C, kChunk, 0, stream>>>(idx, S, U, cnt, rs, perm, key);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
   // at least one block, which writes the empty rows when there is no source
   const long blocks = J > 0 ? J : 1;
   const int threads = ((D + 1) / 2 + 31) / 32 * 32;

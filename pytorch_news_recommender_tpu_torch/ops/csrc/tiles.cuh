@@ -78,6 +78,8 @@ constexpr long kMaxSmem = 232448;
 //     T(o2), and dpre's high and low parts), and do2 is streamed; in f32
 //     every A operand is streamed.
 enum : int { kVarFwdAttn = 1, kVarFwdTail = 2, kVarPoolBwd = 4, kVarAttnBwd = 8 };
+// their names, bit i's at [i] (newsrec_fused_encoder_variant_name)
+constexpr const char* kVarNames[] = {"fwd_attn", "fwd_tail", "pool_bwd", "attn_bwd"};
 
 // The weights as the per-item kernels read them, written once per call
 // into `ws` (bf16: the weights, or for f32 weights their high parts, then

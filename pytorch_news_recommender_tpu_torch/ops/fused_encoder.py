@@ -63,8 +63,6 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Hopper's shared-memory limit for one block (bytes)
 MAX_SMEM = 232_448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' wide variants (``newsrec_fused_encoder_variant``'s bits)
-VARIANTS = {"fwd_attn": 1, "fwd_tail": 2, "pool_bwd": 4, "attn_bwd": 8}
 _COUNT_LOCK = threading.Lock()  # serving threads launch concurrently
 
 
@@ -269,6 +267,10 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_long
     lib.newsrec_fused_encoder_variant.argtypes = [i] * 5
     lib.newsrec_fused_encoder_variant.restype = i
+    lib.newsrec_fused_encoder_variant_name.argtypes = [i]
+    lib.newsrec_fused_encoder_variant_name.restype = ctypes.c_char_p
+    lib.newsrec_fused_encoder_fwd_o2_elems.argtypes = [i, lg, i, i, i, i]
+    lib.newsrec_fused_encoder_fwd_o2_elems.restype = lg
     lib.newsrec_segment_scatter.argtypes = [i, p, p, ctypes.c_long, i, i, p, p, p, p]
     lib.newsrec_segment_scatter.restype = i
     for name in ("newsrec_segment_scatter_ws_ints",
@@ -394,9 +396,9 @@ def fused_news_encoder(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
     ws = _weight_scratch(lib.newsrec_fused_encoder_fwd_ws_elems, x.dtype, D, num_heads, Q,
                          x.device)
     # the tail's wide variant keeps o2's f32 rows in device memory
-    wide = lib.newsrec_fused_encoder_variant(_DTYPE_CODE[x.dtype], L, D, num_heads, Q)
-    o2 = (torch.empty((M * L, D), dtype=torch.float32, device=x.device)
-          if wide & VARIANTS["fwd_tail"] else None)
+    o2_elems = lib.newsrec_fused_encoder_fwd_o2_elems(_DTYPE_CODE[x.dtype], M, L, D,
+                                                      num_heads, Q)
+    o2 = torch.empty(o2_elems, dtype=torch.float32, device=x.device) if o2_elems else None
     with torch.cuda.device(x.device):
         rc = lib.newsrec_fused_encoder_fwd(
             _DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
@@ -453,11 +455,18 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
 
 
 def variant(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> Tuple[str, ...]:
-    """The wide variants (names of :data:`VARIANTS`) that the kernels take
-    at these shapes, as the built library chooses them: none wherever each
-    kernel's layout fits one block (builds the library; needs ``nvcc``)."""
-    bits = _lib().newsrec_fused_encoder_variant(_DTYPE_CODE[dtype], L, D, H, Q)
-    return tuple(name for name, bit in VARIANTS.items() if bits & bit)
+    """The names of the wide variants that the kernels take at these
+    shapes, as the built library chooses and names them (``tiles.cuh``'s
+    ``kVar*``): none wherever each kernel's layout fits one block (builds
+    the library; needs ``nvcc``)."""
+    lib = _lib()
+    bits = lib.newsrec_fused_encoder_variant(_DTYPE_CODE[dtype], L, D, H, Q)
+    names, i = [], 0
+    while (name := lib.newsrec_fused_encoder_variant_name(i)) is not None:
+        if bits >> i & 1:
+            names.append(name.decode())
+        i += 1
+    return tuple(names)
 
 
 def _tile(fn, L: int) -> Tuple[int, int]:

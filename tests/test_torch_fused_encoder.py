@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_news_recommender_tpu_torch.models.layers import AttentionPoolTower
 from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
 
 torch.set_num_threads(1)
@@ -38,15 +39,6 @@ def _inputs(seed, M, L, D, Q, pads=(), scales=None):
     scales = scales or [0.05, 0.01, 0.05, 0.01, 0.05, 0.01, 0.1]
     w = [(rng.normal(size=s) * c).astype(np.float32) for s, c in zip(shapes, scales)]
     return x, mask, w, lens
-
-
-def init_scales(D, Q):
-    """The standard deviations of the encoder's own init at widths D, Q
-    (``AttentionPoolTower.reset_parameters``): Xavier-uniform matrices,
-    sqrt(2 / (fan_in + fan_out)); aq uniform on ±0.1; biases 0.01 (zero at
-    init, nonzero after training)."""
-    return [np.sqrt(2 / (4 * D)), 0.01, np.sqrt(2 / (2 * D)), 0.01, np.sqrt(2 / (D + Q)),
-            0.01, 0.1 / np.sqrt(3)]
 
 
 def _torch_plain(x, mask, w, H):
@@ -331,16 +323,21 @@ NAML_SMEM = {torch.bfloat16: (217_088, 222_720), torch.float32: (161_472, 221_18
 
 
 @pytest.mark.parametrize("dtype,wide", [
-    (torch.bfloat16, ("fwd_tail", "pool_bwd")), (torch.float32, tuple(FE.VARIANTS))])
+    (torch.bfloat16, ("fwd_tail", "pool_bwd")),
+    (torch.float32, ("fwd_attn", "fwd_tail", "pool_bwd", "attn_bwd"))])
 def test_variant_chooser_widens_only_where_the_layout_does_not_fit_on_card(
         cuda_device, dtype, wide):
-    """At NRMS's widths every kernel keeps its layout (no wide variant); at
-    NAML's user tower the kernels whose layout does not fit one block take
-    their wide variant, and the library's need is then within one block."""
+    """At NRMS's widths every kernel keeps its layout (no wide variant, no
+    o2 scratch); at NAML's user tower the kernels whose layout does not fit
+    one block take their wide variant, the forward asks for its [M * L, D]
+    o2 scratch, and the library's need is then within one block."""
+    lib, code = FE._lib(), FE._DTYPE_CODE[dtype]
     for L in (1, 12, 20, 40, 50, 64, 65, 80):
         assert FE.variant(dtype, L, 300, 10, 200) == (), L
+        assert lib.newsrec_fused_encoder_fwd_o2_elems(code, 7, L, 300, 10, 200) == 0, L
     assert FE.variant(dtype, *NAML_USER) == wide
-    lib, code = FE._lib(), FE._DTYPE_CODE[dtype]
+    L, D = NAML_USER[:2]
+    assert lib.newsrec_fused_encoder_fwd_o2_elems(code, 7, *NAML_USER) == 7 * L * D
     need = (lib.newsrec_fused_encoder_smem_bytes(code, *NAML_USER),
             lib.newsrec_fused_encoder_bwd_smem_bytes(code, *NAML_USER))
     assert need == NAML_SMEM[dtype] and max(need) <= FE.MAX_SMEM
@@ -357,7 +354,8 @@ def test_kernel_matches_plain_at_naml_user_tower_on_card(cuda_device, dtype, M, 
     ``test_bf16_rounding_points_alone_set_the_d800_input_scale``); the
     checks and tolerances of ``test_kernel_matches_plain_on_card``."""
     D, H, Q = 800, 10, 400
-    _kernel_matches_plain(cuda_device, dtype, M, L, D, H, Q, pads, init_scales(D, Q))
+    _kernel_matches_plain(cuda_device, dtype, M, L, D, H, Q, pads,
+                          AttentionPoolTower.init_scales(D, Q))
 
 
 def _kernel_rounding_forward(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *, num_heads,
@@ -408,5 +406,5 @@ def test_bf16_rounding_points_alone_set_the_d800_input_scale():
         tol = TOLS[torch.bfloat16]
         return float(((emul - plain).abs() - tol - tol * plain.abs())[valid].max())
     assert excess(800, 400, None) > 0
-    assert excess(800, 400, init_scales(800, 400)) < 0
+    assert excess(800, 400, AttentionPoolTower.init_scales(800, 400)) < 0
     assert excess(300, 200, None) < 0

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_news_recommender_tpu_torch.models.layers import AttentionPoolTower
 from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
-from test_torch_fused_encoder import init_scales
 
 torch.set_num_threads(1)
 
@@ -336,14 +336,15 @@ def test_backward_matches_plain_at_naml_user_tower_on_card(cuda_device, dtype, r
                                                            pads):
     """NAML's user tower (D=800, 10 heads of 80, Q=400) in the wide
     variants, and items of 20 rows three to a tile there, with weights at
-    the tower's own init scale (``init_scales``; at D=800 larger scales put
-    the bf16 rounding-point differences between the kernel and the plain
-    chain alone past the tolerance, as
+    the tower's own init scale (``AttentionPoolTower.init_scales``; at D=800
+    larger scales put the bf16 rounding-point differences between the
+    kernel and the plain chain alone past the tolerance, as
     ``test_bf16_rounding_points_alone_set_the_d800_input_scale`` shows for
     the forward); the checks and tolerances of
     ``test_backward_kernel_matches_plain_on_card``."""
     D, H, Q = 800, 10, 400
-    _backward_matches_plain(cuda_device, dtype, rate, M, L, D, H, Q, pads, init_scales(D, Q))
+    _backward_matches_plain(cuda_device, dtype, rate, M, L, D, H, Q, pads,
+                            AttentionPoolTower.init_scales(D, Q))
 
 
 @pytest.mark.parametrize("L", [1, 7, 12, 20, 33, 50, 64, 65, 70, 80])
