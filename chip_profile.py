@@ -1,6 +1,7 @@
 """Where the port's training step spends its time, on one NVIDIA card.
 
-    python3 chip_profile.py [--dedup-gather-mxu] [--model nrms_entity|tanr|hierec|naml]
+    python3 chip_profile.py [--dedup-gather-mxu]
+        [--model nrms_entity|tanr|hierec|naml|nrms_bert|disan|lstur]
 
 Trains NRMS at the configuration of ``chip_smoke.py``'s training phase
 (the JAX package's defaults: D=300, 10 heads, Q=200, batch 512, bf16,
@@ -12,9 +13,11 @@ of the weight gradients, of the segment scatter and every memset, with
 launches and time per launch), and the device's busy and idle shares of the
 wall time. ``--dedup-gather-mxu`` profiles the step
 whose inverse gathers' backward is the segment-scatter kernel; ``--model``
-another family than NRMS, on the corpus of ``chip_smoke.py``'s phases 9-12
+another family than NRMS, on the corpus of ``chip_smoke.py``'s phases 9-15
 (entities, 18 categories, 294 subcategories; for ``naml`` the abstracts of
-phase 12). Needs a CUDA card; prints nothing else.
+phase 12; for ``nrms_bert``, ``disan`` and ``lstur`` the BERT vectors and
+users of phases 13-15, with their model fields). Needs a CUDA card; prints
+nothing else.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ def group_of(name: str) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dedup-gather-mxu", action="store_true")
-    parser.add_argument("--model", default="nrms", choices=("nrms",) + CS.FAMILIES + ("naml",))
+    parser.add_argument("--model", default="nrms",
+                        choices=("nrms",) + CS.FAMILIES + ("naml",) + tuple(CS.NEW_FAMILIES))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card",
@@ -83,10 +87,13 @@ def main() -> int:
         ds = synthetic.generate(cfg.data, seed=1, n_news=CS.N_NEWS, vocab_size=CS.VOCAB,
                                 n_train=(WARMUP + STEPS) * cfg.train.batch_size, n_dev=64,
                                 title_len=(11.5, 4))
+    elif args.model in CS.NEW_FAMILIES:
+        cfg, ds = CS.family_data(bert_dim=CS.BERT_DIM, n_users=CS.N_USERS)
     else:
         cfg, ds = CS.family_data(CS.NAML_ABST_LEN if args.model == "naml" else None)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, name=args.model, dedup_gather_mxu=args.dedup_gather_mxu))
+        cfg.model, name=args.model, dedup_gather_mxu=args.dedup_gather_mxu,
+        **CS.NEW_FAMILIES.get(args.model, {})))
     bs = cfg.train.batch_size
     trainer = Trainer(cfg, ds, device="cuda")
     state = trainer.init_state(seed=0)

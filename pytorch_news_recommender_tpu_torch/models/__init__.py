@@ -1,31 +1,40 @@
 """Model registry. The port has the ``nrms``, ``nrms_entity``, ``tanr``,
-``hierec`` and ``naml`` families so far; the JAX package's other families
-are listed in ``ROADMAP.md`` as still to port."""
+``hierec``, ``naml``, ``nrms_bert``, ``disan`` and ``lstur`` families so far;
+the JAX package's other families are listed in ``ROADMAP.md`` as still to
+port."""
 
 from __future__ import annotations
 
+from typing import Mapping, Optional, Tuple
+
 from pytorch_news_recommender_tpu_torch.config import ModelConfig
 from pytorch_news_recommender_tpu_torch.models.common import RecModel
+from pytorch_news_recommender_tpu_torch.models.disan import DiSANRec
 from pytorch_news_recommender_tpu_torch.models.hierec import HieRec
+from pytorch_news_recommender_tpu_torch.models.lstur import LSTUR
 from pytorch_news_recommender_tpu_torch.models.naml import NAML
 from pytorch_news_recommender_tpu_torch.models.nrms import NRMS
+from pytorch_news_recommender_tpu_torch.models.nrms_bert import NRMSBert
 from pytorch_news_recommender_tpu_torch.models.nrms_entity import NRMSEntity
 from pytorch_news_recommender_tpu_torch.models.tanr import TANR
 
 _REGISTRY = {"nrms": NRMS, "nrms_entity": NRMSEntity, "tanr": TANR, "hierec": HieRec,
-             "naml": NAML}
+             "naml": NAML, "nrms_bert": NRMSBert, "disan": DiSANRec, "lstur": LSTUR}
 
 
 def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def build_model(cfg: ModelConfig) -> RecModel:
+def build_model(cfg: ModelConfig,
+                feat_shapes: Optional[Mapping[str, Tuple[int, ...]]] = None) -> RecModel:
     """The family ``cfg.name`` with uninitialized parameters (call
-    ``reset_parameters(generator)`` or load a state dict)."""
+    ``reset_parameters(generator)`` or load a state dict). ``feat_shapes``
+    gives the shapes of the dataset's feature tables, which ``nrms_bert``'s
+    table takes."""
     name = cfg.name.lower()
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"model family {cfg.name!r} is not ported to PyTorch yet "
             f"(ported: {available_models()}); see ROADMAP.md")
-    return _REGISTRY[name](cfg)
+    return _REGISTRY[name].from_config(cfg, feat_shapes)

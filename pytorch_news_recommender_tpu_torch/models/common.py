@@ -24,7 +24,7 @@ the click loss (``train/loop.py::training_loss``).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +66,14 @@ class RecModel(nn.Module):
     def __init__(self):
         super().__init__()
         self.aux_losses: Dict[str, torch.Tensor] = {}
+
+    @classmethod
+    def from_config(cls, cfg, feat_shapes: Optional[Mapping[str, Tuple[int, ...]]] = None
+                    ) -> "RecModel":
+        """The family at ``cfg``. ``feat_shapes`` (the dataset's feature
+        tables' shapes) serves families whose parameters take a table's
+        shape, as Flax's init takes it from the data (``nrms_bert``)."""
+        return cls(cfg)
 
     def sow_loss(self, name: str, value: torch.Tensor) -> None:
         """Records an auxiliary loss under ``name``; a later call with the

@@ -3,7 +3,12 @@ and the port's checkpoint directory.
 
 A Flax path maps to a state-dict key by joining with dots instead of
 slashes: ``news_encoder/tower/wqkv`` is ``news_encoder.tower.wqkv``. Layouts
-are the same on both sides, so a weight is a plain copy.
+are the same on both sides, so a weight is a plain copy. That holds for
+every family: LSTUR's GRU cell under ``nn.scan`` is ``gru/cell/{ir,iz,in,
+hr,hz,hn}/...`` and its title conv keeps Flax's ``[k, in, out]`` kernel
+(``title_encoder/title_cnn/kernel``); DiSAN's directions are
+``disan/{fw,bw}/...`` with their ``b1`` and ``bf``; ``nrms_bert``'s table is
+``bert_embedding/embedding``.
 
 A flat weights directory holds ``config.json`` (the JAX package's format)
 and ``params.npz`` (one float32 array per Flax path); the train state's

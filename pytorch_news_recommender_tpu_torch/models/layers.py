@@ -41,34 +41,53 @@ def _xavier_uniform(p: nn.Parameter, g: torch.Generator) -> None:
     _draw(p, lambda t: t.uniform_(-a, a, generator=g))
 
 
-def _lecun_normal(p: nn.Parameter, g: torch.Generator) -> None:
+def _lecun_normal(p: nn.Parameter, g: torch.Generator,
+                  fan_in: Optional[int] = None) -> None:
     """Flax's ``lecun_normal``: a normal truncated at 2 standard deviations,
-    scaled so that its variance is ``1 / fan_in``."""
-    std = math.sqrt(1.0 / p.shape[0]) / 0.87962566103423978
+    scaled so that its variance is ``1 / fan_in`` (``p``'s first axis
+    unless given)."""
+    std = math.sqrt(1.0 / (fan_in or p.shape[0])) / 0.87962566103423978
     _draw(p, lambda t: nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                              generator=g))
 
 
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: ``x / (1 - rate)`` where kept, 0 elsewhere, in
+    ``x``'s dtype; ``x`` itself when ``deterministic`` or ``rate`` is 0. The
+    mask is drawn where ``x`` lies, from a seed of ``generator`` (another
+    stream than the JAX package's ``make_rng``), so each call is one draw."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator for its seed")
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    drawn = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=drawn, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 class Dense(nn.Module):
-    """``x @ kernel + bias`` in the compute dtype, in Flax's layout
-    (``kernel [in, out]``, lecun-normal; ``bias [out]``, zeros); the product
-    sums in float32."""
+    """``x @ kernel (+ bias)`` in the compute dtype, in Flax's layout
+    (``kernel [in, out]``, lecun-normal; ``bias [out]``, zeros, unless
+    ``bias`` is off); the product sums in float32."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self.compute_dtype = compute_dtype
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _lecun_normal(self.kernel, generator)
-        _draw(self.bias, torch.zeros_like)
+        if self.bias is not None:
+            _draw(self.bias, torch.zeros_like)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        y = torch.matmul(x.to(cd).float(), self.kernel.to(cd).float())
-        return y.to(cd) + self.bias.to(cd)
+        y = torch.matmul(x.to(cd).float(), self.kernel.to(cd).float()).to(cd)
+        return y if self.bias is None else y + self.bias.to(cd)
 
 
 class PadEmbedding(nn.Module):

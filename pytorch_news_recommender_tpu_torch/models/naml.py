@@ -34,7 +34,7 @@ import torch
 from pytorch_news_recommender_tpu_torch.config import ModelConfig
 from pytorch_news_recommender_tpu_torch.models.common import Batch, RecModel
 from pytorch_news_recommender_tpu_torch.models.layers import (
-    AttentionPoolTower, LayerNorm, PadEmbedding, UserEncoder, WordEmbedding,
+    AttentionPoolTower, LayerNorm, PadEmbedding, UserEncoder, WordEmbedding, dropout,
 )
 from pytorch_news_recommender_tpu_torch.ops.attention import dot_product_scores
 
@@ -82,16 +82,7 @@ class NAML(RecModel):
         vec = torch.cat([self._text_view(feats["title"]), self._text_view(feats["abst"]),
                          self.category_embedding(feats["categ"]),
                          self.subcategory_embedding(feats["subcateg"])], dim=-1)
-        rate = self.cfg.dropout
-        if deterministic or rate == 0.0:
-            return vec
-        if generator is None:
-            raise ValueError("dropout needs a torch.Generator for its seed")
-        # the mask is drawn where the vectors lie, from a seed of the step's generator
-        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
-        drawn = torch.Generator(device=vec.device).manual_seed(seed)
-        keep = torch.rand(vec.shape, generator=drawn, device=vec.device) >= rate
-        return torch.where(keep, vec / (1.0 - rate), 0.0).to(vec.dtype)
+        return dropout(vec, self.cfg.dropout, deterministic, generator)
 
     def score_impression(self, batch, browsed_ids, cand_ids, browsed_vecs,
                          cand_vecs, news_feats=None,

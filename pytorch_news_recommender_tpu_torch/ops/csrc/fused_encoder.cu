@@ -83,7 +83,9 @@
 //   bf16 layout (180,416 B). At D=300 every kernel keeps its layout,
 //   launches and bits. dh = 80 needs no other change: a head's q|k|v
 //   columns are three 96-wide chunks (Cfg::Attn), the o1 product five
-//   16-column units per row block.
+//   16-column units per row block. The same variants serve the user towers
+//   of nrms_bert (D=512, dh=128, Q=400: 179,072 B in bf16, 198,912 B in
+//   f32) and disan (D=600, dh=60 padded to 64, Q=200: 164,512 B, 148,992 B).
 //
 // Bound. At L=20 an item needs 2*L*D*(3D+D+Q) + 4*H*L^2*dh = 17.3 MFLOP
 // and moves 12 KB (bf16 tokens in, one vector out), so the work is bound by

@@ -74,9 +74,17 @@
 //   T(o2)'s tile (one part) and dpre's high and low tiles stay whole in
 //   shared memory and do2 is streamed through the ring (222,720 B); in f32
 //   every A operand is streamed (81,408 B). attn_bwd in f32 streams x
-//   through the ring (183,744 B). At D = 300 every kernel keeps its layout,
-//   launches and bits. weight_grad at K = 800 spans three 320-row output
-//   tiles; nothing in it depends on K fitting one.
+//   through the ring and takes 64-column weight tiles (165,312 B). At
+//   D = 300 every kernel keeps its layout, launches and bits. weight_grad at
+//   K = 800 spans three 320-row output tiles; nothing in it depends on K
+//   fitting one.
+// * The user towers of nrms_bert (D=512, 4 heads of 128, Q=400) and disan
+//   (D=600, 10 heads of 60, Q=200) take the same variants as D=800: in
+//   bf16 pool_bwd's (221,568 B and 194,720 B), in f32 also attn_bwd's. At
+//   dh = 128 the eight f32 head tiles take 139,264 B, so attn_bwd's ring of
+//   96-wide weight tiles beside them overflowed one block by 1,024 B; its
+//   64-wide tiles (Cfg::AttnStream) need 215,040 B. dh = 60 pads to 64 per
+//   head, the pad columns zero-filled by the copies and the epilogue.
 // * The attention runs over the tile's block diagonal: one Rt x Rt score
 //   tile per head, with the TPU kernel's penalty (m_i m_j - 1) * 1e9 within
 //   an item and -1e9 between items. exp(-1e9 - max) is 0 in f32, so a real
@@ -215,9 +223,14 @@ __host__ __device__ inline long attn_scratch_bytes(long Rt) { return 2 * Rt * (R
 // shared memory of attn_bwd: x's A tiles (none when x is streamed); a
 // head's q, k, v and dO1 tiles (high and, in f32, low); the weight ring
 // (with x's stages when streamed), aliased by the scratch above
+// attn_bwd's weight tiles: 64 columns wide where x is streamed
+template <bool kF32, bool kStream>
+using AttnCfg = std::conditional_t<kStream, typename Cfg<kF32>::AttnStream,
+                                   typename Cfg<kF32>::Attn>;
+
 template <bool kF32, bool kStream = false>
 __host__ __device__ inline long attn_smem_bytes(int L, int D, int H) {
-  using C = typename Cfg<kF32>::Attn;
+  using C = AttnCfg<kF32, kStream>;
   const long Rt = tile_rows(L), ldh = round16(D / H) + 8, parts = kF32 ? 2 : 1;
   const long att = attn_scratch_bytes(Rt);
   const long ring = C::ST * ((kStream ? AStream::stage_bytes(Rt) : 0) + b_stage_bytes<C::NT>(kF32));
@@ -472,7 +485,7 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   // are read before its bf16 ones are written (by the same lanes), high
   // parts at 0, low parts at Rt + 8 (16-byte aligned) of the row
   const int ldS = Rt + 4, ldP = 2 * ldS;
-  using C = typename Cfg<kF32>::Attn;
+  using C = AttnCfg<kF32, kStream>;
   constexpr int parts = kF32 ? 2 : 1;  // low parts in f32 only
   __nv_bfloat16* x_hi = reinterpret_cast<__nv_bfloat16*>(smem);  // [Rt, ldX], unless kStream
   __nv_bfloat16* x_lo = x_hi + Rt * ldX;
@@ -1010,6 +1023,7 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
       static_cast<float*>(dpre_s), static_cast<float*>(do2_s), static_cast<float*>(ds_s),
       static_cast<T*>(do1_s), M, L, D, Q, seed, block_rows, threshold, keep_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  static_assert(Cfg<kF32>::Attn::W == Cfg<kF32>::AttnStream::W, "one block size for attn_bwd");
   attn_kernel<<<tiles, 32 * Cfg<kF32>::Attn::W, attn_smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(mask), qkv_head,
       static_cast<const T*>(bqkv), static_cast<const T*>(do1_s), static_cast<float*>(dqkv_s), M,

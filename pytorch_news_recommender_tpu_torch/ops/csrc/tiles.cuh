@@ -33,10 +33,15 @@ constexpr int kKT = 64;           // depth of a staged weight tile
 // A tile past 64 rows (one item of L > 64) has larger operand tiles
 // beside the ring: pool_bwd then takes 64-column chunks (32 in f32) in
 // 16 x 16 units, so that L up to 80 fits at D = 300, Q = 200 (PoolWide).
+// attn_bwd's streamed variant (kVarAttnBwd, f32) takes 64-column chunks in
+// 16 x 32 units (AttnStream): beside the 8 head tiles of dh = 128 (D = 512,
+// 4 heads) a 96-wide ring overflows one block by 1,024 bytes. The width of
+// a chunk changes no sum: each output's MMAs run over k in the same order.
 template <bool kF32> struct Cfg {
   struct Pool { static constexpr int NT = kF32 ? 64 : 128, UJ = 4, ST = kF32 ? 2 : 3, W = kF32 ? 8 : 16; };
   struct PoolWide { static constexpr int NT = kF32 ? 32 : 64, UJ = 2, ST = Pool::ST, W = Pool::W; };
   struct Attn { static constexpr int NT = 96, UJ = 6, ST = kF32 ? 2 : 3, W = 8; };
+  struct AttnStream { static constexpr int NT = 64, UJ = 4, ST = Attn::ST, W = Attn::W; };
   struct Dx { static constexpr int NT = 320, UJ = 10, ST = kF32 ? 2 : 3, W = 16; };
 };
 
@@ -71,7 +76,8 @@ constexpr long kMaxSmem = 232448;
 // every shape where it fits it keeps its layout, launches and bits.
 //   kVarFwdAttn, kVarAttnBwd (f32 only): x is not held whole in shared
 //     memory but streamed through the weight ring (AStream), 64 columns a
-//     stage, and split into high and low parts in registers.
+//     stage, and split into high and low parts in registers; attn_bwd's
+//     weight tiles are then 64 columns wide (Cfg::AttnStream).
 //   kVarFwdTail, kVarPoolBwd: the f32 rows (o2; in pool_bwd also t, dpre,
 //     do2) live in device memory, not in shared memory. In bf16 the A
 //     operands that fit stay whole in shared memory, one part wide (o1,

@@ -3,13 +3,16 @@ JAX package's ``serve.py``).
 
 * The news tower runs once over the whole corpus at start-up, in chunks of
   ``train.eval_encode_chunk`` news, into a resident ``[N, D]`` vector table.
-* ``score(history, candidates)`` runs only the user tower and the head per
-  request; ``score_many`` batches many requests, padded to
-  :attr:`Recommender.BATCH_PAD` rows per width bucket.
+* ``score(history, candidates, user_id)`` runs only the user tower and the
+  head per request, the user id in the batch (``user_ids``: LSTUR's
+  long-term vector reads it); ``score_many`` batches many requests, padded
+  to :attr:`Recommender.BATCH_PAD` rows per width bucket.
 * ``top_k(history, k)`` scores the entire corpus with one ``[D] @ [D, N]``
-  product and ``torch.topk``.
+  product and ``torch.topk``, for families whose user tower runs over the
+  cached vectors alone (not LSTUR).
 * ``add_news`` tokenizes, encodes and appends a news item that was not in
-  the corpus; it scores at once.
+  the corpus; it scores at once (not for ``nrms_bert``, whose news come as
+  precomputed vectors).
 
 ``corpus_cache="int8"`` keeps the table quantized per row (int8 values +
 one float32 scale per news), 4x smaller than float32.
@@ -89,11 +92,12 @@ class Recommender:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_cfg = cfg.model.with_artifact_meta(dataset.meta)
-        self.model = build_model(self.model_cfg)
-        assign(self.model, params)
-        self.model.to(self.device).eval()
         self.news_feats = {k: torch.as_tensor(v, device=self.device)
                            for k, v in dataset.news.as_dict().items()}
+        self.model = build_model(self.model_cfg,
+                                 {k: tuple(v.shape) for k, v in self.news_feats.items()})
+        assign(self.model, params)
+        self.model.to(self.device).eval()
         self.H = cfg.data.history_len
         self.data_cfg = cfg.data
         # preprocessing dictionaries (word/category/... -> 1-based id), for
@@ -172,26 +176,32 @@ class Recommender:
         return self.widths[-1]
 
     @torch.no_grad()
-    def _score(self, browsed: np.ndarray, cand: np.ndarray) -> np.ndarray:
-        """``[B, H]`` histories x ``[B, w]`` candidates -> ``[B, w]`` scores
-        (``RecModel.score_from_vecs`` with the cache-mode lookup; the
-        resident feature tables go along, for heads that gather by id, as
-        HieRec's categories)."""
+    def _score(self, browsed: np.ndarray, cand: np.ndarray,
+               users: np.ndarray) -> np.ndarray:
+        """``[B, H]`` histories x ``[B, w]`` candidates of the ``[B]`` users
+        -> ``[B, w]`` scores (``RecModel.score_from_vecs`` with the
+        cache-mode lookup; the batch carries ``user_ids`` for heads that
+        read them, as LSTUR's long-term vector, and the resident feature
+        tables go along, for heads that gather by id, as HieRec's
+        categories)."""
         b = torch.as_tensor(browsed, device=self.device)
         c = torch.as_tensor(cand, device=self.device)
-        s = self.model.score_impression({"browsed_ids": b, "candidate_ids": c},
+        u = torch.as_tensor(np.asarray(users, np.int32), device=self.device)
+        s = self.model.score_impression({"browsed_ids": b, "candidate_ids": c,
+                                         "user_ids": u},
                                         b, c, self._lookup(b), self._lookup(c),
                                         self.news_feats)
         return s.cpu().numpy()
 
     def score(self, history: Sequence[int], candidates: Sequence[int],
               user_id: int = 0) -> np.ndarray:
-        """Scores for an explicit candidate list."""
+        """Scores for an explicit candidate list of user ``user_id`` (0:
+        unknown)."""
         w = self._width_for(len(candidates))
         cand = np.zeros(w, np.int32)
         cand[:len(candidates)] = np.asarray(candidates[:w], np.int32)
-        return self._score(self._pad_history(history)[None], cand[None])[0][
-            :len(candidates)]
+        return self._score(self._pad_history(history)[None], cand[None],
+                           np.asarray([user_id], np.int32))[0][:len(candidates)]
 
     def score_many(
         self,
@@ -210,19 +220,35 @@ class Recommender:
                 chunk = idxs[s0:s0 + B]
                 browsed = np.zeros((B, self.H), np.int32)
                 cand = np.zeros((B, w), np.int32)
+                users = np.zeros(B, np.int32)
                 for j, i in enumerate(chunk):
-                    hist, cands, _ = requests[i]
+                    hist, cands, uid = requests[i]
                     browsed[j] = self._pad_history(hist)
                     cand[j, :len(cands)] = np.asarray(cands[:w], np.int32)
-                s = self._score(browsed, cand)
+                    users[j] = uid
+                s = self._score(browsed, cand, users)
                 for j, i in enumerate(chunk):
                     out[i] = s[j, :len(requests[i][1])]
         return out
 
+    @property
+    def ranks_corpus(self) -> bool:
+        """Whether the family has a user tower over the cached vectors
+        alone (``encode_user``), which ``top_k`` ranks the corpus with."""
+        return hasattr(self.model, "encode_user")
+
     @torch.no_grad()
     def top_k(self, history: Sequence[int], k: int = 10):
         """Corpus-wide retrieval: ``(ids, scores)`` of the ``k`` best news,
-        the pad row 0 and rows at or past ``n_news`` excluded."""
+        the pad row 0 and rows at or past ``n_news`` excluded. Needs a
+        family whose user tower runs over the cached vectors alone
+        (``encode_user``); LSTUR has none, and raises, as the JAX package's
+        ``top_k`` fails for it."""
+        if not self.ranks_corpus:
+            raise ValueError(
+                f"model family '{self.cfg.model.name}' has no user tower that ranks "
+                "the corpus from the cached vectors alone (encode_user); top_k "
+                "serves dot-product families with one")
         b = torch.as_tensor(self._pad_history(history)[None], device=self.device)
         user_vec = self.model.encode_user(self._lookup(b), (b != 0).float()).float()
         if self.corpus_cache == "int8":
@@ -259,6 +285,24 @@ class Recommender:
             "entity": ent,
         }
 
+    def _fresh_rows(self, title: str, abstract: str, category: str, subcategory: str,
+                    entities: Sequence[str]) -> Dict[str, np.ndarray]:
+        """A fresh item's feature rows; raises, as the JAX package does,
+        for a family that encodes news from precomputed vectors (``bert``)
+        and for features that tokenization cannot build."""
+        keys = self.model.FEAT_KEYS
+        if "bert" in keys:
+            raise ValueError(
+                f"model family '{self.cfg.model.name}' encodes news from "
+                "precomputed per-news vectors; fresh news needs an external "
+                "vector, not tokenization")
+        rows = self.tokenize_new_news(title, abstract, category, subcategory, entities)
+        missing = [k for k in keys if k not in rows]
+        if missing:
+            raise ValueError(f"cannot build features {missing} for a fresh "
+                             f"news item (family '{self.cfg.model.name}')")
+        return rows
+
     @torch.no_grad()
     def _encode_rows(self, rows: Dict[str, np.ndarray]) -> torch.Tensor:
         feats = {k: torch.as_tensor(rows[k], device=self.device)[None]
@@ -269,7 +313,7 @@ class Recommender:
                         category: str = "", subcategory: str = "",
                         entities: Sequence[str] = ()) -> np.ndarray:
         """News-tower vector ``[D]`` (float32) for a fresh news item."""
-        rows = self.tokenize_new_news(title, abstract, category, subcategory, entities)
+        rows = self._fresh_rows(title, abstract, category, subcategory, entities)
         return self._encode_rows(rows).float().cpu().numpy()
 
     def _grown(self, table: torch.Tensor, nid: int, row) -> torch.Tensor:
@@ -286,7 +330,7 @@ class Recommender:
         """Ingests a fresh news item: tokenize, encode through the news
         tower, append to the corpus cache and the resident feature tables.
         Returns the new id, usable in ``score``/``top_k`` at once."""
-        rows = self.tokenize_new_news(title, abstract, category, subcategory, entities)
+        rows = self._fresh_rows(title, abstract, category, subcategory, entities)
         vec = self._encode_rows(rows)
         nid = self.n_news
         if self.corpus_cache == "int8":

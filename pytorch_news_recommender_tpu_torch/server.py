@@ -188,7 +188,8 @@ class RecommenderServer:
 
     def warmup(self):
         self.rec.score([1, 2], [1, 2, 3])
-        self.rec.top_k([1, 2], k=5)
+        if self.rec.ranks_corpus:   # LSTUR serves /score only
+            self.rec.top_k([1, 2], k=5)
         if self.batcher is not None:
             self.rec.score_many([([1, 2], [1, 2, 3], 0)])
 

@@ -216,11 +216,12 @@ class Trainer:
         self.dataset = dataset
         self.device = resolve_device(device)
         self.model_cfg = cfg.model.with_artifact_meta(dataset.meta)
-        # the family's structure (FEAT_KEYS, truncation lengths); each state
-        # has its own instance
-        self.model = build_model(self.model_cfg)
         self.news_feats = {k: torch.as_tensor(v, device=self.device)
                            for k, v in dataset.news.as_dict().items()}
+        self._feat_shapes = {k: tuple(v.shape) for k, v in self.news_feats.items()}
+        # the family's structure (FEAT_KEYS, truncation lengths); each state
+        # has its own instance
+        self.model = build_model(self.model_cfg, self._feat_shapes)
         missing = [k for k in self.model.FEAT_KEYS if k not in self.news_feats]
         if missing:
             raise ValueError(
@@ -250,7 +251,7 @@ class Trainer:
         """A fresh state: ``params`` (a state dict, e.g. ``from_flax`` of
         JAX weights) or Flax's initializers drawn from ``seed`` (default
         ``train.seed``), then the dataset's pretrained tables."""
-        model = build_model(self.model_cfg)
+        model = build_model(self.model_cfg, self._feat_shapes)
         if params is not None:
             assign(model, params)
         else:
@@ -263,17 +264,21 @@ class Trainer:
 
     def _apply_pretrained(self, model: RecModel) -> None:
         """Overwrites embedding tables with the dataset's pretrained matrices
-        (GloVe words, entity vectors). A parameter matches by path suffix
-        and exact shape; a matrix with the same rows and fewer columns loads
-        into the first columns, the rest zero; a table whose name matches
-        but whose shape does not (a matrix built for another vocabulary)
-        raises instead of training from random init."""
+        (GloVe words, entity vectors, and the BERT vectors that start
+        ``nrms_bert``'s trainable table, as Flax's init copies them). A
+        parameter matches by path suffix and exact shape; a matrix with the
+        same rows and fewer columns loads into the first columns, the rest
+        zero; a table whose name matches but whose shape does not (a matrix
+        built for another vocabulary) raises instead of training from random
+        init."""
         ds = self.dataset
         tables = {}
         if ds.word_embeddings is not None:
             tables["word_embedding/embedding"] = ds.word_embeddings
         if ds.entity_embeddings is not None:
             tables["entity_embedding/embedding"] = ds.entity_embeddings
+        if ds.news.bert is not None:
+            tables["bert_embedding/embedding"] = ds.news.bert
         if not tables:
             return
         loaded: Dict[str, list] = {s: [] for s in tables}
@@ -345,7 +350,7 @@ class Trainer:
             return state_or_params.model
         if isinstance(state_or_params, RecModel):
             return state_or_params
-        model = build_model(self.model_cfg)
+        model = build_model(self.model_cfg, self._feat_shapes)
         assign(model, state_or_params)
         return model.to(self.device)
 

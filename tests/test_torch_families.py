@@ -1,9 +1,12 @@
-"""The port's ``nrms_entity``, ``tanr``, ``hierec`` and ``naml`` families
-against the JAX package's, on the CPU in float32, from the Flax init
-weights carried over by ``models/convert.py``: the news tower, the
-two-tower head, the direct and the dedup + length-split forwards, one
-training step, the two-tower evaluation, and HieRec's and NAML's serving.
-Tolerance rtol/atol 1e-4, as ``test_torch_nrms.py`` holds NRMS.
+"""The port's ``nrms_entity``, ``tanr``, ``hierec``, ``naml``,
+``nrms_bert``, ``disan`` and ``lstur`` families against the JAX package's,
+on the CPU in float32, from the Flax init weights carried over by
+``models/convert.py``: the news tower, the two-tower head, the direct and
+the dedup + length-split forwards (``nrms_bert``, which encodes by id, the
+dedup form without a split), one training step, the two-tower evaluation,
+HieRec's and NAML's serving, and the CLI. Tolerance rtol/atol 1e-4, as
+``test_torch_nrms.py`` holds NRMS. ``test_torch_bert_disan_lstur.py`` holds
+the new families' own pieces and LSTUR's serving.
 
 The families are parametrized as :class:`Family` objects (not as their
 names), one test case each."""
@@ -15,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -51,7 +55,10 @@ class Family:
         return f"family:{self.name}"
 
 
-FAMILIES = [Family("nrms_entity"), Family("tanr"), Family("hierec"), Family("naml")]
+FAMILIES = [Family("nrms_entity"), Family("tanr"), Family("hierec"), Family("naml"),
+            Family("nrms_bert"), Family("disan"), Family("lstur")]
+# the data a family reads beside DATA: nrms_bert's BERT vectors, LSTUR's users
+FAMILY_DATA = {"nrms_bert": dict(bert_dim=64), "lstur": dict(n_users=50)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,8 +67,9 @@ def _pair(name):
     the same synthetic config with dropout off, and the same data."""
     over = {"model.name": name, "model.dropout": 0.0}
     cfg, jcfg = synthetic_config(**over), jax_synthetic_config(**over)
-    ds = synthetic.generate(cfg.data, **DATA)
-    jds = jax_synthetic.generate(jcfg.data, **DATA)
+    data = {**DATA, **FAMILY_DATA.get(name, {})}
+    ds = synthetic.generate(cfg.data, **data)
+    jds = jax_synthetic.generate(jcfg.data, **data)
     jtr = jax_loop.Trainer(jcfg, jds)
     params = jax.device_get(jtr.init_state(seed=0).params)
     return Trainer(cfg, ds, device="cpu"), jtr, params
@@ -85,12 +93,14 @@ def _j(batch):
 
 
 def _dedup_batches(tr, jtr, n):
-    """The first ``n`` dedup + length-split batches of both packages."""
+    """The first ``n`` dedup + length-split batches of both packages (no
+    split for a family that encodes by id, as ``nrms_bert``)."""
     ours = list(train_batches(tr.dataset.train, 32, np.random.default_rng(2), dedup=True,
                               length_split=tr._length_split))[:n]
     theirs = list(jax_train_batches(jtr.dataset.train, 32, np.random.default_rng(2),
                                     dedup=True, length_split=jtr._length_split))[:n]
-    assert all("short_mark" in b for b in ours)
+    assert (tr._length_split is None) == (jtr._length_split is None)
+    assert all(("short_mark" in b) == (tr._length_split is not None) for b in ours)
     return ours, theirs
 
 
@@ -169,12 +179,17 @@ NOISE_GRAD = 1e-7
 
 
 def _key_bias(name, p):
-    """The entries of parameter ``name`` that are a key projection's bias:
-    the middle third of a ``bqkv`` (fused q|k|v)."""
+    """The entries of parameter ``name`` whose exact gradient is 0: a key
+    projection's bias (the middle third of a ``bqkv``, fused q|k|v), and
+    the bias of DiSAN's Source2Token logits (``source2token.fc2.bias``: it
+    adds one value per dimension to every token's logit, which the softmax
+    over the tokens ignores, as for the key bias)."""
     out = torch.zeros_like(p, dtype=torch.bool)
     if name.endswith("bqkv"):
         n = p.shape[0] // 3
         out[n:2 * n] = True
+    if name.endswith("source2token.fc2.bias"):
+        out[:] = True
     return out
 
 
@@ -195,9 +210,14 @@ def _jax_grads(jtr, params, jbatch):
 def test_run_step_matches_jax(pair):
     """One step on a dedup + length-split batch, dropout 0 but not
     deterministic (TANR records its topic loss only in training): the loss
-    and every gradient entry within 1e-4 of JAX's, the key biases' gradients
-    below ``NOISE_GRAD`` in both packages, and every parameter but the key
-    biases within 1e-4 after the update."""
+    and every gradient entry within 1e-4 of JAX's, the entries with an exact
+    gradient of 0 (``_key_bias``) below ``NOISE_GRAD`` in both packages;
+    every parameter after the update within 1e-4 of optax's update (the JAX
+    step's optimizer) of the port's own gradients; and every parameter
+    within 1e-4 of the JAX step's, but the zero-gradient entries and those
+    whose gradient float32 does not determine (below ``NOISE_GRAD`` in both
+    packages and apart by more than a tenth): Adam's first step maps such a
+    gradient to an update of up to ±lr that its rounding decides."""
     tr, jtr, params = pair
     (batch,), (jbatch,) = _dedup_batches(tr, jtr, 1)
     model = tr.init_state(params=from_flax(params)).model
@@ -206,20 +226,31 @@ def test_run_step_matches_jax(pair):
     grads = {k: p.grad for k, p in model.named_parameters()}
     jgrads = from_flax(_jax_grads(jtr, params, _j(jbatch)))
     assert sorted(grads) == sorted(jgrads)
+    undetermined = {}
     for k, g in jgrads.items():
         assert grads[k] is not None, k
         np.testing.assert_allclose(grads[k].numpy(), g.numpy(), err_msg=k, **TOL)
         key = _key_bias(k, g)
         for gg in (grads[k], g):
             assert bool(torch.all(gg[key].abs() < NOISE_GRAD)), k
+        tiny = (grads[k].abs() < NOISE_GRAD) & (g.abs() < NOISE_GRAD)
+        undetermined[k] = tiny & ((grads[k] - g).abs() > 0.1 * g.abs())
+    # the optimizer alone: optax from the JAX step's initial state on the
+    # port's gradients (before the JAX step, which donates that state)
+    jinit = jtr.init_state(seed=0)
+    updates, _ = jtr._tx.update(to_flax(grads), jinit.opt_state, jinit.params)
+    same_grads = from_flax(jax.device_get(optax.apply_updates(jinit.params, updates)))
     state, m = tr.run_step(tr.init_state(params=from_flax(params)), batch)
     jstate, jm = jtr.run_step(jtr.init_state(seed=0), jbatch, jax.random.PRNGKey(0))
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), **TOL)
     got = state.params
+    assert sorted(got) == sorted(same_grads)
+    for k, v in same_grads.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), err_msg=k, **TOL)
     expect = from_flax(jax.device_get(jstate.params))
     assert sorted(got) == sorted(expect)
     for k, v in expect.items():
-        held = ~_key_bias(k, v)
+        held = ~(_key_bias(k, v) | undetermined[k])
         np.testing.assert_allclose(got[k][held].numpy(), v[held].numpy(), err_msg=k, **TOL)
 
 
@@ -369,10 +400,16 @@ def test_hierec_top_k_ranks_by_the_global_level(hierec_served):
     np.testing.assert_allclose(scores, np.asarray(jscores), **TOL)
 
 
-@pytest.mark.parametrize("fam", [Family("tanr"), Family("hierec"), Family("naml")], ids=str)
+# each family's class, by name
+FAMILY_CLASS = {"tanr": "TANR", "hierec": "HieRec", "naml": "NAML", "nrms_bert": "NRMSBert",
+                "disan": "DiSANRec", "lstur": "LSTUR"}
+
+
+@pytest.mark.parametrize("fam", [Family(n) for n in FAMILY_CLASS], ids=str)
 def test_cli_trains_evaluates_and_serves_the_family(fam, tmp_path):
     """``--model`` flows through ``cli train`` / ``eval`` / ``export-vectors``
-    and ``serve``'s recommender on the CPU."""
+    and ``serve``'s recommender and daemon on the CPU (the CLI's synthetic
+    data carries BERT vectors and users)."""
     data = ["--data", "synthetic", "--model", fam.name, "--device", "cpu"]
     assert cli.main(["train", *data, "--epochs", "1", "--batch-size", "64",
                      "--save-dir", str(tmp_path)]) == 0
@@ -383,10 +420,11 @@ def test_cli_trains_evaluates_and_serves_the_family(fam, tmp_path):
     args = cli.build_parser().parse_args(["serve", *data, "--ckpt", ckpt, "--port", "0"])
     srv = cli.build_server(args)
     assert srv.rec.cfg.model.name == fam.name
-    assert type(srv.rec.model).__name__ == {"tanr": "TANR", "hierec": "HieRec",
-                                            "naml": "NAML"}[fam.name]
-    s = srv.rec.score([1, 2, 3], [4, 5, 6])
+    assert type(srv.rec.model).__name__ == FAMILY_CLASS[fam.name]
+    s = srv.rec.score([1, 2, 3], [4, 5, 6], user_id=7)
     assert s.shape == (3,) and np.all(np.isfinite(s))
+    srv.start(block=False)   # the warm-up runs each path the family serves
+    srv.stop()
 
 
 def _with_dicts(ds):

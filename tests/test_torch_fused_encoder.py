@@ -358,6 +358,46 @@ def test_kernel_matches_plain_at_naml_user_tower_on_card(cuda_device, dtype, M, 
                           AttentionPoolTower.init_scales(D, Q))
 
 
+# the user towers of nrms_bert (D=512, 4 heads of 128, Q=400) and disan
+# (D=600, 10 heads of 60, Q=200), L=50: the variants of NAML's tower, and
+# the library's need there (csrc/fused_encoder.cu's and fused_encoder_bwd.cu's
+# heads): bf16 forward = fwd_tail's wide variant, backward = pool_bwd's; f32
+# forward = fwd_attn with x streamed, backward = dx's ring
+NEW_USER_TOWERS = [(512, 4, 400), (600, 10, 200)]
+NEW_USER_SMEM = {(512, torch.bfloat16): (179_072, 221_568),
+                 (512, torch.float32): (198_912, 221_184),
+                 (600, torch.bfloat16): (164_512, 194_720),
+                 (600, torch.float32): (148_992, 221_184)}
+
+
+@pytest.mark.parametrize("dtype,wide", [
+    (torch.bfloat16, ("fwd_tail", "pool_bwd")),
+    (torch.float32, ("fwd_attn", "fwd_tail", "pool_bwd", "attn_bwd"))])
+@pytest.mark.parametrize("D,H,Q", NEW_USER_TOWERS)
+def test_variants_at_the_bert_and_disan_user_towers_on_card(cuda_device, D, H, Q, dtype,
+                                                            wide):
+    """At D=512 (dh=128) and D=600 (dh=60) the kernels take NAML's wide
+    variants, and the library's need is then within one block."""
+    lib, code = FE._lib(), FE._DTYPE_CODE[dtype]
+    assert FE.variant(dtype, 50, D, H, Q) == wide
+    need = (lib.newsrec_fused_encoder_smem_bytes(code, 50, D, H, Q),
+            lib.newsrec_fused_encoder_bwd_smem_bytes(code, 50, D, H, Q))
+    assert need == NEW_USER_SMEM[(D, dtype)] and max(need) <= FE.MAX_SMEM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,L,pads", [(1, 50, ()), (5, 50, (2,)), (7, 20, (4,))])
+@pytest.mark.parametrize("D,H,Q", NEW_USER_TOWERS)
+def test_kernel_matches_plain_at_bert_and_disan_user_towers_on_card(cuda_device, D, H, Q,
+                                                                    dtype, M, L, pads):
+    """The user towers of nrms_bert (heads of 128) and disan (heads of 60,
+    padded to 64 per head) in the kernels' wide variants, with weights at
+    the tower's own init scale; the checks and tolerances of
+    ``test_kernel_matches_plain_on_card``."""
+    _kernel_matches_plain(cuda_device, dtype, M, L, D, H, Q, pads,
+                          AttentionPoolTower.init_scales(D, Q))
+
+
 def _kernel_rounding_forward(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *, num_heads,
                              dropout_rate=0.0, seed=0):
     """The Hopper forward's arithmetic in float32 on the CPU, rounding to

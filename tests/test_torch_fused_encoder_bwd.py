@@ -347,6 +347,30 @@ def test_backward_matches_plain_at_naml_user_tower_on_card(cuda_device, dtype, r
                             AttentionPoolTower.init_scales(D, Q))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("M,L,pads", [(5, 50, (2,)), (7, 20, (4,))])
+@pytest.mark.parametrize("D,H,Q", [(512, 4, 400), (600, 10, 200)])
+def test_backward_matches_plain_at_bert_and_disan_user_towers_on_card(
+        cuda_device, D, H, Q, dtype, rate, M, L, pads):
+    """The user towers of nrms_bert (D=512, 4 heads of 128, Q=400; in f32
+    attn_bwd's 64-wide weight tiles) and disan (D=600, 10 heads of 60,
+    Q=200) in the wide variants, weights at the tower's init scale; the
+    checks and tolerances of ``test_backward_kernel_matches_plain_on_card``,
+    and two backward calls equal bit for bit."""
+    _backward_matches_plain(cuda_device, dtype, rate, M, L, D, H, Q, pads,
+                            AttentionPoolTower.init_scales(D, Q))
+    x, mask, w, g, _ = _inputs(9, M, L, D, Q, pads, AttentionPoolTower.init_scales(D, Q))
+    t = _t([x, mask, *w, g], cuda_device)
+    x_, w_ = t[0].to(dtype), [a.to(dtype) for a in t[2:9]]
+    _, o1 = FE.fused_news_encoder(x_, t[1], *w_, num_heads=H, dropout_rate=rate, seed=5,
+                                  save_o1=True)
+    bwd = lambda: FE.fused_news_encoder_bwd(t[9], x_, t[1], o1, *w_,  # noqa: E731
+                                            num_heads=H, dropout_rate=rate, seed=5)
+    first = bwd()
+    assert all(torch.equal(a, b) for a, b in zip(first, bwd()))
+
+
 @pytest.mark.parametrize("L", [1, 7, 12, 20, 33, 50, 64, 65, 70, 80])
 def test_tile_geometry_is_the_kernels_on_card(cuda_device, L):
     """The CPU grouping test's model of the tiles is the built kernels'."""

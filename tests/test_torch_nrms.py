@@ -133,6 +133,7 @@ def test_seeded_init_draws_flax_distributions(pair):
 
 
 def test_registry_points_unported_families_at_roadmap():
-    assert available_models() == ["hierec", "naml", "nrms", "nrms_entity", "tanr"]
+    assert available_models() == ["disan", "hierec", "lstur", "naml", "nrms", "nrms_bert",
+                                  "nrms_entity", "tanr"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(synthetic_config(**{"model.name": "nrms_bert"}).model)
+        build_model(synthetic_config(**{"model.name": "list_rank"}).model)
