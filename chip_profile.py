@@ -1,7 +1,8 @@
 """Where the port's training step spends its time, on one NVIDIA card.
 
     python3 chip_profile.py [--dedup-gather-mxu]
-        [--model nrms_entity|tanr|hierec|naml|nrms_bert|disan|lstur]
+        [--model nrms_entity|tanr|hierec|naml|nrms_bert|disan|lstur|
+                 gnn|fastformer|npa|list_rank]
 
 Trains NRMS at the configuration of ``chip_smoke.py``'s training phase
 (the JAX package's defaults: D=300, 10 heads, Q=200, batch 512, bf16,
@@ -16,8 +17,12 @@ whose inverse gathers' backward is the segment-scatter kernel; ``--model``
 another family than NRMS, on the corpus of ``chip_smoke.py``'s phases 9-15
 (entities, 18 categories, 294 subcategories; for ``naml`` the abstracts of
 phase 12; for ``nrms_bert``, ``disan`` and ``lstur`` the BERT vectors and
-users of phases 13-15, with their model fields). Needs a CUDA card; prints
-nothing else.
+users of phases 13-15; for ``gnn``, ``fastformer``, ``npa`` and
+``list_rank`` those with the 15-neighbor graph of phases 16-19, and
+``list_rank``'s 15 negatives; each with its model fields and training
+defaults). The host feed goes through ``Trainer._maybe_frontier``, as
+``fit``'s does (the GNN's neighborhood closure, in the prefetch thread).
+Needs a CUDA card; prints nothing else.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--dedup-gather-mxu", action="store_true")
     parser.add_argument("--model", default="nrms",
-                        choices=("nrms",) + CS.FAMILIES + ("naml",) + tuple(CS.NEW_FAMILIES))
+                        choices=("nrms",) + CS.FAMILIES + ("naml",) + tuple(CS.NEW_FAMILIES)
+                        + tuple(CS.LATER_FAMILIES))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the card",
@@ -75,7 +81,9 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
+    from pytorch_news_recommender_tpu_torch.config import (
+        FAMILY_TRAIN_DEFAULTS, Config, DataConfig,
+    )
     from pytorch_news_recommender_tpu_torch.data import synthetic
     from pytorch_news_recommender_tpu_torch.data.loader import train_batches
     from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
@@ -89,17 +97,23 @@ def main() -> int:
                                 title_len=(11.5, 4))
     elif args.model in CS.NEW_FAMILIES:
         cfg, ds = CS.family_data(bert_dim=CS.BERT_DIM, n_users=CS.N_USERS)
+    elif args.model in CS.LATER_FAMILIES:
+        cfg, ds = CS.family_data(
+            bert_dim=CS.BERT_DIM, n_users=CS.N_USERS, n_neighbors=CS.GNN_NEIGHBORS,
+            sample_size=CS.LIST_RANK_SAMPLE_SIZE if args.model == "list_rank" else None)
     else:
         cfg, ds = CS.family_data(CS.NAML_ABST_LEN if args.model == "naml" else None)
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, name=args.model, dedup_gather_mxu=args.dedup_gather_mxu,
-        **CS.NEW_FAMILIES.get(args.model, {})))
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(
+            cfg.model, name=args.model, dedup_gather_mxu=args.dedup_gather_mxu,
+            **{**CS.NEW_FAMILIES, **CS.LATER_FAMILIES}.get(args.model, {})),
+        train=dataclasses.replace(cfg.train, **FAMILY_TRAIN_DEFAULTS.get(args.model, {})))
     bs = cfg.train.batch_size
     trainer = Trainer(cfg, ds, device="cuda")
     state = trainer.init_state(seed=0)
     host = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
                          length_split=trainer._length_split)
-    batches = device_prefetch(host, "cuda")
+    batches = device_prefetch(map(trainer._maybe_frontier, host), "cuda")
     for _ in range(WARMUP):
         state, m = trainer.run_step(state, next(batches))
     float(m["loss"])

@@ -74,6 +74,19 @@
    (for ``lstur`` its refusal), ``add_news``'s refusal for ``nrms_bert``,
    and ``cli train`` / ``eval`` / ``serve`` of each at the small synthetic
    size. Phases 2 and 5 hold the kernels at both user towers.
+16-19. The same for ``gnn`` (NRMS's title and user towers through the
+   kernels, two GAT layers over 15 graph neighbors; each training step's
+   dedup batch carries its 2-hop neighborhood closure, which fills the
+   65,536-news frontier bucket: the title tower runs at M=65,536, L=20),
+   ``fastformer``, ``npa`` and ``list_rank`` (no encoder kernel, their
+   launch counts 0), on that corpus with a 15-neighbor graph (``list_rank``
+   at 15 negatives a training impression, as ``cli train`` sets it):
+   ``top_k`` refused for ``fastformer``, the ``Recommender`` refused for
+   ``npa`` (its news vectors depend on the user), and ``cli train`` /
+   ``eval`` / ``serve`` of each (``serve --model npa`` refused). Phases 2
+   and 5 also hold the kernels at the GNN's frontier shape (M=65,536,
+   L=20: 1,310,720 token rows) and the weight-gradient products over its
+   rows.
 
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
@@ -114,25 +127,30 @@ DISAN_USER = (600, 10, 200)
 # the user towers past NRMS's width, each in the kernels' wide variants
 WIDE_USERS = {"naml": NAML_USER, "nrms_bert": BERT_USER, "disan": DISAN_USER}
 SHAPES = [(4096, 20), (32, 50), (1, 50)]   # corpus chunk, score_many batch, single user
+# the GNN's title tower in training: its 2-hop frontier fills the largest
+# frontier bucket on the 65,238-news corpus (``GNN_FRONTIER_BUCKETS``)
+GNN_FRONTIER = (65_536, 20)
 # the training step's encoder calls: short news block, long news block, users
 TRAIN_SHAPES = [(4096, 12), (4096, 20), (512, 50)]
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # phase 2's checks, (M, L, (D, H, Q)): NRMS's serving shapes, NAML's
-# abstract view (a corpus chunk at L=40), and the user towers of NAML,
+# abstract view (a corpus chunk at L=40), the user towers of NAML,
 # nrms_bert and disan at the training batch, the score_many batch and one
-# user
+# user, and the GNN's frontier
 CHECK_SHAPES = ([(M, L, WIDTH) for M, L in SHAPES] + [(4096, 40, WIDTH)]
-                + [(M, 50, w) for w in WIDE_USERS.values() for M in (512, 32, 1)])
+                + [(M, 50, w) for w in WIDE_USERS.values() for M in (512, 32, 1)]
+                + [(*GNN_FRONTIER, WIDTH)])
 # the forward timed at every serving and training shape, at the stage
 # ablation's M=28,672, and at NAML's
 FWD_SHAPES = ([(M, L, WIDTH) for M, L in SHAPES + TRAIN_SHAPES + [(28_672, 20)]]
               + CHECK_SHAPES[len(SHAPES):])
 # phase 5's checks, (M, L, (D, H, Q), dropout rates): NRMS's training step,
 # then NAML's abstract view and the user towers of NAML, nrms_bert and disan
-# (no dropout in a user tower)
+# (no dropout in a user tower), and the GNN's frontier
 BWD_SHAPES = ([(M, L, WIDTH, (0.0, 0.2)) for M, L in TRAIN_SHAPES]
               + [(4096, 40, WIDTH, (0.0,))]
-              + [(512, 50, w, (0.0,)) for w in WIDE_USERS.values()])
+              + [(512, 50, w, (0.0,)) for w in WIDE_USERS.values()]
+              + [(*GNN_FRONTIER, WIDTH, (0.0, 0.2))])
 # launches of one forward call: the wrapper's count, and the device kernels
 # (the weight layout, the attention, the tail), read from the profiler
 FWD_LAUNCHES, FWD_KERNELS = 1, 3
@@ -150,6 +168,23 @@ NAML_ABST_LEN = (28.0, 8.0)
 # fields each sets beside the JAX defaults
 NEW_FAMILIES = {"nrms_bert": {"user_heads_num": BERT_USER[1]}, "disan": {}, "lstur": {}}
 BERT_DIM, N_USERS = 768, 50_000
+# phases 16-19: the families on that corpus with a 15-neighbor news graph,
+# and the model fields each sets beside the JAX defaults (list_rank's 4 user
+# heads: 10 do not divide its 512-wide news vectors, in either package)
+LATER_FAMILIES = {"gnn": {}, "fastformer": {}, "npa": {}, "list_rank": {"user_heads_num": 4}}
+# NPA's family default learning rate (2e-2, FAMILY_TRAIN_DEFAULTS) was tuned
+# at a narrow width; at the JAX default widths its loss climbs in both
+# packages, so phase 18 trains at the shared default 1e-3 (``cli train --lr
+# 1e-3``) and only probes 2e-2 (``lr_probe``)
+LATER_TRAIN = {"npa": {"learning_rate": 1e-3}}
+NPA_PROBE_LR, PROBE_STEPS = 2e-2, 6
+GNN_NEIGHBORS = 15
+# list_rank trains on 15 negatives an impression, as cli train sets it
+LIST_RANK_SAMPLE_SIZE = 15
+# parameters whose exact gradient is 0 (a constant added to every
+# candidate's score): list_rank's fc bias and the last block's output
+# LayerNorm bias; they get float rounding, which may be 0
+EXACT_ZERO_GRADS = {"list_rank": ("fc.bias", "block0.ffn.norm.bias")}
 # launches of one backward call: the per-item kernels' (one count for the
 # pooling, attention and dx kernels of one call) and weight_grad's
 BWD_LAUNCHES = (1, 4)
@@ -165,7 +200,11 @@ SCORE_TOL = {"native": 2e-2, "int8": 4e-2}
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12  # H100 SXM
 # weight-gradient kernel vs plain version, max|a - b| / max|b| over the
 # product and the bias sums: f32 sums of the same products (a high/low
-# split of each f32 operand), only the order and the split's 2^-16 differ
+# split of each f32 operand), only the order and the split's 2^-16 differ.
+# Every product is also held to the same function in float64 at this
+# tolerance: the kernel's error grows with its splits' rows (81,920 rows a
+# split: 2.0e-4 of the largest output; ``kWgMaxRows`` caps them), the
+# plain version's stays near 2e-6
 WGRAD_TOL = 1e-4
 # the weight-gradient products of one backward call in bf16 training (name,
 # a's width K, b's width N, a's dtype, bias fused, token rows R): dWqkv,
@@ -175,6 +214,7 @@ WGRAD_TOL = 1e-4
 # kernel's 320-row output tiles)
 R_LONG = TRAIN_SHAPES[1][0] * TRAIN_SHAPES[1][1]
 R_USER = 512 * 50
+R_GNN = GNN_FRONTIER[0] * GNN_FRONTIER[1]
 WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True, R_LONG),
                   ("wgrad_f32", D, 3 * D, torch.float32, True, R_LONG),
                   ("wgrad_dwo", D, D, torch.bfloat16, True, R_LONG),
@@ -185,7 +225,12 @@ WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True, R_LONG),
     for sfx, K, N, dtype, bias in (("", Dw, 3 * Dw, torch.bfloat16, True),
                                    ("_dwo", Dw, Dw, torch.bfloat16, True),
                                    ("_daw", Dw, Qw, torch.float32, True),
-                                   ("_daq", Qw, 1, torch.float32, False))]
+                                   ("_daq", Qw, 1, torch.float32, False))] + [
+    # the GNN's title tower over its frontier's 1,310,720 token rows
+    ("gnn_wgrad", D, 3 * D, torch.bfloat16, True, R_GNN),
+    ("gnn_wgrad_dwo", D, D, torch.bfloat16, True, R_GNN),
+    ("gnn_wgrad_daw", D, Q, torch.float32, True, R_GNN),
+    ("gnn_wgrad_daq", Q, 1, torch.float32, False, R_GNN)]
 # ablation kernel vs plain version, max|a - b| / max|b| per stage: both
 # round to bf16 at the same points, their f32 sums run in another order, so
 # a value at a rounding edge may land one bf16 step away
@@ -464,6 +509,13 @@ def check_backward(FE):
         plain = outs(FE.weight_grad_reference(a, b, bias=bias))
         errs[key] = rel_err(flat(got), flat(plain))
         errs[key + "_abs"] = float((flat(got) - flat(plain)).abs().max())
+        # the same function in float64: the sums' own rounding aside
+        exact = (a.double().t() @ b.double(), b.double().sum(0))
+        exact = flat(exact if bias else exact[:1])
+        errs[key + "_f64"] = rel_err(flat(got), exact)
+        errs[key + "_plain_f64"] = rel_err(flat(plain), exact)
+        del exact
+        assert errs[key + "_f64"] < WGRAD_TOL, (key, str(dtype), errs[key + "_f64"])
         assert errs[key] < WGRAD_TOL, (key, str(dtype), errs[key])
         again = outs(FE.weight_grad(a, b, bias=bias))
         assert all(torch.equal(x, y) for x, y in zip(got, again)), \
@@ -476,7 +528,10 @@ def check_backward(FE):
                       cuda_ms(lambda: torch.mm(at, b), 20), (R, K, N, a.element_size(), bias))
         print(f"weight_grad vs plain ({key}: R={R}, K={K}, N={N}, {str(dtype)} x f32, "
               f"bias {'fused' if bias else 'off'}): max err {errs[key]:.3g} of the largest "
-              f"output (tol {WGRAD_TOL}); two launches equal bit for bit", flush=True)
+              f"output (tol {WGRAD_TOL}); "
+              f"vs float64 kernel {errs[key + '_f64']:.3g}, plain "
+              f"{errs[key + '_plain_f64']:.3g} (tol {WGRAD_TOL}); two launches equal bit "
+              f"for bit", flush=True)
     return errs, times
 
 
@@ -566,7 +621,10 @@ def train_run(FE, SS, cfg, ds, phase):
     through the plain versions, then the main path (every launch count set
     to 0 before it and read after it, the plain versions made to raise): a
     step over each prefetched batch of ``ds.train`` and an evaluation. A
-    family without the encoder kernels must launch none."""
+    family without the encoder kernels must launch none. The host feed goes
+    through ``Trainer._maybe_frontier`` as ``fit``'s does, so that the GNN's
+    batches carry their neighborhood closure (its time on the first batch
+    is printed)."""
     from pytorch_news_recommender_tpu_torch.data.loader import (
         DEFAULT_UNIQUE_BUCKETS, train_batches,
     )
@@ -576,27 +634,39 @@ def train_run(FE, SS, cfg, ds, phase):
     bs = cfg.train.batch_size
     trainer = Trainer(cfg, ds, device=DEVICE)
     state = trainer.init_state(seed=0)
-    host = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
-                         unique_buckets=DEFAULT_UNIQUE_BUCKETS,
-                         length_split=trainer._length_split)
-    first = next(host)
+    raw = train_batches(ds.train, bs, np.random.default_rng(cfg.train.seed), dedup=True,
+                        unique_buckets=DEFAULT_UNIQUE_BUCKETS,
+                        length_split=trainer._length_split)
+    t0 = time.perf_counter()
+    first = trainer._maybe_frontier(next(raw))
+    frontier_ms = (time.perf_counter() - t0) * 1e3
+    host = map(trainer._maybe_frontier, raw)
     # a family that encodes by id (nrms_bert) has no length split
     assert ("short_mark" in first) == (trainer._length_split is not None), \
         "the batch must use both the short and the long block"
+    assert ("gnn_frontier_ids" in first) == bool(trainer._frontier_depth), first.keys()
 
     # one step through the kernels against the same step through the plain versions
     lk, gk = loss_and_grads(trainer, state, first, 7)
     with plain_kernels(FE, SS):
         lp, gp = loss_and_grads(trainer, trainer.init_state(seed=0), first, 7)
     names = [n for n, _ in state.model.named_parameters()]
-    assert sorted(gk) == sorted(gp) == sorted(names), "a parameter got no gradient"
-    assert all(float(gk[n].abs().max()) > 0 for n in names), "a zero gradient"
     name = cfg.model.name
+    assert sorted(gk) == sorted(gp) == sorted(names), "a parameter got no gradient"
+    assert all(float(gk[n].abs().max()) > 0 for n in names
+               if n not in EXACT_ZERO_GRADS.get(name, ())), "a zero gradient"
     scale = max(float(g.abs().max()) for g in gp.values())
     grad_err = max(float((gk[n] - gp[n]).abs().max()) for n in names) / scale
     loss_err = abs(lk - lp) / abs(lp)
     assert loss_err < 0.01 and grad_err < 2e-2, (lk, lp, grad_err)
     short = first["short_mark"].shape[0] if "short_mark" in first else 0
+    if "gnn_frontier_ids" in first:
+        real = int((first["gnn_frontier_ids"] != 0).sum()) + 1
+        print(f"[phase {phase}] {name} frontier of the first batch: {real} news of the "
+              f"{trainer._frontier_depth}-hop closure of {first['unique_ids'].shape[0]} "
+              f"unique slots, padded to {first['gnn_frontier_ids'].shape[0]}; built on the "
+              f"host in {frontier_ms:.1f} ms (in fit's and this run's prefetch thread)",
+              flush=True)
     print(f"[phase {phase}] {name} train step kernel vs plain (unique "
           f"{first['unique_ids'].shape[0]}, short {short}): loss "
           f"{lk:.5f} vs {lp:.5f} (rel {loss_err:.3g}, tol 0.01); grads max err "
@@ -617,7 +687,9 @@ def train_run(FE, SS, cfg, ds, phase):
             losses.append(float(m["loss"]))   # waits for the step
             step_ms.append((time.perf_counter() - t0) * 1e3)
             widths.append((batch["unique_ids"].shape[0], batch["short_mark"].shape[0]
-                           if "short_mark" in batch else 0))
+                           if "short_mark" in batch else 0,
+                           batch["gnn_frontier_ids"].shape[0]
+                           if "gnn_frontier_ids" in batch else 0))
         steps = len(ds.train) // bs
         step_launches = {k: fn.launches for k, fn in counted.items()}
         assert len(losses) == steps and np.all(np.isfinite(losses)), losses
@@ -635,17 +707,20 @@ def train_run(FE, SS, cfg, ds, phase):
     # dWqkv+dbqkv, dWo+dbo, daw+dab, daq: four launches per backward call
     assert launches["wgrad"] == 4 * launches["bwd"], launches
     assert np.isfinite(metrics["auc"]) and metrics["n_impressions"] == 512, metrics
+    frontier = (f"; frontier widths {sorted(set(f for _, _, f in widths))}"
+                if trainer._frontier_depth else "")
     print(f"[phase {phase}] {name} trained {steps} steps: loss first {q} {first_q:.4f} -> "
           f"last {q} {last_q:.4f}; unique news per step "
-          f"{np.mean([w for w, _ in widths]):.0f} (short block "
-          f"{np.mean([s for _, s in widths]):.0f}); dev AUC {metrics['auc']:.4f} over 512 "
-          f"impressions (eval {eval_s:.2f} s); launches {launches}", flush=True)
+          f"{np.mean([w for w, _, _ in widths]):.0f} (short block "
+          f"{np.mean([s for _, s, _ in widths]):.0f}){frontier}; dev AUC "
+          f"{metrics['auc']:.4f} over 512 impressions (eval {eval_s:.2f} s); launches "
+          f"{launches}", flush=True)
     return {"launches": launches, "step_launches": step_launches, "step_ms": step_ms,
             "trainer": trainer, "state": state, "first": first, "metrics": metrics,
             "loss_err": loss_err, "grad_err": grad_err}
 
 
-def family_data(abst_len=None, bert_dim=0, n_users=0):
+def family_data(abst_len=None, bert_dim=0, n_users=0, n_neighbors=0, sample_size=None):
     """The data of phases 9-15: the JAX package's defaults on the 65,238-news
     corpus with MIND's mean title length, 10 entities per news from a
     20,000-entity vocabulary with 100-d pretrained vectors, 293 topics over
@@ -653,22 +728,28 @@ def family_data(abst_len=None, bert_dim=0, n_users=0):
     FAMILY_STEPS batches of training impressions and 512 dev impressions;
     ``abst_len`` (mean, sd) of the abstracts' real words, the generator's
     fixed 70% fill when None; ``bert_dim``-wide BERT vectors and
-    ``n_users`` users (the impressions drawn from the users' topics) when
-    given."""
+    ``n_users`` users (the impressions drawn from the users' topics), an
+    ``n_neighbors``-neighbor news graph (same-topic news) and
+    ``sample_size`` negatives a training impression when given."""
     from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
     from pytorch_news_recommender_tpu_torch.data import synthetic
 
     cfg = Config(data=DataConfig(dataset="synthetic"))
+    if sample_size is not None:
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                sample_size=sample_size))
     t0 = time.perf_counter()
     ds = synthetic.generate(cfg.data, seed=2, n_news=N_NEWS, vocab_size=VOCAB,
                             n_topics=293, n_categories=18, n_subcategories=294,
                             n_entities=20_000, entities_per_news=10, entity_dim=100,
                             n_train=FAMILY_STEPS * cfg.train.batch_size, n_dev=512,
                             title_len=(11.5, 4), abst_len=abst_len, bert_dim=bert_dim,
-                            n_users=n_users)
+                            n_users=n_users, n_neighbors=n_neighbors)
     assert ds.meta.entity_nums == 20_001 and cfg.model.entity_embed_size == 100
     extra = (f", {bert_dim}-wide BERT vectors" if bert_dim else "") + (
-        f", {ds.meta.n_users - 1} users" if n_users else "")
+        f", {ds.meta.n_users - 1} users" if n_users else "") + (
+        f", {n_neighbors} graph neighbors a news" if n_neighbors else "") + (
+        f", {cfg.data.sample_size} negatives an impression" if sample_size else "")
     print(f"family data: {time.perf_counter() - t0:.1f} s ({len(ds.train)} impressions, "
           f"{ds.news.entity.shape[1]} entities per news of {ds.meta.entity_nums - 1}, "
           f"{ds.meta.category_nums} categories, {ds.meta.subcategory_nums} subcategories"
@@ -676,10 +757,33 @@ def family_data(abst_len=None, bert_dim=0, n_users=0):
     return cfg, ds
 
 
+def lr_probe(cfg, ds, name, lr, phase):
+    """The losses of PROBE_STEPS training steps of family ``name`` at
+    learning rate ``lr`` (no check: a measurement)."""
+    from pytorch_news_recommender_tpu_torch.data.loader import train_batches
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer
+
+    fcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, name=name),
+                               train=dataclasses.replace(cfg.train, learning_rate=lr))
+    trainer = Trainer(fcfg, ds, device=DEVICE)
+    state = trainer.init_state(seed=0)
+    losses = []
+    for batch in itertools.islice(train_batches(
+            ds.train, fcfg.train.batch_size, np.random.default_rng(fcfg.train.seed),
+            dedup=True), PROBE_STEPS):
+        state, m = trainer.run_step(state, batch)
+        losses.append(round(float(m["loss"]), 4))
+    print(f"[phase {phase}] {name} at learning rate {lr}: losses of {PROBE_STEPS} steps "
+          f"{losses}", flush=True)
+    return losses
+
+
 def family_cli_run(name, phase):
     """The CLI with ``--model name`` on the card at the small synthetic
     size: ``train`` (checkpoints), ``eval`` of the best step, and ``serve``'s
-    HTTP daemon answering one ``/score``. Returns the checkpoint's path."""
+    HTTP daemon answering one ``/score`` (for a family whose news vectors
+    depend on the user, NPA, ``serve`` must fail as the JAX CLI's does).
+    Returns the checkpoint's path."""
     from pytorch_news_recommender_tpu_torch import cli
 
     save = WORK / f"cli_{name}"
@@ -689,8 +793,17 @@ def family_cli_run(name, phase):
                      "--save-dir", str(save)]) == 0
     ckpt = str(save / name)
     assert cli.main(["eval", *data, "--ckpt", ckpt]) == 0
-    srv = cli.build_server(cli.build_parser().parse_args(
-        ["serve", *data, "--ckpt", ckpt, "--port", "0"]))
+    serve_args = cli.build_parser().parse_args(["serve", *data, "--ckpt", ckpt, "--port", "0"])
+    if name == "npa":
+        try:
+            cli.build_server(serve_args)
+            raise AssertionError("cli serve --model npa served")
+        except ValueError as e:
+            assert "TWO_TOWER=False" in str(e), e
+        print(f"[phase {phase}] cli train / eval --model {name} ran on the card; serve "
+              f"refused (user-conditioned news vectors)", flush=True)
+        return ckpt
+    srv = cli.build_server(serve_args)
     # each family's class lives in the module named after it (NRMSBert in
     # models/nrms_bert.py, DiSANRec in models/disan.py)
     assert type(srv.rec.model).__module__.rsplit(".", 1)[-1] == name, type(srv.rec.model)
@@ -707,8 +820,8 @@ def family_cli_run(name, phase):
 
 
 def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
-               model_over=None):
-    """Phases 9-15, one family (``model_over``: model fields beside the JAX
+               model_over=None, train_over=None):
+    """Phases 9-19, one family (``model_over``: model fields beside the JAX
     defaults): training through ``train_run``, then a ``Recommender`` at the
     trained weights, the main serving path (launch counts set to 0 before it
     and read after it, the plain versions made to raise): the corpus
@@ -718,20 +831,28 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
     top-10 scores and the fresh news vector held to those of a recommender
     built and run with the plain versions of the towers. A family without
     a user tower over the cached vectors (LSTUR) must refuse ``top_k``, and
-    one that encodes from BERT vectors ``add_news``. With ``workflow``, also
-    a checkpoint of the trained state restored and evaluated
-    (``restore_run``); with ``workflow`` or ``cli``, the CLI
+    one that encodes from BERT vectors ``add_news``, and a family whose news
+    vectors depend on the user (NPA) the ``Recommender`` itself. The
+    family's training defaults (``FAMILY_TRAIN_DEFAULTS``: NPA's and
+    Fastformer's learning rates) apply, as ``cli train`` applies them, then
+    ``train_over`` (train fields, as ``cli train --lr`` overrides). With
+    ``workflow``, also a checkpoint of the trained state restored and
+    evaluated (``restore_run``); with ``workflow`` or ``cli``, the CLI
     (``family_cli_run``); both off the counted paths. Returns the launch
     counts of both paths."""
+    from pytorch_news_recommender_tpu_torch.config import FAMILY_TRAIN_DEFAULTS
     from pytorch_news_recommender_tpu_torch.serve import Recommender
 
-    fcfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, name=name, **(model_over or {})))
+    fcfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, name=name, **(model_over or {})),
+        train=dataclasses.replace(cfg.train, **{**FAMILY_TRAIN_DEFAULTS.get(name, {}),
+                                                **(train_over or {})}))
     torch.cuda.reset_peak_memory_stats()
     run = train_run(FE, SS, fcfg, ds, phase)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     assert run["launches"]["scatter"] == 0, run["launches"]
     kernels = uses_encoder_kernels(run["state"].model)
+    two_tower = run["state"].model.TWO_TOWER
     params = run["state"].params
     if workflow:
         shutil.rmtree(WORK / name, ignore_errors=True)
@@ -742,6 +863,27 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
     if workflow or cli:
         family_cli_run(name, phase)
     del run["trainer"], run["state"]
+    steps = len(run["step_ms"])
+    p50, p99 = (float(np.percentile(run["step_ms"], q)) for q in (50, 99))
+    bs = fcfg.train.batch_size
+    per_step = {k: v / steps for k, v in run["step_launches"].items() if k != "scatter"}
+    train_line = (f"{tag} {name} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, "
+                  f"p99 {p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s; dev AUC "
+                  f"{run['metrics']['auc']:.4f}; peak device memory {peak_gib:.2f} GiB "
+                  f"(torch.cuda.max_memory_allocated over the training)")
+    if not two_tower:
+        # NPA: no corpus table to serve from, as in the JAX package
+        try:
+            Recommender(fcfg, ds, params, device=DEVICE)
+            raise AssertionError(f"{name}'s Recommender served")
+        except ValueError as e:
+            assert "TWO_TOWER=False" in str(e), e
+        print(f"[phase {phase}] {name}: Recommender refused (user-conditioned news "
+              f"vectors)", flush=True)
+        print(train_line, flush=True)
+        print(f"[phase {phase}] {name} launches per training step: {per_step}", flush=True)
+        return {"train": run["launches"], "serve": 0, "per_step": per_step,
+                "peak_gib": peak_gib}
     rng = np.random.default_rng(phase)
     users = (rng.choice(np.arange(1, ds.meta.n_users), Recommender.BATCH_PAD, replace=False)
              if ds.meta.n_users > Recommender.BATCH_PAD else np.zeros(Recommender.BATCH_PAD))
@@ -832,23 +974,16 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
     if "bert" in rec.model.FEAT_KEYS:
         fresh_note = "; add_news refused (fresh news needs an external vector)"
     del rec
-    steps = len(run["step_ms"])
-    p50, p99 = (float(np.percentile(run["step_ms"], q)) for q in (50, 99))
-    bs = fcfg.train.batch_size
     print(f"[phase {phase}] {name} served at the trained weights: score_many vs the plain "
           f"towers max err {err:.3g} of scale, {top_note} (tol "
           f"{SCORE_TOL['native']}){fresh_note}; fused_encoder_fwd launches {serve_launches}",
           flush=True)
-    print(f"{tag} {name} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
-          f"{p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s; dev AUC "
-          f"{run['metrics']['auc']:.4f}; peak device memory {peak_gib:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated over the training)", flush=True)
+    print(train_line, flush=True)
     top_p = f"top_k (k=10) p50 {top_k[0]:.2f} ms, p99 {top_k[1]:.2f} ms" if ranks else \
         "top_k refused"
     print(f"{tag} {name} serving: start-up {startup_ms:.1f} ms; corpus encode "
           f"{encode_ms:.1f} ms for {ds.news.n_news} news; score_many (32 x 300) p50 "
           f"{score_many[0]:.2f} ms, p99 {score_many[1]:.2f} ms; {top_p}", flush=True)
-    per_step = {k: v / steps for k, v in run["step_launches"].items() if k != "scatter"}
     print(f"[phase {phase}] {name} launches per training step: {per_step}", flush=True)
     return {"train": run["launches"], "serve": serve_launches, "per_step": per_step,
             "peak_gib": peak_gib}
@@ -1384,6 +1519,20 @@ def main() -> int:
         fam[name] = family_run(FE, SS, fcfg, fds, name, 13 + i, tag, cli=True,
                                model_over=over)
     del fds
+
+    # 16-19. gnn (its title tower over the 2-hop frontier, M=65,536),
+    # fastformer, npa and list_rank on that corpus with a 15-neighbor graph
+    for i, (name, over) in enumerate(LATER_FAMILIES.items()):
+        if i == 0 or name == "list_rank":
+            fcfg, fds = family_data(
+                bert_dim=BERT_DIM, n_users=N_USERS, n_neighbors=GNN_NEIGHBORS,
+                sample_size=LIST_RANK_SAMPLE_SIZE if name == "list_rank" else None)
+            fds.dicts = {"word": word_dict(VOCAB)}
+        fam[name] = family_run(FE, SS, fcfg, fds, name, 16 + i, tag, cli=True,
+                               model_over=over, train_over=LATER_TRAIN.get(name))
+        if name == "npa":
+            fam[name]["probe_losses"] = lr_probe(fcfg, fds, name, NPA_PROBE_LR, 16 + i)
+    del fds
     by_path = {
         "fwd": {"serve": serve_launches, "train": train_launches["fwd"],
                 "train_dedup_gather_mxu": mxu_launches["fwd"]},
@@ -1408,7 +1557,9 @@ def main() -> int:
         products[key] = {"K": Kp, "N": Np, "a_itemsize": itemsize, "bias": bias, "ms": ms,
                          "plain_ms": plain_ms, "library_ms": library_ms,
                          "bound_ms": wgrad_bound(Rp, Kp, Np, itemsize, bias)[0],
-                         "max_rel_err": bwd_errs[key], "max_abs_err": bwd_errs[key + "_abs"]}
+                         "max_rel_err": bwd_errs[key], "max_abs_err": bwd_errs[key + "_abs"],
+                         "max_rel_err_f64": bwd_errs[key + "_f64"],
+                         "plain_max_rel_err_f64": bwd_errs[key + "_plain_f64"]}
     src = "pytorch_news_recommender_tpu_torch/ops/csrc/"
     tpu = "pytorch_news_recommender_tpu/ops/pallas/fused_encoder.py:"
     print(json.dumps({"kernels": [

@@ -63,10 +63,14 @@ def _load_dataset(args, cfg):
 
 def _build_config(args, sample_size=None):
     """The JAX package's config from the common and ``train`` flags."""
-    from pytorch_news_recommender_tpu_torch.config import Config, synthetic_config
+    from pytorch_news_recommender_tpu_torch.config import (
+        Config, apply_family_defaults, synthetic_config,
+    )
 
     d = (synthetic_config() if args.data == "synthetic" else Config()).to_dict()
     d["model"]["name"] = args.model
+    # the family's training defaults, unless --lr is given (0.0 included)
+    apply_family_defaults(d, {"learning_rate"} if args.lr is not None else set())
     for flag, attr in (("--embed-dim", "embed_dim"), ("--heads", "heads"),
                        ("--batch-size", "batch_size"),
                        ("--eval-batch-size", "eval_batch_size")):
@@ -345,13 +349,17 @@ def cmd_serve(args) -> int:
 def cmd_models(args) -> int:
     import importlib
 
+    from pytorch_news_recommender_tpu_torch.config import FAMILY_TRAIN_DEFAULTS
     from pytorch_news_recommender_tpu_torch.models import available_models
 
     for name in available_models():
         mod = importlib.import_module(
             f"pytorch_news_recommender_tpu_torch.models.{name}")
         doc = (mod.__doc__ or "").strip().splitlines()
-        print(f"{name:12s} {doc[0].rstrip('.') if doc else ''}")
+        fam = FAMILY_TRAIN_DEFAULTS.get(name)
+        tag = ("  [defaults: " + ", ".join(f"{k}={v}" for k, v in fam.items()) + "]"
+               if fam else "")
+        print(f"{name:12s} {doc[0].rstrip('.') if doc else ''}{tag}")
     return 0
 
 

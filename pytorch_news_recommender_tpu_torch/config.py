@@ -286,3 +286,24 @@ def synthetic_config(**overrides) -> Config:
                 d[k] = v
         cfg = Config.from_dict(d)
     return cfg
+
+
+# Per-family training defaults, applied where the family is chosen (``cli
+# train``), never inside the Trainer, so an explicit Config is taken as it
+# is: the JAX package's ``FAMILY_TRAIN_DEFAULTS`` (its npa learning rate from
+# ``benchmarks/npa_sweep.py``, fastformer's from a 3-epoch probe).
+FAMILY_TRAIN_DEFAULTS: dict = {
+    "npa": {"learning_rate": 2e-2},
+    "fastformer": {"learning_rate": 1e-2},
+}
+
+
+def apply_family_defaults(d: dict, explicit: set = frozenset()) -> dict:
+    """Overlays ``FAMILY_TRAIN_DEFAULTS[model.name]`` onto the config dict
+    ``d``, skipping the train fields named in ``explicit`` (flags the user
+    passed win)."""
+    for field, value in FAMILY_TRAIN_DEFAULTS.get(
+            d.get("model", {}).get("name", ""), {}).items():
+        if field not in explicit:
+            d["train"][field] = value
+    return d

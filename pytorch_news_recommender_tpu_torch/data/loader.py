@@ -10,9 +10,12 @@ of the single-process parts of the JAX package's ``data/loader.py``).
 * Eval impressions are bucketed by candidate count and padded only to the
   bucket width.
 
-The multi-process feed (``train_batches_sliced``), the GNN frontier and the
-C++ dedup of ``native/`` are not ported yet (``ROADMAP.md``); the numpy
-dedup below gives the same arrays as the C++ one.
+* :func:`add_gnn_frontier` attaches a dedup batch's deduplicated
+  neighborhood closure (the GNN family encodes each title in it once).
+
+The multi-process feed (``train_batches_sliced``) and the C++ dedup of
+``native/`` are not ported yet (``ROADMAP.md``); the numpy dedup below gives
+the same arrays as the C++ one.
 """
 
 from __future__ import annotations
@@ -179,6 +182,70 @@ def train_batches(
             batch["user_ids"] = data.user_ids[idx]
         yield (dedup_batch(batch, unique_buckets, length_split)
                if dedup else batch)
+
+
+# Finer rungs near the top: closures saturate toward the corpus size on dense
+# graphs, and a coarse last rung would encode a large pad of dead titles.
+GNN_FRONTIER_BUCKETS = (2048, 4096, 8192, 12288, 16384, 24576, 32768,
+                        40960, 49152, 53248, 57344, 61440, 65536)
+
+
+def _frontier_closure(uids: np.ndarray, neighbors: np.ndarray,
+                      depth: int) -> np.ndarray:
+    """Deduplicated ``depth``-hop neighborhood closure of ``uids`` (sorted
+    unique ids; slot 0 is always the pad news 0)."""
+    cur = np.unique(uids)
+    frontier = cur
+    for _ in range(depth):
+        cur = np.unique(neighbors[cur])
+        frontier = np.union1d(frontier, cur)
+    if frontier[0] != 0:
+        frontier = np.concatenate([np.zeros(1, frontier.dtype), frontier])
+    return frontier
+
+
+def _frontier_block(uids: np.ndarray, frontier: np.ndarray, width: int,
+                    neighbors: np.ndarray):
+    """One frontier block of ``width`` slots: ``(frontier_ids [width],
+    nbr_pos [width, K], self_pos [len(uids)])``, positions local to the
+    block. A neighbor outside the closure maps to position 0, the pad news,
+    which the model masks (``frontier_ids[pos] == 0``)."""
+    fbuf = np.zeros(width, np.int32)
+    fbuf[: len(frontier)] = frontier
+    pos_of = np.zeros(neighbors.shape[0], np.int32)
+    pos_of[frontier] = np.arange(len(frontier), dtype=np.int32)
+    in_closure = np.zeros(neighbors.shape[0], bool)
+    in_closure[frontier] = True
+    neigh_ids = neighbors[fbuf]                      # [width, K]
+    neigh_ids = np.where(in_closure[neigh_ids], neigh_ids, 0)
+    neigh_ids[fbuf == 0] = 0                         # the pad news has none
+    return fbuf, pos_of[neigh_ids].astype(np.int32), \
+        pos_of[uids].astype(np.int32)
+
+
+def add_gnn_frontier(batch: Batch, neighbors: np.ndarray, depth: int,
+                     buckets: Sequence[int] = GNN_FRONTIER_BUCKETS) -> Batch:
+    """``batch`` (dedup form) with its deduplicated ``depth``-hop
+    neighborhood closure ``S = V ∪ N(V) ∪ ... ∪ N^depth(V)`` attached, so
+    that the GNN family encodes each title in ``S`` once and runs its GAT
+    layers level by level over position gathers:
+
+    * ``gnn_frontier_ids [F]``: the closure's ids, slot 0 the pad news,
+      padded to a width of ``buckets``;
+    * ``gnn_nbr_pos [F, K]``: each node's neighbors as positions in that
+      buffer (0 for a neighbor outside the closure: only nodes at the
+      closure's edge have one, and their values feed no output);
+    * ``gnn_self_pos [U]``: each unique slot's position in the buffer.
+
+    A direct-form batch and ``depth <= 0`` leave the batch as it is."""
+    if "unique_ids" not in batch or depth <= 0:
+        return batch
+    uids = np.asarray(batch["unique_ids"])
+    frontier = _frontier_closure(uids, neighbors, depth)
+    F = _pick_unique_bucket(len(frontier), buckets)
+    fbuf, nbr_pos, self_pos = _frontier_block(uids, frontier, F, neighbors)
+    return {**batch, "gnn_frontier_ids": fbuf, "gnn_nbr_pos": nbr_pos,
+            "gnn_self_pos": self_pos}
 
 
 @dataclasses.dataclass

@@ -62,6 +62,12 @@ class RecModel(nn.Module):
     LENGTH_SPLIT_OK = True
     # the family records auxiliary losses (``sow_loss``) for the train step
     HAS_AUX_LOSS = False
+    # the trainer attaches the GNN frontier (``loader.add_gnn_frontier``) to
+    # dedup batches
+    WANTS_GNN_FRONTIER = False
+    # eval and serving encode the corpus level by level
+    # (:func:`corpus_encode_levelwise`) instead of by chunks of ids
+    CORPUS_LEVELWISE = False
 
     def __init__(self):
         super().__init__()
@@ -184,3 +190,35 @@ class RecModel(nn.Module):
         return self.score_impression(
             batch, browsed_ids, cand_ids, news_vecs[browsed_ids.long()],
             news_vecs[cand_ids.long()], news_feats)
+
+
+@torch.no_grad()
+def corpus_encode_levelwise(model: RecModel, news_feats: Batch,
+                            chunk: int) -> torch.Tensor:
+    """Whole-corpus news vectors of a ``CORPUS_LEVELWISE`` family (GNN):
+    the titles once for every news (``encode_title_ids``), then one pass of
+    each GAT layer over the whole table (``gat_chunk``), deepest layer
+    first, ``chunk`` news at a time: ``1 + n_layers`` passes instead of the
+    ``1 + K + ... + K^n_layers`` titles per news of the recursive encode.
+    The one implementation behind ``Trainer.compute_news_vectors`` and the
+    ``Recommender``'s corpus encode. ``news_feats`` is an argument of every
+    pass, so the tables read are those of the call."""
+    n = int(news_feats["title"].shape[0])
+    device = news_feats["title"].device
+
+    def chunked(fn):
+        outs = []
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            ids = torch.zeros(chunk, dtype=torch.int32, device=device)
+            ids[:e - s] = torch.arange(s, e, dtype=torch.int32, device=device)
+            outs.append(fn(ids))
+        return torch.cat(outs)[:n]
+
+    titles = chunked(lambda ids: model.encode_title_ids(ids, news_feats))
+    h = titles
+    # deepest layer first: the recursive encode's per-depth layer order
+    for li in reversed(range(len(model.gat_layers))):
+        h = chunked(lambda ids, prev=h, li=li: model.gat_chunk(
+            ids, titles, prev, news_feats, li))
+    return h

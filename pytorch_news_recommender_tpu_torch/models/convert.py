@@ -8,7 +8,9 @@ every family: LSTUR's GRU cell under ``nn.scan`` is ``gru/cell/{ir,iz,in,
 hr,hz,hn}/...`` and its title conv keeps Flax's ``[k, in, out]`` kernel
 (``title_encoder/title_cnn/kernel``); DiSAN's directions are
 ``disan/{fw,bw}/...`` with their ``b1`` and ``bf``; ``nrms_bert``'s table is
-``bert_embedding/embedding``.
+``bert_embedding/embedding``; the GNN's layers are ``gat0``, ``gat1``, ...
+(``gat0/gate/kernel``), ``list_rank``'s blocks ``block0``, ... and
+Fastformer's layers ``news_tower/layer0/...``.
 
 A flat weights directory holds ``config.json`` (the JAX package's format)
 and ``params.npz`` (one float32 array per Flax path); the train state's

@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pytorch_news_recommender_tpu_torch.ops.attention import additive_attention_with_weights
+from pytorch_news_recommender_tpu_torch.ops.attention import (
+    additive_attention_with_weights, multi_head_self_attention,
+)
 from pytorch_news_recommender_tpu_torch.ops.fused_encoder import fused_news_encoder
 
 
@@ -297,3 +299,88 @@ class UserEncoder(nn.Module):
 
     def forward(self, news_vecs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return self.tower(news_vecs, mask)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Flax's ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Self-attention with a fused QKV projection and an output projection,
+    in Flax's layout (``wqkv [D, 3D]``, ``bqkv``, ``wo [D, D]``, ``bo``;
+    Xavier-uniform matrices, zero biases), through the plain
+    ``ops/attention.multi_head_self_attention``: the JAX module never calls
+    a Pallas kernel (its ``use_pallas`` field is unused). ``D`` must be a
+    multiple of ``num_heads``, as the JAX module asserts."""
+
+    def __init__(self, num_heads: int, model_dim: int, compute_dtype: torch.dtype):
+        super().__init__()
+        D = model_dim
+        if D % num_heads:
+            raise ValueError(f"model dim {D} is not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.compute_dtype = compute_dtype
+        self.wqkv = nn.Parameter(torch.empty(D, 3 * D))
+        self.bqkv = nn.Parameter(torch.empty(3 * D))
+        self.wo = nn.Parameter(torch.empty(D, D))
+        self.bo = nn.Parameter(torch.empty(D))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wqkv, self.wo):
+            _xavier_uniform(w, generator)
+        for b in (self.bqkv, self.bo):
+            _draw(b, torch.zeros_like)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cd = self.compute_dtype
+        return multi_head_self_attention(
+            x.to(cd), self.wqkv.to(cd), self.bqkv.to(cd), self.wo.to(cd),
+            self.bo.to(cd), self.num_heads, mask)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """GELU FFN with a residual and LayerNorm: ``norm(x + drop(fc2(drop(
+    gelu(fc1(x))))))``."""
+
+    def __init__(self, model_dim: int, hidden_dim: int, rate: float,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.fc1 = Dense(model_dim, hidden_dim, compute_dtype)
+        self.fc2 = Dense(hidden_dim, model_dim, compute_dtype)
+        self.norm = LayerNorm(model_dim, compute_dtype)
+        self.rate = rate
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in (self.fc1, self.fc2, self.norm):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = lambda t: dropout(t, self.rate, deterministic, generator)  # noqa: E731
+        h = drop(self.fc2(drop(gelu(self.fc1(x)))))
+        return self.norm(x + h)
+
+
+class TransformerEncoderBlock(nn.Module):
+    """MHSA -> dropout -> ``norm(x + h)`` -> :class:`PositionwiseFeedForward`
+    (the listwise re-ranker's block)."""
+
+    def __init__(self, num_heads: int, model_dim: int, ff_dim: int, rate: float,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.mhsa = MultiHeadSelfAttention(num_heads, model_dim, compute_dtype)
+        self.norm = LayerNorm(model_dim, compute_dtype)
+        self.ffn = PositionwiseFeedForward(model_dim, ff_dim, rate, compute_dtype)
+        self.rate = rate
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in (self.mhsa, self.norm, self.ffn):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(self.mhsa(x, mask), self.rate, deterministic, generator)
+        x = self.norm(x + h)
+        return self.ffn(x, deterministic, generator)

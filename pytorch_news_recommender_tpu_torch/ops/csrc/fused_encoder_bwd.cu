@@ -146,9 +146,13 @@
 //   columns (8 times at N = 900, from L2).
 // * Split-K over a fixed partition of R: the number of splits is a
 //   function of R and the tile count only (at most 132 blocks, one per SM
-//   of an H100, at least 256 rows each), never of the card; each split
-//   writes its partial tile, and a second kernel sums the partials in split
-//   order. Two launches give the same bits.
+//   of an H100, at least 256 rows each; past 16,384 rows a split, a whole
+//   multiple of that count), never of the card; each split writes its
+//   partial tile, and a second kernel sums the partials in split order. Two
+//   launches give the same bits. The row cap bounds each accumulator's
+//   chain of MMA sums, whose error grows with its length: a split of
+//   81,920 rows (the GNN's 1,310,720-row frontier in 16 splits) sat 2.0e-4
+//   of the largest output from the float64 product, 5,120 rows 1.3e-5.
 
 #include <cstdint>
 
@@ -167,6 +171,7 @@ constexpr int kWgStrideB = kWgBN + 4;            // floats per staged b row
 constexpr int kWgStrideS = kWgBN + 8;            // bf16 per row of b's split tiles (272 B)
 constexpr int kWgTargetBlocks = 132;
 constexpr int kWgMinRows = 256;
+constexpr long kWgMaxRows = 16384;   // rows per split, a multiple of kWgBR
 static_assert(kWgThreads / 32 * 2 == kWgBR, "each warp copies two rows of a stage");
 
 // Per a's type: elements per staged a row, 324 floats (scalar fragment
@@ -961,6 +966,10 @@ WgPlan weight_grad_plan(long R, int Kout, int N) {
   const long by_rows = (R + kWgMinRows - 1) / kWgMinRows;
   s = s < by_rows ? s : by_rows;
   s = s < 1 ? 1 : s;
+  // past kWgMaxRows rows a split, whole multiples of the one-wave count, so
+  // that the added blocks fill whole waves
+  const long by_cap = (R + kWgMaxRows - 1) / kWgMaxRows;
+  if (s < by_cap) s = (by_cap + s - 1) / s * s;
   p.rows = ((R + s - 1) / s + kWgBR - 1) / kWgBR * kWgBR;
   p.splits = p.rows > 0 ? (int)((R + p.rows - 1) / p.rows) : 1;
   return p;

@@ -9,10 +9,14 @@ JAX package's ``serve.py``).
   to :attr:`Recommender.BATCH_PAD` rows per width bucket.
 * ``top_k(history, k)`` scores the entire corpus with one ``[D] @ [D, N]``
   product and ``torch.topk``, for families whose user tower runs over the
-  cached vectors alone (not LSTUR).
+  cached vectors alone (not LSTUR, not Fastformer).
 * ``add_news`` tokenizes, encodes and appends a news item that was not in
   the corpus; it scores at once (not for ``nrms_bert``, whose news come as
   precomputed vectors).
+
+The GNN's corpus is encoded level by level, as its eval is; a family whose
+news vectors depend on the user (NPA) has no corpus table and is refused,
+as in the JAX package.
 
 ``corpus_cache="int8"`` keeps the table quantized per row (int8 values +
 one float32 scale per news), 4x smaller than float32.
@@ -36,6 +40,7 @@ import torch
 from pytorch_news_recommender_tpu_torch.config import Config
 from pytorch_news_recommender_tpu_torch.data.dataset import RecDataset
 from pytorch_news_recommender_tpu_torch.models import build_model
+from pytorch_news_recommender_tpu_torch.models.common import corpus_encode_levelwise
 from pytorch_news_recommender_tpu_torch.models.convert import assign, load_params
 from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config, params_file
 
@@ -96,6 +101,11 @@ class Recommender:
                            for k, v in dataset.news.as_dict().items()}
         self.model = build_model(self.model_cfg,
                                  {k: tuple(v.shape) for k, v in self.news_feats.items()})
+        if not self.model.TWO_TOWER:
+            raise ValueError(
+                f"model family '{cfg.model.name}' has user-conditioned news "
+                "vectors (TWO_TOWER=False) and cannot serve from a cached "
+                "corpus table; score per request with the Trainer's full forward")
         assign(self.model, params)
         self.model.to(self.device).eval()
         self.H = cfg.data.history_len
@@ -139,7 +149,12 @@ class Recommender:
     @torch.no_grad()
     def _encode_corpus(self, n: int, chunk: int) -> torch.Tensor:
         """The news tower over ids ``0..n-1``, ``chunk`` at a time; the last
-        chunk is zero-padded (id 0 is the all-pad news)."""
+        chunk is zero-padded (id 0 is the all-pad news). A
+        ``CORPUS_LEVELWISE`` family (GNN) encodes level by level, as its
+        eval does (``corpus_encode_levelwise``)."""
+        if self.model.CORPUS_LEVELWISE:
+            return corpus_encode_levelwise(
+                self.model, {k: v[:n] for k, v in self.news_feats.items()}, chunk)
         outs = []
         for s in range(0, n, chunk):
             ids = torch.zeros(chunk, dtype=torch.int32, device=self.device)
@@ -242,8 +257,8 @@ class Recommender:
         """Corpus-wide retrieval: ``(ids, scores)`` of the ``k`` best news,
         the pad row 0 and rows at or past ``n_news`` excluded. Needs a
         family whose user tower runs over the cached vectors alone
-        (``encode_user``); LSTUR has none, and raises, as the JAX package's
-        ``top_k`` fails for it."""
+        (``encode_user``); LSTUR and Fastformer have none, and raise, as the
+        JAX package's ``top_k`` fails for them."""
         if not self.ranks_corpus:
             raise ValueError(
                 f"model family '{self.cfg.model.name}' has no user tower that ranks "
@@ -277,13 +292,19 @@ class Recommender:
         eids = [e for e in (ent_dict.get(q, 0) for q in entities) if e][:d.entity_nums]
         ent = np.zeros(d.entity_nums, np.int32)
         ent[:len(eids)] = eids
-        return {
+        rows = {
             "title": np.asarray(mind._to_ids(title, word, d.n_words_title), np.int32),
             "abst": np.asarray(mind._to_ids(abstract, word, d.n_words_abst), np.int32),
             "categ": np.int32(self.dicts.get("category", {}).get(category, 0)),
             "subcateg": np.int32(self.dicts.get("subcategory", {}).get(subcategory, 0)),
             "entity": ent,
         }
+        if "neighbors" in self.news_feats:
+            # a fresh item has no graph edges yet: the all-pad neighborhood,
+            # which the GNN encodes as an isolated node; edges come with the
+            # next offline graph build
+            rows["neighbors"] = np.zeros(self.news_feats["neighbors"].shape[1], np.int32)
+        return rows
 
     def _fresh_rows(self, title: str, abstract: str, category: str, subcategory: str,
                     entities: Sequence[str]) -> Dict[str, np.ndarray]:

@@ -19,14 +19,20 @@ and with ``model.dedup_gather_mxu`` the inverse gathers' backward through the
 segment-scatter kernel; on the CPU through their plain versions, which
 autograd differentiates.
 
+GNN: the host attaches each dedup batch's neighborhood closure
+(``loader.add_gnn_frontier``) in ``fit``'s prefetched feed, and
+``run_step`` attaches it to a batch that lacks it; eval encodes the corpus
+level by level (``models.common.corpus_encode_levelwise``).
+
 Not ported yet, and refused with the ``ROADMAP.md`` item that ports them:
-Adafactor, the multi-process feed (``sliced_feed``), mesh and model
-parallelism and the GNN frontier.
+Adafactor, the multi-process feed (``sliced_feed``), and mesh and model
+parallelism.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
@@ -37,14 +43,16 @@ from pytorch_news_recommender_tpu_torch.config import Config, TrainConfig
 from pytorch_news_recommender_tpu_torch.data.dataset import DevData, RecDataset
 from pytorch_news_recommender_tpu_torch.data.loader import (
     DEFAULT_UNIQUE_BUCKETS,
+    GNN_FRONTIER_BUCKETS,
     LengthSplit,
+    add_gnn_frontier,
     eval_batches,
     pad_batch,
     train_batches,
 )
 from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
 from pytorch_news_recommender_tpu_torch.models import build_model
-from pytorch_news_recommender_tpu_torch.models.common import RecModel
+from pytorch_news_recommender_tpu_torch.models.common import RecModel, corpus_encode_levelwise
 from pytorch_news_recommender_tpu_torch.models.convert import assign
 from pytorch_news_recommender_tpu_torch.serve import resolve_device
 from pytorch_news_recommender_tpu_torch.train import metrics as M
@@ -206,9 +214,6 @@ class Trainer:
         if cfg.mesh.model_parallel_size > 1:
             raise NotImplementedError("mesh and model-parallel training are not "
                                       "ported yet (ROADMAP.md A.6)")
-        if tc.gnn_frontier_buckets is not None:
-            raise NotImplementedError("the GNN frontier is not ported yet "
-                                      "(ROADMAP.md A.5)")
         if tc.auto_layouts:
             raise ValueError("auto_layouts chooses XLA memory layouts; it has no "
                              "meaning in the PyTorch port")
@@ -230,6 +235,16 @@ class Trainer:
                 f"{sorted(self.news_feats)})")
         self._length_split = self._make_length_split()
         self._eval_order = None
+        # GNN: the depth of the neighborhood closure attached to dedup
+        # batches (the model builds max(1, gnn_layers) GAT layers)
+        self._frontier_depth = 0
+        if self.model.WANTS_GNN_FRONTIER and dataset.news.neighbors is not None:
+            self._frontier_depth = max(1, int(self.model_cfg.gnn_layers))
+            if not tc.dedup_batches:
+                print("WARNING: GNN family with dedup_batches=False: the frontier "
+                      "closure attaches to dedup batches only, and the recursive "
+                      "neighborhood expansion encodes 1+K+...+K^depth titles per "
+                      "news. Set TrainConfig.dedup_batches=True.", file=sys.stderr)
 
     def _make_length_split(self) -> Optional[LengthSplit]:
         """Host spec of the length-bucketed unique-news encode (it must
@@ -317,6 +332,22 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                    device=self.device) for k, v in batch.items()}
 
+    def _maybe_frontier(self, batch):
+        """``batch`` with the GNN frontier attached (``add_gnn_frontier``,
+        widths from ``train.gnn_frontier_buckets``, else
+        ``GNN_FRONTIER_BUCKETS``) when the family wants it and the batch is
+        a dedup batch without one; else ``batch`` as it is. Host numpy
+        arrays or tensors."""
+        if not (self._frontier_depth and "unique_ids" in batch
+                and "gnn_frontier_ids" not in batch):
+            return batch
+        uids = batch["unique_ids"]
+        uids = uids.cpu().numpy() if torch.is_tensor(uids) else np.asarray(uids)
+        front = add_gnn_frontier({"unique_ids": uids}, self.dataset.news.neighbors,
+                                 self._frontier_depth,
+                                 self.cfg.train.gnn_frontier_buckets or GNN_FRONTIER_BUCKETS)
+        return {**batch, **{k: v for k, v in front.items() if k != "unique_ids"}}
+
     def run_step(self, state: TrainState, batch):
         """One training step on a numpy (or device) batch, its dropout seeds
         drawn from :func:`step_generator` of ``(train.seed + 1,
@@ -324,7 +355,7 @@ class Trainer:
         place. With ``skip_nonfinite_updates``, a step whose loss is not
         finite leaves the parameters and the optimizer as they were; the
         step counter advances either way."""
-        batch = self._to_device(batch)
+        batch = self._to_device(self._maybe_frontier(batch))
         model = state.model
         model.zero_grad(set_to_none=True)
         scores = model(batch, self.news_feats, deterministic=False,
@@ -359,9 +390,13 @@ class Trainer:
         """The whole corpus encoded once, in chunks of ``eval_encode_chunk``
         news -> ``[N, D]``. With a length split the corpus is encoded in
         length order, chunks made only of short news at the truncated
-        length (exact), and put back in id order with one gather."""
+        length (exact), and put back in id order with one gather. A
+        ``CORPUS_LEVELWISE`` family (GNN) encodes level by level
+        (``corpus_encode_levelwise``)."""
         model = self._model_of(state_or_params)
         chunk = self.cfg.train.eval_encode_chunk
+        if model.CORPUS_LEVELWISE:
+            return corpus_encode_levelwise(model, self.news_feats, chunk)
         n = self.dataset.news.n_news
         split = self._length_split
         order = inv = None
@@ -498,7 +533,9 @@ class Trainer:
                                       shuffle_rng, dedup=cfg.train.dedup_batches,
                                       unique_buckets=ub,
                                       length_split=self._length_split)
-            for batch in device_prefetch(host_iter, self.device):
+            # the GNN frontier is built in the prefetch thread, off the step
+            for batch in device_prefetch(map(self._maybe_frontier, host_iter),
+                                         self.device):
                 state, metrics = self.run_step(state, batch)
                 step_i += 1
                 if step_i % cfg.train.log_every == 0:

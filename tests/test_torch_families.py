@@ -1,12 +1,16 @@
 """The port's ``nrms_entity``, ``tanr``, ``hierec``, ``naml``,
-``nrms_bert``, ``disan`` and ``lstur`` families against the JAX package's,
-on the CPU in float32, from the Flax init weights carried over by
-``models/convert.py``: the news tower, the two-tower head, the direct and
-the dedup + length-split forwards (``nrms_bert``, which encodes by id, the
-dedup form without a split), one training step, the two-tower evaluation,
-HieRec's and NAML's serving, and the CLI. Tolerance rtol/atol 1e-4, as
-``test_torch_nrms.py`` holds NRMS. ``test_torch_bert_disan_lstur.py`` holds
-the new families' own pieces and LSTUR's serving.
+``nrms_bert``, ``disan``, ``lstur``, ``gnn``, ``fastformer``, ``npa`` and
+``list_rank`` families against the JAX package's, on the CPU in float32,
+from the Flax init weights carried over by ``models/convert.py``: the news
+tower (NPA's user-independent token maps), the two-tower head (not NPA's:
+its news vectors depend on the user), the direct and the dedup +
+length-split forwards (the dedup form without a split for the families
+that opt out of it), one training step (the GNN's through its frontier
+form), the evaluation (NPA's scores every batch in full), HieRec's and
+NAML's serving, and the CLI. Tolerance rtol/atol 1e-4, as
+``test_torch_nrms.py`` holds NRMS. ``test_torch_bert_disan_lstur.py`` and
+``test_torch_gnn_and_more.py`` hold the later families' own pieces and
+their serving.
 
 The families are parametrized as :class:`Family` objects (not as their
 names), one test case each."""
@@ -56,9 +60,15 @@ class Family:
 
 
 FAMILIES = [Family("nrms_entity"), Family("tanr"), Family("hierec"), Family("naml"),
-            Family("nrms_bert"), Family("disan"), Family("lstur")]
-# the data a family reads beside DATA: nrms_bert's BERT vectors, LSTUR's users
-FAMILY_DATA = {"nrms_bert": dict(bert_dim=64), "lstur": dict(n_users=50)}
+            Family("nrms_bert"), Family("disan"), Family("lstur"), Family("gnn"),
+            Family("fastformer"), Family("npa"), Family("list_rank")]
+# the families whose news vectors do not depend on the user (all but NPA)
+TWO_TOWER = [f for f in FAMILIES if f.name != "npa"]
+# the data a family reads beside DATA: the BERT vectors of nrms_bert and
+# list_rank, the users of LSTUR and NPA, the GNN's graph (4 neighbors a news)
+FAMILY_DATA = {"nrms_bert": dict(bert_dim=64), "lstur": dict(n_users=50),
+               "gnn": dict(n_neighbors=4), "npa": dict(n_users=50),
+               "list_rank": dict(bert_dim=64)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,6 +87,11 @@ def _pair(name):
 
 @pytest.fixture(params=FAMILIES, ids=str)
 def pair(request):
+    return _pair(request.param.name)
+
+
+@pytest.fixture(params=TWO_TOWER, ids=str)
+def two_tower_pair(request):
     return _pair(request.param.name)
 
 
@@ -120,18 +135,28 @@ def test_flax_paths_map_by_the_plain_rule(pair):
 
 
 def test_encode_news_ids_matches_jax(pair):
+    """The news tower by id (the GNN's recursive form); for NPA, whose
+    pooling depends on the user, its user-independent token maps."""
     tr, jtr, params = pair
     ids = np.array([[0, 1, 2, 3], [7, 0, 399, 400]], np.int32)
-    expect = jax.jit(lambda p, i: jtr.model.apply(
-        {"params": p}, i, jtr.news_feats, True, method="encode_news_ids"))(
-        params, jnp.asarray(ids))
-    with torch.no_grad():
-        got = _model(tr, params).encode_news_ids(torch.from_numpy(ids), tr.news_feats)
+    if tr.model_cfg.name == "npa":
+        titles = tr.dataset.news.title[ids]
+        expect = jax.jit(lambda p, t: jtr.model.apply(
+            {"params": p}, t, method=lambda m, t: m._token_maps(t, True)))(
+            params, jnp.asarray(titles))
+        with torch.no_grad():
+            got = _model(tr, params)._token_maps(torch.from_numpy(titles), True, None)
+    else:
+        expect = jax.jit(lambda p, i: jtr.model.apply(
+            {"params": p}, i, jtr.news_feats, True, method="encode_news_ids"))(
+            params, jnp.asarray(ids))
+        with torch.no_grad():
+            got = _model(tr, params).encode_news_ids(torch.from_numpy(ids), tr.news_feats)
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
 
 
-def test_score_from_vecs_matches_jax(pair):
-    tr, jtr, params = pair
+def test_score_from_vecs_matches_jax(two_tower_pair):
+    tr, jtr, params = two_tower_pair
     rng = np.random.default_rng(0)
     with torch.no_grad():   # the family's news width (NAML's is 2·64 + 2·16)
         width = _model(tr, params).encode_news_ids(torch.ones(1, dtype=torch.int32),
@@ -183,12 +208,15 @@ def _key_bias(name, p):
     projection's bias (the middle third of a ``bqkv``, fused q|k|v), and
     the bias of DiSAN's Source2Token logits (``source2token.fc2.bias``: it
     adds one value per dimension to every token's logit, which the softmax
-    over the tokens ignores, as for the key bias)."""
+    over the tokens ignores, as for the key bias), and list_rank's scoring
+    biases: ``fc.bias`` and the bias of the last block's output LayerNorm
+    (``block0`` at the test config's one block) add one value to every
+    candidate's score, which the softmax cross-entropy ignores."""
     out = torch.zeros_like(p, dtype=torch.bool)
     if name.endswith("bqkv"):
         n = p.shape[0] // 3
         out[n:2 * n] = True
-    if name.endswith("source2token.fc2.bias"):
+    if name.endswith("source2token.fc2.bias") or name in ("fc.bias", "block0.ffn.norm.bias"):
         out[:] = True
     return out
 
@@ -402,14 +430,16 @@ def test_hierec_top_k_ranks_by_the_global_level(hierec_served):
 
 # each family's class, by name
 FAMILY_CLASS = {"tanr": "TANR", "hierec": "HieRec", "naml": "NAML", "nrms_bert": "NRMSBert",
-                "disan": "DiSANRec", "lstur": "LSTUR"}
+                "disan": "DiSANRec", "lstur": "LSTUR", "gnn": "GNNRec",
+                "fastformer": "Fastformer", "list_rank": "ListRank"}
 
 
 @pytest.mark.parametrize("fam", [Family(n) for n in FAMILY_CLASS], ids=str)
 def test_cli_trains_evaluates_and_serves_the_family(fam, tmp_path):
     """``--model`` flows through ``cli train`` / ``eval`` / ``export-vectors``
     and ``serve``'s recommender and daemon on the CPU (the CLI's synthetic
-    data carries BERT vectors and users)."""
+    data carries BERT vectors, users and a graph). NPA, which cannot serve,
+    is in ``test_torch_gnn_and_more.py``."""
     data = ["--data", "synthetic", "--model", fam.name, "--device", "cpu"]
     assert cli.main(["train", *data, "--epochs", "1", "--batch-size", "64",
                      "--save-dir", str(tmp_path)]) == 0

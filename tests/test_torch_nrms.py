@@ -133,7 +133,13 @@ def test_seeded_init_draws_flax_distributions(pair):
 
 
 def test_registry_points_unported_families_at_roadmap():
-    assert available_models() == ["disan", "hierec", "lstur", "naml", "nrms", "nrms_bert",
-                                  "nrms_entity", "tanr"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(synthetic_config(**{"model.name": "list_rank"}).model)
+    """Every family is ported: the port's registry is the JAX package's
+    twelve, and an unknown name raises a ``KeyError`` in both."""
+    from pytorch_news_recommender_tpu.models import available_models as jax_available
+    from pytorch_news_recommender_tpu.models import build_model as jax_build
+
+    assert available_models() == jax_available() and len(available_models()) == 12
+    with pytest.raises(KeyError, match="unknown model family 'nope'"):
+        build_model(synthetic_config(**{"model.name": "nope"}).model)
+    with pytest.raises(KeyError, match="unknown model 'nope'"):
+        jax_build(jax_synthetic_config(**{"model.name": "nope"}).model)

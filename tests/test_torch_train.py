@@ -204,13 +204,41 @@ def test_pretrained_table_loads_widens_and_raises(small):
     ({"train.optimizer": "adafactor"}, NotImplementedError, "A.8"),
     ({"train.sliced_feed": True}, NotImplementedError, "A.6"),
     ({"mesh.model_parallel_size": 2}, NotImplementedError, "A.6"),
-    ({"train.gnn_frontier_buckets": (2048,)}, NotImplementedError, "A.5"),
     ({"train.auto_layouts": True}, ValueError, "XLA"),
 ])
 def test_later_slices_options_raise(small, over, error, match):
     _, ds = small
     with pytest.raises(error, match=match):
         Trainer(synthetic_config(**over), ds, device="cpu").init_state(seed=0)
+
+
+def test_gnn_frontier_buckets_set_the_frontier_widths():
+    """``train.gnn_frontier_buckets`` sets the widths that the GNN frontier
+    is padded to in ``Trainer._maybe_frontier``, the hook of ``run_step``
+    and of ``fit``'s feed, as in the JAX trainer (``GNN_FRONTIER_BUCKETS``
+    without it); a step and an epoch of ``fit`` run on it; another family
+    gets no frontier."""
+    from pytorch_news_recommender_tpu_torch.data.loader import GNN_FRONTIER_BUCKETS
+
+    cfg = synthetic_config(**{"model.name": "gnn"})
+    ds = synthetic.generate(cfg.data, seed=0, n_train=64, n_dev=0, n_neighbors=4)
+    batch = next(train_batches(ds.train, 32, np.random.default_rng(0), dedup=True))
+    for buckets, width in ((None, GNN_FRONTIER_BUCKETS[0]), ((96, 640), 640)):
+        tr = Trainer(synthetic_config(**{"model.name": "gnn",
+                                         "train.gnn_frontier_buckets": buckets}),
+                     ds, device="cpu")
+        assert tr._frontier_depth == 2
+        front = tr._maybe_frontier(batch)
+        assert front["gnn_frontier_ids"].shape == (width,)
+        assert front["gnn_nbr_pos"].shape == (width, 4)
+        assert front["gnn_self_pos"].shape == batch["unique_ids"].shape
+        state, m = tr.run_step(tr.init_state(seed=0), batch)
+        assert np.isfinite(float(m["loss"]))
+        state, _ = tr.fit(state, num_epochs=1, eval_each_epoch=False)
+        assert state.step == 3
+    nrms = Trainer(synthetic_config(**{"train.gnn_frontier_buckets": (96, 640)}), ds,
+                   device="cpu")
+    assert nrms._frontier_depth == 0 and nrms._maybe_frontier(batch) is batch
 
 
 def test_dedup_gather_mxu_trains_on_the_cpu(small):
