@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card: phases 1-22 below
+    python3 chip_smoke.py --nccl     # two or more cards: data-parallel
+                                     # training over nccl (``nccl_run``)
 
 1. Builds the kernels from ``pytorch_news_recommender_tpu_torch/ops/csrc``
    (the fused encoder forward, its backward and the tensor-core weight
@@ -88,6 +90,32 @@
    L=20: 1,310,720 token rows) and the weight-gradient products over its
    rows.
 
+20. Trains NRMS at phase 6's configuration with ``optimizer="adafactor"``
+   (factored second moments for the word table and the towers' matrices):
+   one step through the kernels against the plain step (loss, each
+   parameter's gradient at its own scale, the bf16 noise taken from the
+   plain step against its float32 twin, and the parameters after the
+   update), the same gradients in float32 training, ADAFACTOR_STEPS steps, an
+   evaluation, step time and peak memory beside Adam's, and a checkpoint
+   -> restore -> eval round trip equal bit for bit.
+21. The C++ fast path of ``native/`` (built with g++ into
+   ``build/native/``; it must build here): phase 6's batches from its
+   dedup equal numpy's bit for bit, and the corpus's titles, written as
+   text, tokenize to the same ids through it as through the Python loop;
+   host times of both.
+22. Two ranks on the one card (``torch.multiprocessing`` spawn, ``gloo``,
+   both on ``cuda:0``, the kernels built before the spawn): NRMS at full
+   width, global batch 512 (256 a rank), RANK_STEPS steps through the
+   sliced feed; with dropout 0 the ranks' losses and parameters equal bit
+   for bit after every step, and the losses, the first gradients and the
+   first update within 1% / 2e-2 of one process on the same global batches
+   (``Trainer(replay_ranks=2)``: both ranks' blocks in one multi-block
+   batch); with dropout 0.2 each
+   rank's kernel applies the mask of
+   ``seed + rank * 1,000,003`` (``ops.fused_encoder.shard_seed``); then
+   ``cli train --coordinator ... --log-attention`` and ``cli submit`` on
+   two ranks at the small synthetic size, whose file equals one process's.
+
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
 phase raises; there is no result without a CUDA card, or when the script
@@ -103,6 +131,7 @@ import itertools
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -236,6 +265,32 @@ WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True, R_LONG),
 # a value at a rounding edge may land one bf16 step away
 ABLATION_TOL = 2e-2
 DEVICE = "cuda"
+# phase 20: Adafactor's steps; phase 22: the two ranks' steps (at phase 6's
+# global batch) and the dropout rate of the mask check
+ADAFACTOR_STEPS = 12
+RANK_STEPS, RANK_DROPOUT = 6, 0.2
+# phases 20 and 22: a parameter whose plain bf16 gradient lies further than
+# this relative L2 distance from the plain float32 gradient of the same step
+# is at bf16 noise (chosen from the plain versions alone): its bf16 update is
+# not determined, so it is left out of the update check and its kernel
+# gradient is held to the float32 one within twice the plain one's largest
+# error (the float32 step below holds it tightly). On the H100 at NRMS's
+# first step the two towers' pooling weights (aw, ab, aq) read 0.011-0.019,
+# every other parameter 0.0046-0.0076
+GRAD_NOISE = 1e-2
+# phase 20, float32 training: the kernel step's gradient vs the plain step's,
+# max|a - b| / max|b| of each parameter. The f32 kernels' split products
+# come within 2e-4 of a product's largest output (WGRAD_TOL), and a
+# gradient chains a few of them; a bias gradient whose terms cancel loses
+# more against its own largest entry (the user tower's pooling bias `ab`,
+# whose softmax gradient sums to 0 over each history: 2.2e-3 on the H100)
+F32_GRAD_TOL = 1e-2
+# bf16 gradients, kernel vs plain step, of each parameter not at bf16 noise,
+# as a share of its own largest entry; and the update after it, as a share
+# of each parameter's largest change
+GRAD_TOL = UPDATE_TOL = 2e-2
+# --nccl: the seconds a rank may take for its cli train and cli submit
+NCCL_RANK_S = 150
 
 
 def card() -> str:
@@ -569,17 +624,18 @@ def loss_and_grads(trainer, state, batch, seed):
     return float(loss.detach()), grads
 
 
-def training_data():
-    """The configuration and data of phases 6 and 7: the JAX package's
-    defaults on the 65,238-news corpus with MIND's mean title length, 40
-    batches of training impressions, 512 dev and 256 test impressions."""
+def training_data(steps=TRAIN_STEPS):
+    """The configuration and data of phases 6, 7, 20 and 22: the JAX
+    package's defaults on the 65,238-news corpus with MIND's mean title
+    length, ``steps`` batches of training impressions, 512 dev and 256 test
+    impressions."""
     from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
     from pytorch_news_recommender_tpu_torch.data import synthetic
 
     cfg = Config(data=DataConfig(dataset="synthetic"))
     t0 = time.perf_counter()
     ds = synthetic.generate(cfg.data, seed=1, n_news=N_NEWS, vocab_size=VOCAB,
-                            n_train=TRAIN_STEPS * cfg.train.batch_size, n_dev=512,
+                            n_train=steps * cfg.train.batch_size, n_dev=512,
                             n_test=256, title_len=(11.5, 4))
     print(f"training data: {time.perf_counter() - t0:.1f} s ({len(ds.train)} impressions, "
           f"batch {cfg.train.batch_size}, dropout {cfg.model.dropout}, "
@@ -680,6 +736,7 @@ def train_run(FE, SS, cfg, ds, phase):
         fn.launches = 0
     losses, step_ms, widths = [], [], []
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with no_plain(FE, SS):
         for batch in device_prefetch(itertools.chain([first], host), DEVICE):
             t0 = time.perf_counter()
@@ -692,6 +749,7 @@ def train_run(FE, SS, cfg, ds, phase):
                            if "gnn_frontier_ids" in batch else 0))
         steps = len(ds.train) // bs
         step_launches = {k: fn.launches for k, fn in counted.items()}
+        steps_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         assert len(losses) == steps and np.all(np.isfinite(losses)), losses
         q = max(1, steps // 4)
         first_q, last_q = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
@@ -717,7 +775,7 @@ def train_run(FE, SS, cfg, ds, phase):
           f"{launches}", flush=True)
     return {"launches": launches, "step_launches": step_launches, "step_ms": step_ms,
             "trainer": trainer, "state": state, "first": first, "metrics": metrics,
-            "loss_err": loss_err, "grad_err": grad_err}
+            "loss_err": loss_err, "grad_err": grad_err, "steps_peak_gib": steps_peak_gib}
 
 
 def family_data(abst_len=None, bert_dim=0, n_users=0, n_neighbors=0, sample_size=None):
@@ -1081,7 +1139,8 @@ def restore_run(trainer, state, ds, directory):
         assert torch.equal(restored.params[k], v), k
     a, b = state.opt.state_dict(), restored.opt.state_dict()
     assert (a["count"], a["mini_step"]) == (b["count"], b["mini_step"])
-    for tree in ("mu", "nu"):
+    for tree in state.opt.trees:
+        assert sorted(a[tree]) == sorted(b[tree]), tree
         assert all(torch.equal(a[tree][k], b[tree][k]) for k in a[tree]), tree
     again = fresh.evaluate(restored)
     assert again["auc"] == metrics["auc"], (again["auc"], metrics["auc"])
@@ -1323,6 +1382,523 @@ def serve_run(cfg, ds, params, cache, FE, rng):
         srv.stop()
 
 
+def head_train(ds, n):
+    """``ds`` with its first ``n`` training impressions."""
+    t = ds.train
+    return dataclasses.replace(ds, train=dataclasses.replace(
+        t, browsed_ids=t.browsed_ids[:n], candidate_ids=t.candidate_ids[:n],
+        user_ids=None if t.user_ids is None else t.user_ids[:n]))
+
+
+def step_grads(trainer, state, batch):
+    """The gradients of ``run_step``'s loss on ``batch`` at ``state`` (its
+    dropout seeds from the step generator), without the update."""
+    from pytorch_news_recommender_tpu_torch.train.loop import step_generator, training_loss
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    b = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    scores = model(b, trainer.news_feats, deterministic=False,
+                   generator=step_generator(trainer.cfg.train.seed + 1, state.step))
+    training_loss(model, scores).backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def f32_trainer(trainer, **kw):
+    """A Trainer of ``trainer``'s configuration and data with float32
+    activations (the same initial parameters)."""
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer
+    cfg = trainer.cfg
+    return Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype="float32")), trainer.dataset, device=DEVICE, **kw)
+
+
+def grad_noise(FE, SS, trainer, t32, batch):
+    """The plain versions' step gradients on ``batch`` from the initial
+    parameters in bf16 (``trainer``) and float32 (``t32``) training, and
+    each parameter's bf16 noise: ``|bf16 - f32| / |f32|`` (L2)."""
+    with plain_kernels(FE, SS):
+        gp = step_grads(trainer, trainer.init_state(seed=0), batch)
+        g32 = step_grads(t32, t32.init_state(seed=0), batch)
+    return gp, g32, {n: float((gp[n] - g32[n]).norm() / g32[n].norm()) for n in g32}
+
+
+def hold_grads(gk, gp, g32, noise):
+    """Each parameter's kernel gradient ``gk``, as max|a - b| / max|b| at
+    its own scale: within GRAD_TOL of the plain one ``gp`` where the plain
+    gradient is not at bf16 noise (``noise`` at most GRAD_NOISE), else
+    within twice the plain one's own such error of the float32 gradient
+    ``g32``. Returns ``{parameter: (noise, error)}`` and the noisy set."""
+    readings, noisy, bad = {}, set(), []
+    for n in g32:
+        if noise[n] > GRAD_NOISE:
+            noisy.add(n)
+            err = rel_err(gk[n], g32[n])
+            bad += [n] if err > 2 * rel_err(gp[n], g32[n]) else []
+        else:
+            err = rel_err(gk[n], gp[n])
+            bad += [n] if err >= GRAD_TOL else []
+        readings[n] = (noise[n], err)
+    assert not bad, (bad, readings_text(readings))
+    return readings, noisy
+
+
+def update_errors(before, after_k, after_p, g32, noisy, per_entry):
+    """One optimizer update from ``before`` on two gradient sets: the
+    parameters after it (``after_k``, ``after_p``) compared where the
+    comparison is determined. Adam and Adafactor normalise each update, so
+    an update is only as close as its gradient is relative to its own
+    scale: the ``noisy`` parameters (plain bf16 gradient at bf16 noise,
+    ``grad_noise``) are left out, and must hold under 5% of all entries. Of
+    the others, a parameter with per-entry moments (``per_entry``; Adam's
+    all) is held where its float32 gradient is above 2e-2 of its largest
+    entry (its first update is ``lr * g / |g|``), its largest error as a
+    share of its largest change; a factored one (per-row normalisation) by
+    the relative L2 norm of the update's error. Returns the worst share."""
+    worst, errs = 0.0, {}
+    for n, p0 in before.items():
+        if n in noisy:
+            continue
+        dk, dp = after_k[n].float() - p0, after_p[n].float() - p0
+        if n in per_entry:
+            held = g32[n].abs() > 2e-2 * g32[n].abs().max()
+            err = float((dk - dp)[held].abs().max()) / float(dp.abs().max())
+        else:
+            err = float((dk - dp).norm()) / float(dp.norm())
+        worst, errs[n] = max(worst, err), float(f"{err:.3g}")
+    share = sum(before[n].numel() for n in noisy) / sum(v.numel() for v in before.values())
+    assert worst < UPDATE_TOL and share < 0.05, (worst, share, sorted(noisy), errs)
+    return worst
+
+
+def readings_text(readings):
+    return "{" + ", ".join(f"{n}: {a:.3g}/{b:.3g}" for n, (a, b) in readings.items()) + "}"
+
+
+def update_check(FE, SS, trainer, batch):
+    """Phase 20: one ``run_step`` through the kernels against the same step
+    through the plain versions, from the same weights: the gradients held
+    by ``hold_grads`` (the noise from the plain bf16 and float32 steps,
+    ``grad_noise``), the update by ``update_errors`` (Adafactor's per-entry
+    moments are the parameters ``opt.v`` keeps); and in float32 training,
+    every parameter's kernel gradient within F32_GRAD_TOL of the plain
+    one's largest entry."""
+    t32 = f32_trainer(trainer)
+    before = {n: p.detach().clone() for n, p in trainer.init_state(seed=0).params.items()}
+    gk = step_grads(trainer, trainer.init_state(seed=0), batch)
+    gk32 = step_grads(t32, t32.init_state(seed=0), batch)
+    sk, _ = trainer.run_step(trainer.init_state(seed=0), batch)
+    gp, g32, noise = grad_noise(FE, SS, trainer, t32, batch)
+    with plain_kernels(FE, SS):
+        sp, _ = trainer.run_step(trainer.init_state(seed=0), batch)
+    f32_err = {n: rel_err(gk32[n], g32[n]) for n in g32}
+    print(f"[phase 20] float32 training, kernel vs plain gradient of each parameter: "
+          f"{ {n: float(f'{v:.3g}') for n, v in f32_err.items()} }", flush=True)
+    readings, noisy = hold_grads(gk, gp, g32, noise)
+    assert max(f32_err.values()) < F32_GRAD_TOL, f32_err
+    per_entry = set(sp.opt.v)
+    worst = update_errors(before, sk.params, sp.params, g32, noisy, per_entry)
+    return {"worst": worst, "noisy": noisy, "per_entry": len(per_entry),
+            "readings": readings, "f32": max(f32_err.values())}
+
+
+def adafactor_run(FE, SS, cfg, ds, tag, adam):
+    """Phase 20: NRMS at full width trained with ``optimizer="adafactor"``:
+    the kernel step against the plain step (loss, gradients, and the
+    parameters after the update), ADAFACTOR_STEPS steps on the main path
+    (counted, the plain versions raising) with the loss falling, an
+    evaluation over 512 dev impressions, the step time and peak memory
+    beside Adam's (phase 6, ``adam``), and a checkpoint -> restore -> eval
+    round trip equal bit for bit. Returns the launch counts."""
+    bs = cfg.train.batch_size
+    acfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, optimizer="adafactor"))
+    run = train_run(FE, SS, acfg, head_train(ds, ADAFACTOR_STEPS * bs), 20)
+    state, launches, per_step = run["state"], run["launches"], run["step_launches"]
+    opt = state.opt
+    assert sorted(opt.v_row) == sorted(opt.v_col) == sorted(
+        n for n, p in state.model.named_parameters() if p.dim() == 2 and min(p.shape) >= 128)
+    # 3 encoder calls a step (short, long, users), 4 weight gradients each
+    steps = len(run["step_ms"])
+    assert per_step["fwd"] == per_step["bwd"] == 3 * steps, per_step
+    assert per_step["wgrad"] == 12 * steps, per_step
+    assert {k: per_step[k] / steps for k in ("fwd", "bwd", "wgrad")} == {
+        k: adam["per_step"][k] for k in ("fwd", "bwd", "wgrad")}, (per_step, adam)
+    chk = update_check(FE, SS, run["trainer"], run["first"])
+    shutil.rmtree(WORK / "adafactor", ignore_errors=True)
+    _, _, auc = restore_run(run["trainer"], state, ds, WORK / "adafactor")
+    p50, p99 = (float(np.percentile(run["step_ms"], q)) for q in (50, 99))
+    print(f"[phase 20] adafactor: factored moments for {sorted(opt.v_row)}, per-entry for "
+          f"{chk['per_entry']} parameters; gradients kernel vs plain, per parameter "
+          f"(bf16 noise of the plain step, relative L2 against its float32 twin / kernel "
+          f"error, of the parameter's largest entry; noise above {GRAD_NOISE}: against "
+          f"the float32 step, tol twice the plain step's; else against the plain step, "
+          f"tol {GRAD_TOL}): "
+          f"{readings_text(chk['readings'])}; float32 training, kernel vs plain "
+          f"gradients {chk['f32']:.3g} of each parameter's largest (tol {F32_GRAD_TOL}); "
+          f"update kernel vs plain {chk['worst']:.3g} (per-entry: of each parameter's "
+          f"largest change where its float32 gradient is above 2e-2 of its largest; "
+          f"factored: relative L2; tol {UPDATE_TOL}; not held, at bf16 noise: "
+          f"{sorted(chk['noisy'])}); launches per step {per_step['fwd'] // steps} / "
+          f"{per_step['bwd'] // steps} / {per_step['wgrad'] // steps} (as Adam's); "
+          f"checkpoint -> restore -> eval equal (AUC {auc:.6f})", flush=True)
+    print(f"{tag} train step adafactor (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
+          f"{p99:.2f} ms, peak memory of the steps {run['steps_peak_gib']:.2f} GiB; Adam "
+          f"(phase 6, {adam['steps']} steps): p50 {adam['p50']:.2f} ms, p99 "
+          f"{adam['p99']:.2f} ms, peak {adam['peak']:.2f} GiB", flush=True)
+    return launches
+
+
+def native_run(cfg, ds, tag):
+    """Phase 21: the C++ fast path of ``native/``. It must build on this
+    machine; phase 6's 40 batches from its dedup equal numpy's bit for bit,
+    and the corpus's titles, written out as text, tokenize to the same ids
+    through the C++ tokenizer as through the Python loop (and to the
+    titles). Host time per batch of each dedup, and of each tokenizer."""
+    from pytorch_news_recommender_tpu_torch import native
+    from pytorch_news_recommender_tpu_torch.data import mind
+    from pytorch_news_recommender_tpu_torch.data.loader import (
+        DEFAULT_UNIQUE_BUCKETS, LengthSplit, train_batches,
+    )
+
+    assert native.available(), "the C++ library did not build"
+    lens = (ds.news.title != 0).sum(axis=1).astype(np.int32)
+    split = LengthSplit({"title": lens}, {"title": cfg.model.short_title_len})
+
+    def batches():
+        t = time.perf_counter()
+        out = list(train_batches(ds.train, cfg.train.batch_size,
+                                 np.random.default_rng(cfg.train.seed), dedup=True,
+                                 unique_buckets=DEFAULT_UNIQUE_BUCKETS, length_split=split))
+        return out, (time.perf_counter() - t) * 1e3 / len(out)
+
+    fast, fast_ms = batches()
+    available = native.available
+    native.available = lambda: False
+    try:
+        slow, slow_ms = batches()
+    finally:
+        native.available = available
+    assert len(fast) == len(slow) == TRAIN_STEPS
+    for a, b in zip(fast, slow):
+        assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    inv = {i: w for w, i in word_dict(VOCAB).items()}
+    texts = [" ".join(inv[int(i)] for i in row if i).capitalize()
+             for row in ds.news.title[1:]]
+    L = ds.news.title.shape[1]
+    t = time.perf_counter()
+    ids_c = mind.ids_matrix(texts, word_dict(VOCAB), L, native_mod=native)
+    tok_c = time.perf_counter() - t
+    t = time.perf_counter()
+    ids_py = mind.ids_matrix(texts, word_dict(VOCAB), L)
+    tok_py = time.perf_counter() - t
+    assert np.array_equal(ids_c, ids_py) and np.array_equal(ids_c[1:], ds.news.title[1:])
+    print(f"[phase 21] native: {native._LIB.relative_to(native.BUILD_DIR.parents[1])} (built "
+          f"at its first use, phase 6's first batch); {len(fast)} dedup batches "
+          f"equal bit for bit to numpy's; {len(texts)} titles tokenize to the same ids "
+          f"both ways", flush=True)
+    print(f"{tag} host time (not device time): dedup batch (batch "
+          f"{cfg.train.batch_size}, with the length split) C++ {fast_ms:.2f} ms, numpy "
+          f"{slow_ms:.2f} ms; tokenizing {len(texts)} titles C++ {tok_c * 1e3:.1f} ms, "
+          f"Python {tok_py * 1e3:.1f} ms", flush=True)
+    return {"dedup_ms": fast_ms, "numpy_dedup_ms": slow_ms}
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_worker(rank, port, work):
+    """Phase 22, one of two ranks on the one card (``gloo``): NRMS at full
+    width, phase 6's global batch, RANK_STEPS steps through the sliced
+    feed (this rank's block) with dropout 0, the launches counted, every
+    parameter's bytes hashed after every step, then the same with dropout
+    RANK_DROPOUT, where the first training forward's inputs and seed are
+    kept and the kernel's output is held to the plain version with the
+    mask of ``seed + rank * SHARD_SEED_STRIDE`` and with the other rank's.
+    Writes ``rank<r>.json`` and this rank's final parameters into
+    ``work``."""
+    import hashlib
+    from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
+    from pytorch_news_recommender_tpu_torch.models import layers
+    from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.parallel import distributed
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer, step_generator
+
+    torch.cuda.set_device(0)
+    assert distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ds = training_data(RANK_STEPS)
+    FE.build()
+    out = {"rank": rank}
+    for rate in (0.0, RANK_DROPOUT):
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=rate))
+        trainer = Trainer(rcfg, ds, device=DEVICE)
+        state = trainer.init_state(seed=0)
+        host = list(trainer.sliced_batches(np.random.default_rng(rcfg.train.seed)))
+        if rate == 0.0:
+            # the first step's gradients, averaged over the ranks as run_step does
+            grads = step_grads(trainer, state, host[0])
+            avg = distributed.all_reduce_mean(list(grads.values()))
+            torch.save({n: g.cpu() for n, g in zip(grads, avg)}, work / f"rank{rank}_grads1.pt")
+        kept, real = [], layers.fused_news_encoder
+
+        def keep_first(x, mask, *weights, **kw):
+            if kw.get("dropout_rate", 0.0) > 0 and not kept:
+                kept.append((x.detach().clone(), mask.clone(),
+                             [w.detach().clone() for w in weights], dict(kw)))
+            return real(x, mask, *weights, **kw)
+        layers.fused_news_encoder = keep_first
+        for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd, FE.weight_grad):
+            fn.launches = 0
+        losses, step_ms, hashes = [], [], []
+        draws = []
+        torch.cuda.synchronize()
+        for batch in device_prefetch(host, DEVICE):
+            draws.append(int(torch.randint(0, 2 ** 31 - 1, (), generator=step_generator(
+                rcfg.train.seed + 1, state.step))))
+            t0 = time.perf_counter()
+            state, m = trainer.run_step(state, batch)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            hashes.append(hashlib.sha256(b"".join(
+                p.detach().cpu().numpy().tobytes() for p in state.model.parameters())).hexdigest())
+            trainer.check_replicas(state)
+            if rate == 0.0 and state.step == 1:
+                torch.save({k: v.cpu() for k, v in state.params.items()},
+                           work / f"rank{rank}_step1.pt")
+        layers.fused_news_encoder = real
+        launches = {"fwd": FE.fused_news_encoder.launches, "bwd": FE.fused_news_encoder_bwd.launches,
+                    "wgrad": FE.weight_grad.launches}
+        run = {"losses": losses, "step_ms": step_ms, "hashes": hashes, "launches": launches}
+        if rate == 0.0:
+            torch.save({k: v.cpu() for k, v in state.params.items()}, work / f"rank{rank}.pt")
+        else:
+            x, mask, weights, kw = kept[0]
+            seed = kw["seed"]
+            assert seed == FE.shard_seed(draws[0], rank) == \
+                (draws[0] + rank * FE.SHARD_SEED_STRIDE) % 2 ** 32, (seed, draws[0], rank)
+            with torch.no_grad():
+                got = FE.fused_news_encoder(x, mask, *weights, **kw)
+                real_rows = mask.sum(1) > 0
+                errs = {}
+                for who, r in (("own", rank), ("other", 1 - rank)):
+                    ref = FE.fused_news_encoder_reference(
+                        x, mask, *weights, num_heads=kw["num_heads"],
+                        dropout_rate=kw["dropout_rate"],
+                        seed=draws[0] + r * FE.SHARD_SEED_STRIDE)
+                    errs[who] = rel_err(got[real_rows], ref[real_rows])
+            run.update(seed=seed, draw=draws[0], mask_err=errs, rows=list(x.shape))
+        out[f"dropout_{rate}"] = run
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    distributed.barrier()
+
+
+def ranks_run(FE, SS, tag):
+    """Phase 22: two ranks on the one card, spawned after the kernels were
+    built (phase 1), over ``gloo`` (``rank_worker``): with dropout 0 the
+    ranks' losses and parameters equal bit for bit after every step, and
+    against one process training the same global batches (both ranks'
+    blocks of each, ``Trainer(replay_ranks=2)``), the losses within 1%, the
+    ranks' all-reduced first gradients held to the one process's by
+    ``hold_grads`` and the first update by ``update_errors``, with the share of all
+    entries within 2e-2 of their parameter's largest change after the last
+    step printed; with dropout 0.2 each rank's kernel
+    applied the mask of ``seed + rank * 1,000,003`` (its output within 2e-2
+    of the plain version with that mask, and past 2e-2 from the plain
+    version with the other rank's), and the ranks' losses still agree.
+    Then ``cli train --coordinator ... --log-attention`` and ``cli submit``
+    on two ranks at the small synthetic size: one submission file, equal to
+    one process's. Returns the ranks' launch counts."""
+    import torch.multiprocessing as mp
+    from pytorch_news_recommender_tpu_torch import cli
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer
+
+    work = WORK / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.start_processes(rank_worker, args=(free_port(), work), nprocs=2, join=True,
+                       start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text()) for r in (0, 1)]
+    a, b = (r["dropout_0.0"] for r in res)
+    assert a["losses"] == b["losses"] and a["hashes"] == b["hashes"], (a["losses"], b["losses"])
+    assert len(a["losses"]) == RANK_STEPS
+    for r in res:
+        launches = r["dropout_0.0"]["launches"]
+        assert launches["fwd"] == launches["bwd"] == 3 * RANK_STEPS, launches
+        assert launches["wgrad"] == 12 * RANK_STEPS, launches
+    # one process on the same global batches: both ranks' blocks of each,
+    # encoded block by block (the multi-block resolve_batch)
+    cfg, ds = training_data(RANK_STEPS)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0))
+    trainer = Trainer(cfg, ds, device=DEVICE, replay_ranks=2)
+    state = trainer.init_state(seed=0)
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    host = list(trainer.sliced_batches(np.random.default_rng(cfg.train.seed)))
+    assert len(host) == RANK_STEPS and "block_mark" in host[0], sorted(host[0])
+    grads, single, after1 = step_grads(trainer, state, host[0]), [], None
+    bs = cfg.train.batch_size
+    for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd, FE.weight_grad):
+        fn.launches = 0
+    with no_plain(FE, SS):
+        for batch in host:
+            state, m = trainer.run_step(state, batch)
+            single.append(float(m["loss"]))
+            if after1 is None:
+                after1 = {k: v.detach().clone() for k, v in state.params.items()}
+    replay_launches = {"fwd": FE.fused_news_encoder.launches,
+                       "bwd": FE.fused_news_encoder_bwd.launches, "wgrad": FE.weight_grad.launches}
+    assert list(replay_launches.values()) == [3 * RANK_STEPS, 3 * RANK_STEPS, 12 * RANK_STEPS], \
+        replay_launches
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], single))
+    # the ranks' first gradients and update against the one process's, held
+    # where the plain versions determine them in bf16 (grad_noise on the
+    # same joined batch; Adam's moments are per entry)
+    step1 = {k: v.to(DEVICE) for k, v in torch.load(work / "rank0_step1.pt").items()}
+    grads1 = {k: v.to(DEVICE) for k, v in torch.load(work / "rank0_grads1.pt").items()}
+    _, g32, noise = grad_noise(FE, SS, trainer, f32_trainer(trainer, replay_ranks=2), host[0])
+    readings, noisy = hold_grads(grads1, grads, g32, noise)
+    step1_err = update_errors(before, step1, after1, g32, noisy, set(before))
+    # after all steps, the share of entries within 2e-2 of each parameter's
+    # largest change (the rest: entries whose gradient is near bf16 noise)
+    last = torch.load(work / "rank0.pt")
+    close = sum(int(((last[k].to(DEVICE) - v).abs()
+                     <= 2e-2 * (v - before[k]).abs().max()).sum())
+                for k, v in state.params.items())
+    close_share = close / sum(v.numel() for v in state.params.values())
+    assert loss_err < 0.01, (loss_err, a["losses"], single)
+    da, db = (r[f"dropout_{RANK_DROPOUT}"] for r in res)
+    assert da["losses"] == db["losses"] and da["hashes"] == db["hashes"]
+    assert db["seed"] == (da["seed"] + FE.SHARD_SEED_STRIDE) % 2 ** 32 and da["seed"] != db["seed"]
+    for d in (da, db):
+        assert d["mask_err"]["own"] < 2e-2 < d["mask_err"]["other"], d["mask_err"]
+    print(f"[phase 22] two ranks on one card over gloo ({spawn_s:.1f} s with the spawn): "
+          f"dropout 0, {RANK_STEPS} steps of global batch {bs}: losses and parameter "
+          f"bytes equal on both ranks after every step; against one process on the same "
+          f"batches (both ranks' blocks of each, launches per step 3 / 3 / 12 as "
+          f"the ranks'): loss max rel "
+          f"err {loss_err:.3g} (tol 0.01); the ranks' first gradients against the one "
+          f"process's, per parameter (bf16 noise of the plain step / error, as in phase 20, "
+          f"tol {GRAD_TOL} or twice the noise): {readings_text(readings)}; the first "
+          f"update {step1_err:.3g} of each parameter's largest change where the float32 "
+          f"gradient is above 2e-2 of its largest (tol {UPDATE_TOL}; not held, at bf16 "
+          f"noise: {sorted(noisy)}); after {RANK_STEPS} steps "
+          f"{close_share:.4%} of all "
+          f"entries within 2e-2 of their parameter's largest change; launches per rank per step "
+          f"{a['launches']['fwd'] // RANK_STEPS} / {a['launches']['bwd'] // RANK_STEPS} / "
+          f"{a['launches']['wgrad'] // RANK_STEPS}; dropout {RANK_DROPOUT}: seeds "
+          f"{da['seed']} / {db['seed']} (= draw + rank * {FE.SHARD_SEED_STRIDE}), kernel "
+          f"output vs the plain version with its own rank's mask {da['mask_err']['own']:.3g} / "
+          f"{db['mask_err']['own']:.3g}, with the other rank's {da['mask_err']['other']:.3g} / "
+          f"{db['mask_err']['other']:.3g} (rows {da['rows']})", flush=True)
+    for r, d in enumerate(res):
+        p50 = float(np.percentile(d["dropout_0.0"]["step_ms"], 50))
+        print(f"{tag} train step p50 rank {r} (global batch {bs}, {bs // 2} a "
+              f"rank): {p50:.2f} ms; two processes time-sharing one card over gloo, not a "
+              f"multi-card figure", flush=True)
+
+    # the CLI on two ranks at the small synthetic size
+    save, port = work / "cli", free_port()
+    code = ("import sys; from pytorch_news_recommender_tpu_torch import cli; "
+            "flags = sys.argv[2:] + ['--device', '" + DEVICE + "']; "
+            "assert cli.main(['train', '--data', 'synthetic', '--epochs', '1', '--save-dir', "
+            "sys.argv[1], '--log-attention'] + flags) == 0; "
+            "assert cli.main(['submit', '--data', 'synthetic', '--ckpt', sys.argv[1] + '/nrms', "
+            "'--out', sys.argv[1] + '/two.txt'] + flags) == 0")
+    root = pathlib.Path(__file__).resolve().parent
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(save), "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(r), "--dist-backend", "gloo"],
+        cwd=root, env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(root)] + [x for x in [os.environ.get("PYTHONPATH")] if x])},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    for p in procs:
+        text, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, text[-3000:]
+    lines = [json.loads(x) for x in (save / "nrms" / "metrics.jsonl").read_text().splitlines()]
+    sites = sorted(x["site"] for x in lines if x.get("tag") == "attention")
+    assert sites == ["news_encoder/tower", "user_encoder/tower"], sites
+    assert cli.main(["submit", "--data", "synthetic", "--ckpt", str(save / "nrms"),
+                     "--out", str(save / "one.txt"), "--device", DEVICE]) == 0
+    two, one = (save / "two.txt").read_text(), (save / "one.txt").read_text()
+    assert two == one and two.count("\n") > 0
+    print(f"[phase 22] cli train --coordinator/--num-processes/--process-id --dist-backend "
+          f"gloo --log-attention on two ranks: one metrics log, attention sites {sites}; "
+          f"two-rank cli submit: one file of {two.count(chr(10))} lines, equal to one "
+          f"process's", flush=True)
+    return [r["dropout_0.0"]["launches"] for r in res], replay_launches
+
+
+def nccl_run(tag):
+    """``--nccl``: ``cli train`` at the small synthetic size, with its
+    dev-split evaluations (each gathers the replicas' checksums and the
+    score blocks), then ``cli submit``, over the nccl backend with one
+    rank a card, at two ranks and at every card: every rank finishes on its
+    own card, rank 0 writes one metrics log and one submission file, and
+    the file equals one process's from the same checkpoint. The kernels and
+    ``native/`` are built before the ranks start; each rank logs to its own
+    file (NCCL's INFO lines included) and dumps its stacks and exits if it
+    is not done within NCCL_RANK_S, so that a hang shows where it waits."""
+    from pytorch_news_recommender_tpu_torch import cli, native
+    from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+
+    cards = torch.cuda.device_count()
+    assert cards >= 2, f"--nccl needs two or more cards, found {cards}"
+    FE.build()
+    assert native.available()
+    root = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "NCCL_DEBUG": "INFO", "PYTHONPATH": os.pathsep.join(
+        [str(root)] + [x for x in [os.environ.get("PYTHONPATH")] if x])}
+    code = ("import faulthandler, sys; faulthandler.dump_traceback_later(" + str(NCCL_RANK_S)
+            + ", exit=True); from pytorch_news_recommender_tpu_torch import cli; "
+            "d, flags = sys.argv[1], sys.argv[2:]; "
+            "assert cli.main(['train', '--data', 'synthetic', '--epochs', '1', "
+            "'--save-dir', d] + flags) == 0; print('train done', flush=True); "
+            "assert cli.main(['submit', '--data', 'synthetic', '--ckpt', d + '/nrms', "
+            "'--out', d + '/ranks.txt'] + flags) == 0; print('submit done', flush=True)")
+    for world in sorted({2, cards}):
+        save, port = WORK / f"nccl{world}", free_port()
+        shutil.rmtree(save, ignore_errors=True)
+        save.mkdir(parents=True)
+        logs = [save / f"rank{r}.log" for r in range(world)]
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(world):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, str(save), "--coordinator",
+                     f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id",
+                     str(r)], cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=NCCL_RANK_S + 60) for p in procs]
+        wall = time.perf_counter() - t0
+        texts = [log.read_text(errors="replace") for log in logs]
+        if any(rcs):
+            for r, text in enumerate(texts):
+                print(f"[nccl] {world} ranks: rank {r} rc {rcs[r]}, its log's tail:\n"
+                      f"{text[-4000:]}", flush=True)
+            raise AssertionError(f"--nccl: {world} ranks ended with {rcs}")
+        for r, text in enumerate(texts):
+            assert f"rank {r} of {world} (nccl)" in text and "submit done" in text, text[-2000:]
+        lines = [json.loads(x) for x in (save / "nrms" / "metrics.jsonl").read_text()
+                 .splitlines()]
+        aucs = [x["auc"] for x in lines if "auc" in x]
+        assert aucs and all(np.isfinite(aucs)), lines
+        assert cli.main(["submit", "--data", "synthetic", "--ckpt", str(save / "nrms"),
+                         "--out", str(save / "one.txt")]) == 0
+        ranks, one = (save / "ranks.txt").read_text(), (save / "one.txt").read_text()
+        assert ranks == one and ranks.count("\n") > 0
+        print(f"{tag} [nccl] {world} ranks, one a card: cli train with {len(aucs)} "
+              f"evaluations (dev AUC {aucs[-1]:.4f}, the replicas' checksums gathered at "
+              f"each) and cli submit: one file of {ranks.count(chr(10))} lines, equal to "
+              f"one process's; {wall:.1f} s of wall time for both commands, process "
+              f"start-up included", flush=True)
+
+
 def latency(fn, n):
     out = []
     for _ in range(n):
@@ -1354,6 +1930,13 @@ def main() -> int:
     gpu = card()
     tag = f"[{gpu}]"
     print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--nccl"]:
+        nccl_run(tag)
+        print(gpu, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 1. setup
     t0 = time.perf_counter()
@@ -1438,9 +2021,11 @@ def main() -> int:
     run6 = train_run(FE, SS, cfg, ds, 6)
     train_launches, step_ms, bs = run6["launches"], run6["step_ms"], cfg.train.batch_size
     assert train_launches["scatter"] == 0, train_launches
-    del run6
     steps = len(step_ms)
     p50, p99 = float(np.percentile(step_ms, 50)), float(np.percentile(step_ms, 99))
+    adam = {"per_step": {k: v / steps for k, v in run6["step_launches"].items()},
+            "p50": p50, "p99": p99, "peak": run6["steps_peak_gib"], "steps": steps}
+    del run6
     print(f"{tag} train step (batch {bs}, {steps} steps): p50 {p50:.2f} ms, p99 "
           f"{p99:.2f} ms = {bs / p50 * 1e3:.0f} impressions/s", flush=True)
     print(f"{tag} fused_encoder_fwd bf16 M={TRAIN_SHAPES[1][0]} L={TRAIN_SHAPES[1][1]} "
@@ -1533,12 +2118,28 @@ def main() -> int:
         if name == "npa":
             fam[name]["probe_losses"] = lr_probe(fcfg, fds, name, NPA_PROBE_LR, 16 + i)
     del fds
+
+    # 20. Adafactor at NRMS's full width, on phase 6's corpus
+    ada_launches = adafactor_run(FE, SS, cfg, ds, tag, adam)
+
+    # 21. the C++ fast path of native/ on phase 6's batches and corpus
+    native_run(cfg, ds, tag)
+    del ds
+
+    # 22. two ranks on the one card over gloo, and the CLI on two ranks
+    rank_launches, replay_launches = ranks_run(FE, SS, tag)
+
     by_path = {
         "fwd": {"serve": serve_launches, "train": train_launches["fwd"],
                 "train_dedup_gather_mxu": mxu_launches["fwd"]},
         "bwd": {"train": train_launches["bwd"], "train_dedup_gather_mxu": mxu_launches["bwd"]},
         "wgrad": {"train": train_launches["wgrad"],
                   "train_dedup_gather_mxu": mxu_launches["wgrad"]}}
+    for key in ("fwd", "bwd", "wgrad"):
+        by_path[key]["train_adafactor"] = ada_launches[key]
+        for r, launches in enumerate(rank_launches):
+            by_path[key][f"train_2rank_rank{r}"] = launches[key]
+        by_path[key]["train_2rank_replay"] = replay_launches[key]
     for name, r in fam.items():
         by_path["fwd"][f"{name}_train"] = r["train"]["fwd"]
         by_path["fwd"][f"{name}_serve"] = r["serve"]

@@ -18,8 +18,17 @@ Every command that runs a model takes ``--device``: the CUDA card by default
 (which must exist), ``--device cpu`` for the plain versions. ``eval``,
 ``submit``, ``export-vectors`` and ``serve`` read the model configuration
 from the checkpoint and accept the shared model flags so that one command
-line works for all. Not ported, each refused naming its ``ROADMAP.md`` item:
-``train --log-attention`` and the multi-host flags of ``train``.
+line works for all.
+
+``train`` and ``submit`` run data-parallel over ``torch.distributed``: one
+process per rank, from ``torchrun`` (its environment is detected) or with
+``--coordinator host:port --num-processes N --process-id R`` on each
+process (``--dist-backend gloo`` for ranks that share one card; ``nccl``
+is the default where CUDA is available). Rank 0 writes the checkpoints,
+the metrics log and the submission file. ``train --log-attention`` logs
+the attention summaries of one batch through the plain path
+(``utils/inspect.py``). Not ported, refused naming its ``ROADMAP.md`` item:
+``serve --mesh``.
 
 Usage: ``python -m pytorch_news_recommender_tpu_torch.cli <command> ...``.
 """
@@ -50,6 +59,22 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--heads", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda, which must exist)")
+
+
+def _add_cluster(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for a process group started by hand "
+                        "(torchrun and SLURM launches are detected without flags)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="the number of processes (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (with --coordinator)")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="process-group backend (default nccl with CUDA, else gloo; "
+                        "gloo for ranks that share one card)")
+    p.add_argument("--no-distributed", action="store_true",
+                   help="run as one process inside a multi-process launch "
+                        "(NEWSREC_NO_DISTRIBUTED=1 does the same)")
 
 
 def _load_dataset(args, cfg):
@@ -198,12 +223,35 @@ def cmd_preprocess_adressa(args) -> int:
     return 0
 
 
+def _initialize(args) -> int:
+    """Brings up the process group of ``--coordinator/--num-processes/
+    --process-id`` (or of a launcher's environment) before anything else
+    runs; returns this process's rank (0 in a single-process run)."""
+    import os
+
+    from pytorch_news_recommender_tpu_torch.parallel import distributed
+
+    if args.no_distributed:
+        if any(a is not None for a in (args.coordinator, args.num_processes,
+                                       args.process_id)):
+            raise SystemExit("error: --no-distributed contradicts the explicit cluster "
+                             "flags --coordinator/--num-processes/--process-id")
+        os.environ["NEWSREC_NO_DISTRIBUTED"] = "1"
+    try:
+        up = distributed.initialize(args.coordinator, args.num_processes,
+                                    args.process_id, backend=args.dist_backend)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}")
+    if up:
+        print(f"process group up: rank {distributed.process_index()} of "
+              f"{distributed.process_count()} ({distributed.dist.get_backend()})",
+              file=sys.stderr)
+    return distributed.process_index()
+
+
 def cmd_train(args) -> int:
     """Train + periodic dev eval + best-AUC checkpoints."""
-    if args.log_attention:
-        raise SystemExit("error: --log-attention is not ported yet (ROADMAP.md A.8)")
-    if any(a is not None for a in (args.coordinator, args.num_processes, args.process_id)):
-        raise SystemExit("error: multi-host training is not ported yet (ROADMAP.md A.6)")
+    rank = _initialize(args)
     from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer
     from pytorch_news_recommender_tpu_torch.utils.logging import JsonlLogger
@@ -226,7 +274,8 @@ def cmd_train(args) -> int:
         # (parameters, optimizer state, step)
         state = mngr.restore(state, mngr.latest_step())
         print(f"auto-resumed from {save_dir} (step {state.step})", file=sys.stderr)
-    log = JsonlLogger(save_dir / "metrics.jsonl")
+    # rank 0 writes the run's log; every rank echoes to stderr
+    log = JsonlLogger(save_dir / "metrics.jsonl" if rank == 0 else None)
 
     def ckpt_cb(state, metrics, _fit_step):
         # keyed by the state's own step, which a resumed run carries on
@@ -250,6 +299,21 @@ def cmd_train(args) -> int:
             trace.parent.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(trace))
             print(f"profiler trace written to {trace}", file=sys.stderr)
+    if args.log_attention:
+        # the attention summaries of one batch through the plain path (the
+        # kernels never hold the weights), at the trained parameters
+        import numpy as np
+
+        from pytorch_news_recommender_tpu_torch.data.loader import train_batches
+        from pytorch_news_recommender_tpu_torch.utils.inspect import (
+            attention_maps, attention_summary,
+        )
+
+        batch = next(train_batches(ds.train, min(64, cfg.train.batch_size),
+                                   np.random.default_rng(0), dedup=False))
+        maps = attention_maps(state.model, trainer._to_device(batch), trainer.news_feats)
+        for site, summ in attention_summary(maps).items():
+            log({"tag": "attention", "site": site, **summ})
     if ds.dev is not None and len(ds.dev):
         final = trainer.evaluate(state)
         log({"tag": "final", **final})
@@ -258,10 +322,11 @@ def cmd_train(args) -> int:
             # anyway, so that eval/submit/serve have something
             mngr.save(state.step, state, final)
     mngr.close()
-    png = plot_loss(save_dir / "metrics.jsonl")
-    if png is not None:
-        print(f"loss curve: {png}", file=sys.stderr)
-    print(f"checkpoint: {save_dir}", file=sys.stderr)
+    if rank == 0:
+        png = plot_loss(save_dir / "metrics.jsonl")
+        if png is not None:
+            print(f"loss curve: {png}", file=sys.stderr)
+        print(f"checkpoint: {save_dir}", file=sys.stderr)
     return 0
 
 
@@ -289,10 +354,15 @@ def cmd_eval(args) -> int:
 
 
 def cmd_submit(args) -> int:
+    """Scores the test split (over the ranks of a process group, each its
+    rows of every batch) and writes the rank file from rank 0."""
+    rank = _initialize(args)
     from pytorch_news_recommender_tpu_torch.train.submit import write_submission
 
     trainer, params = _restored(args)
-    print(f"saved to {write_submission(trainer, params, path=args.out)}")
+    path = write_submission(trainer, params, path=args.out)
+    if rank == 0:
+        print(f"saved to {path}")
     return 0
 
 
@@ -426,7 +496,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True)
     p.set_defaults(fn=cmd_preprocess_adressa)
 
-    p = sub.add_parser("train", help="train + eval + checkpoint (one device)")
+    p = sub.add_parser("train", help="train + eval + checkpoint")
     _add_common(p)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--eval-step", type=int, default=None,
@@ -444,11 +514,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run here (trace.json)")
     p.add_argument("--skip-nonfinite", action="store_true",
                    help="skip (not apply) updates whose loss is non-finite")
-    p.add_argument("--log-attention", action="store_true", help="not ported yet: raises")
-    p.add_argument("--coordinator", default=None, help="not ported yet: raises")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="not ported yet: raises")
-    p.add_argument("--process-id", type=int, default=None, help="not ported yet: raises")
+    p.add_argument("--log-attention", action="store_true",
+                   help="log per-site additive-attention weight summaries "
+                        "to metrics.jsonl after training")
+    _add_cluster(p)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="evaluate a checkpoint on dev/test")
@@ -493,6 +562,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
     p.add_argument("--ckpt", required=True)
     p.add_argument("--out", default=None)
+    _add_cluster(p)
     p.set_defaults(fn=cmd_submit)
 
     p = sub.add_parser("models", help="list ported model families")

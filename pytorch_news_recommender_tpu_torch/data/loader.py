@@ -12,10 +12,12 @@ of the single-process parts of the JAX package's ``data/loader.py``).
 
 * :func:`add_gnn_frontier` attaches a dedup batch's deduplicated
   neighborhood closure (the GNN family encodes each title in it once).
+* :func:`train_batches_sliced` is the multi-process feed: each process's
+  slice of globally agreed batches, and :func:`local_block` the slice as a
+  batch of its own for one rank of a data-parallel run.
 
-The multi-process feed (``train_batches_sliced``) and the C++ dedup of
-``native/`` are not ported yet (``ROADMAP.md``); the numpy dedup below gives
-the same arrays as the C++ one.
+The dedup takes the C++ hash dedup of ``native/`` where its library builds,
+else ``np.unique``; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from pytorch_news_recommender_tpu_torch import native
 from pytorch_news_recommender_tpu_torch.data.dataset import DevData, TrainData
 
 Batch = Dict[str, np.ndarray]
@@ -92,7 +95,12 @@ def _length_partition(unique_ids: np.ndarray, u: int, width: int,
 
 def _dedup_ids(browsed: np.ndarray, cand: np.ndarray):
     """Shared dedup core: ``(u, unique_buffer, browsed_idx, candidate_idx)``
-    with slot 0 always the pad news 0 and inverse indices into the buffer."""
+    with slot 0 always the pad news 0 and inverse indices into the buffer:
+    the C++ hash dedup of ``native/`` where it is built, else ``np.unique``
+    (the same arrays bit for bit)."""
+    nat = native.batch_dedup(browsed, cand) if native.available() else None
+    if nat is not None:
+        return nat
     all_ids = np.concatenate(
         [np.zeros(1, browsed.dtype), browsed.ravel(), cand.ravel()])
     uniq_buf, inv = np.unique(all_ids, return_inverse=True)
@@ -182,6 +190,177 @@ def train_batches(
             batch["user_ids"] = data.user_ids[idx]
         yield (dedup_batch(batch, unique_buckets, length_split)
                if dedup else batch)
+
+
+def train_batches_sliced(
+    data: TrainData,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    process_index: int = 0,
+    process_count: int = 1,
+    drop_remainder: bool = True,
+    dedup: bool = False,
+    unique_buckets: Sequence[int] = DEFAULT_UNIQUE_BUCKETS,
+    length_split: Optional[LengthSplit] = None,
+    gnn_neighbors: Optional[np.ndarray] = None,
+    gnn_depth: int = 0,
+    gnn_buckets: Optional[Sequence[int]] = None,
+) -> Iterator[Batch]:
+    """Per-process slices of globally agreed training batches (the
+    multi-process feed; the JAX package's copy, array for array).
+
+    Every process holds the whole ``TrainData`` and seeds the same ``rng``,
+    so all compute the same global permutation; each yields only its
+    contiguous ``batch_size / process_count`` rows.
+
+    With ``dedup``, each process dedups its own slice at a bucket width that
+    all agree on: every process computes every process's unique count from
+    the shared permutation and takes the bucket that fits the largest. The
+    global ``unique_ids`` buffer is the concatenation of the per-process
+    blocks (``[process_count * W]``), and each process's inverse indices are
+    offset by ``process_index * W``. The direct form is chosen globally: all
+    compare the same ``W`` with the same local slot count.
+
+    With ``length_split``, all also agree one short width (the smallest of
+    the per-process natural widths, each computable by every process) and
+    partition their own block shorts-first at it. The batch then carries
+    ``short_mark`` (``[process_count * ws]``) and, beyond one process,
+    ``block_mark`` (``[process_count]``), from which
+    ``RecModel.resolve_batch`` encodes every block's shorts truncated and its
+    longs at full length. Shorts past a block's capacity spill to its long
+    block (exact, only slower).
+
+    With ``gnn_neighbors`` / ``gnn_depth``, each dedup batch also carries its
+    process's GNN frontier closure (the multi-process form of
+    :func:`add_gnn_frontier`): every process computes every process's
+    closure size and takes the frontier bucket ``F`` that fits the largest,
+    then builds only its own closure block, with ``gnn_nbr_pos`` /
+    ``gnn_self_pos`` offset by ``process_index * F``. A neighbor outside the
+    closure maps to the block's slot 0, the pad news, which the model masks.
+
+    A rank of a ``torch.distributed`` run computes on its own block alone:
+    :func:`local_block` takes the offsets back out.
+    """
+    n = len(data)
+    if batch_size % process_count:
+        raise ValueError(f"batch size {batch_size} does not split over "
+                         f"{process_count} processes")
+    per = batch_size // process_count
+    order = np.arange(n)
+    if rng is not None:
+        rng.shuffle(order)
+    n_full = n - (n % batch_size) if drop_remainder else n
+    for s in range(0, n_full, batch_size):
+        slices = [order[s + h * per: s + (h + 1) * per]
+                  for h in range(process_count)]
+        mine = slices[process_index]
+        batch = {
+            "browsed_ids": data.browsed_ids[mine],
+            "candidate_ids": data.candidate_ids[mine],
+        }
+        if data.user_ids is not None:
+            batch["user_ids"] = data.user_ids[mine]
+        if not dedup:
+            yield batch
+            continue
+        deds = [_dedup_ids(data.browsed_ids[idx], data.candidate_ids[idx])
+                for idx in slices]
+        width = _pick_unique_bucket(max(d[0] for d in deds), unique_buckets)
+        n_slots_local = batch["browsed_ids"].size + batch["candidate_ids"].size
+        if width >= n_slots_local:
+            yield batch  # globally-agreed direct form
+            continue
+        u, uniq_buf, browsed_idx, candidate_idx = deds[process_index]
+        ws = 0
+        if length_split is not None and length_split.thresholds:
+            # globally-agreed short width: min over every process's natural
+            # width (all computable from the shared permutation)
+            G = length_split.grid
+            nat = []
+            for u_h, uniq_h, _, _ in deds:
+                n_long = int(u_h - length_split.is_short(
+                    np.asarray(uniq_h[:u_h], np.int32)).sum())
+                nat.append(max(0, (width - n_long) // G * G))
+            ws = min(min(nat), width - G)  # keep a non-empty long block
+            ws = max(ws, 0)
+        if ws > 0:
+            unique_ids, newpos, _ = _length_partition(
+                np.asarray(uniq_buf, np.int32), u, width, length_split,
+                short_width=ws)
+            browsed_idx = newpos[browsed_idx]
+            candidate_idx = newpos[candidate_idx]
+        else:
+            unique_ids = np.zeros(width, np.int32)
+            unique_ids[:min(u, width)] = uniq_buf[:u][:width]
+        off = np.int32(process_index * width)
+        out = {
+            "unique_ids": unique_ids,
+            "browsed_idx": browsed_idx + off,
+            "candidate_idx": candidate_idx + off,
+        }
+        if ws > 0:
+            out["short_mark"] = np.zeros(process_count * ws, np.int8)
+            if process_count > 1:
+                out["block_mark"] = np.zeros(process_count, np.int8)
+        if gnn_neighbors is not None and gnn_depth > 0:
+            # agreed frontier width: every process computes every process's
+            # closure SIZE from the shared permutation (deds) — only its own
+            # closure is materialized into a block
+            closures_len = [
+                len(_frontier_closure(np.asarray(u_h[:n_h], np.int32),
+                                      gnn_neighbors, gnn_depth))
+                if h != process_index else -1
+                for h, (n_h, u_h, _, _) in enumerate(deds)
+            ]
+            own = _frontier_closure(unique_ids, gnn_neighbors, gnn_depth)
+            closures_len[process_index] = len(own)
+            F = _pick_unique_bucket(
+                max(closures_len),
+                gnn_buckets if gnn_buckets is not None
+                else GNN_FRONTIER_BUCKETS)
+            fbuf, nbr_pos, self_pos = _frontier_block(
+                unique_ids, own, F, gnn_neighbors)
+            foff = np.int32(process_index * F)
+            out["gnn_frontier_ids"] = fbuf
+            out["gnn_nbr_pos"] = nbr_pos + foff
+            out["gnn_self_pos"] = self_pos + foff
+        if data.user_ids is not None:
+            out["user_ids"] = batch["user_ids"]
+        yield out
+
+
+def local_block(batch: Batch, process_index: int, process_count: int) -> Batch:
+    """Process ``process_index``'s batch of :func:`train_batches_sliced` as
+    a single-block batch of its own: the inverse indices and the frontier
+    positions without the block's offset, ``short_mark`` at the block's own
+    short width, no ``block_mark``. Each rank of a data-parallel run encodes
+    and scores this block alone. Direct-form batches are returned as they
+    are."""
+    if "unique_ids" not in batch:
+        return batch
+    out = dict(batch)
+    off = process_index * batch["unique_ids"].shape[0]
+    out["browsed_idx"] = batch["browsed_idx"] - np.int32(off)
+    out["candidate_idx"] = batch["candidate_idx"] - np.int32(off)
+    if "short_mark" in batch:
+        out["short_mark"] = batch["short_mark"][:batch["short_mark"].shape[0]
+                                                // process_count]
+    out.pop("block_mark", None)
+    if "gnn_frontier_ids" in batch:
+        foff = np.int32(process_index * batch["gnn_frontier_ids"].shape[0])
+        out["gnn_nbr_pos"] = batch["gnn_nbr_pos"] - foff
+        out["gnn_self_pos"] = batch["gnn_self_pos"] - foff
+    return out
+
+
+def join_blocks(parts: Sequence[Batch]) -> Batch:
+    """Every process's batch of one step of :func:`train_batches_sliced`,
+    in process order, joined into the global multi-block batch (the layout
+    the JAX package's ``global_batch`` assembles across processes): the
+    marks are global already, every other array is concatenated, its
+    indices already offset into the joined buffers."""
+    return {k: parts[0][k] if k.endswith("_mark") else np.concatenate([p[k] for p in parts])
+            for k in parts[0]}
 
 
 # Finer rungs near the top: closures saturate toward the corpus size on dense

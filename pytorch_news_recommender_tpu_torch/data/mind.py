@@ -1,9 +1,9 @@
 """MIND dataset preprocessing: raw TSVs -> columnar :class:`RecDataset`
 (the port's copy of the JAX package's ``data/mind.py``).
 
-The copy takes the pure-Python path only: ``build_dataset`` accepts
-``use_native`` and ignores it until the C++ fast path (``native/``) is
-ported; the JAX package's tests hold its two paths to the same arrays.
+``build_dataset(use_native=True)`` takes the C++ fast path of ``native/``
+(tokenizer, train groups, eval splits) where the library builds, and the
+pure-Python path otherwise; the two give the same arrays bit for bit.
 
 Replaces the reference's offline pipeline
 (``MIND_2020/data_processor.py`` + the index-mapping half of
@@ -157,11 +157,26 @@ def _to_ids(text: str, vocab: Dict[str, int], length: int) -> List[int]:
     return ids + [0] * (length - len(ids))
 
 
-def ids_matrix(texts: Sequence[str], vocab: Dict[str, int], length: int) -> np.ndarray:
-    """``[1 + n, length]`` word-id rows (row 0 = pad) for a text list."""
+def ids_matrix(texts: Sequence[str], vocab: Dict[str, int], length: int,
+               native_mod=None) -> np.ndarray:
+    """``[1 + n, length]`` word-id rows (row 0 = pad) for a text list.
+
+    With ``native_mod`` (the ``native`` module) the C++ ASCII tokenizer
+    converts the rows, and the rows it flags (non-ASCII text, where Python's
+    unicode ``\\w`` and ``lower`` may differ from the byte rules) are redone
+    with :func:`_to_ids`, so the result is the pure-Python loop's bit for
+    bit."""
     out = np.zeros((len(texts) + 1, length), np.int32)
-    for i, t in enumerate(texts):
-        out[i + 1] = _to_ids(t, vocab, length)
+    nat = (native_mod.tokenize_ids(list(texts), vocab, length)
+           if native_mod is not None else None)
+    if nat is not None:
+        ids, fallback = nat
+        out[1:] = ids
+        for i in np.nonzero(fallback)[0]:
+            out[i + 1] = _to_ids(texts[i], vocab, length)
+    else:
+        for i, t in enumerate(texts):
+            out[i + 1] = _to_ids(t, vocab, length)
     return out
 
 
@@ -394,8 +409,8 @@ def build_dataset(
     ``entity_embedding.vec``). ``bert_npz`` optionally supplies precomputed
     per-news sentence vectors keyed by News_ID order (the reference generates
     these with a bert-as-service server, ``data_processor.py:45-65``).
-    ``use_native`` is accepted and ignored: the port has no C++ fast path
-    yet, and the pure-Python path gives the same arrays.
+    ``use_native`` takes the C++ fast path (``native/``) where its library
+    builds; both paths give the same arrays.
     """
     train_dir = pathlib.Path(train_dir)
     dev_dir = pathlib.Path(dev_dir)
@@ -409,10 +424,16 @@ def build_dataset(
     cat_dict = _index_dict(news.category)
     subcat_dict = _index_dict(news.subcategory)
 
+    native_mod = None
+    if use_native:
+        from pytorch_news_recommender_tpu_torch import native as native_mod_
+        if native_mod_.available():
+            native_mod = native_mod_
+
     N = len(news) + 1
     L_t, L_a = cfg.n_words_title, cfg.n_words_abst
-    title = ids_matrix(news.title, vocab, L_t)
-    abst = ids_matrix(news.abstract, vocab, L_a)
+    title = ids_matrix(news.title, vocab, L_t, native_mod)
+    abst = ids_matrix(news.abstract, vocab, L_a, native_mod)
     categ = np.zeros(N, np.int32)
     subcateg = np.zeros(N, np.int32)
     for i in range(1, N):
@@ -449,14 +470,32 @@ def build_dataset(
 
     user_index = collect_users([d / "behaviors.tsv" for d in dirs])
 
-    train = build_train_samples(train_dir / "behaviors.tsv", news.index, user_index,
-                                cfg, seed)
-    dev = build_eval_split(dev_dir / "behaviors.tsv", news.index, user_index, cfg,
-                           with_labels=True)
+    def _train(path):
+        if native_mod is not None:
+            browsed, cand, user = native_mod.build_train_samples(
+                path, news.index, user_index, cfg.history_len, cfg.sample_size,
+                cfg.min_history, seed)
+            if len(user) == 0:
+                raise ValueError(f"no training samples built from {path}")
+            return TrainData(browsed_ids=browsed, candidate_ids=cand, user_ids=user)
+        return build_train_samples(path, news.index, user_index, cfg, seed)
+
+    def _eval(path, with_labels):
+        if native_mod is not None:
+            browsed, user, keys, offsets, cand_flat, label_flat = \
+                native_mod.build_eval_split(path, news.index, user_index,
+                                            cfg.history_len, with_labels)
+            return DevData(browsed_ids=browsed, cand_flat=cand_flat,
+                           label_flat=label_flat, offsets=offsets, user_ids=user,
+                           impression_keys=keys)
+        return build_eval_split(path, news.index, user_index, cfg,
+                                with_labels=with_labels)
+
+    train = _train(train_dir / "behaviors.tsv")
+    dev = _eval(dev_dir / "behaviors.tsv", True)
     test = None
     if test_dir is not None:
-        test = build_eval_split(pathlib.Path(test_dir) / "behaviors.tsv", news.index,
-                                user_index, cfg, with_labels=False)
+        test = _eval(pathlib.Path(test_dir) / "behaviors.tsv", False)
 
     meta = ArtifactMeta(
         n_words=len(vocab) + 1,

@@ -9,9 +9,9 @@ resident ``news_feats`` tables.
 Batch forms: direct (``browsed_ids [B, H]``, ``candidate_ids [B, S]``) and
 deduplicated (``loader.dedup_batch``: ``unique_ids [U]`` plus inverse
 indices), the latter plain, split into a truncated short block and a long
-block (``short_mark``'s shape is the short width), or all short. The
-multi-block form of the multi-process feed (``block_mark``) is not ported
-yet. With ``dedup_gather_mxu`` the inverse gathers' backward is the
+block (``short_mark``'s shape is the short width), or all short, or the
+multi-process feed's ``block_mark`` blocks, each split so. With
+``dedup_gather_mxu`` the inverse gathers' backward is the
 segment-scatter kernel (``ops/segment_scatter.py``). ``deterministic=False``
 is training: the news tower drops out, with seeds drawn from ``generator``.
 
@@ -131,7 +131,10 @@ class RecModel(nn.Module):
                       generator: Optional[torch.Generator] = None
                       ) -> Tuple[torch.Tensor, ...]:
         """A direct or deduplicated batch -> ``(browsed_ids, cand_ids,
-        browsed_vecs, cand_vecs)``."""
+        browsed_vecs, cand_vecs)``. A dedup batch is one block, or the
+        ``block_mark`` blocks of the multi-process feed
+        (``loader.train_batches_sliced``), each split at its own short
+        width."""
         if "unique_ids" not in batch:
             browsed_ids = batch["browsed_ids"]
             cand_ids = batch["candidate_ids"]
@@ -140,15 +143,25 @@ class RecModel(nn.Module):
                                         news_feats, deterministic,
                                         generator=generator)
             return browsed_ids, cand_ids, vecs[:, :H], vecs[:, H:]
-        if "block_mark" in batch and batch["block_mark"].shape[0] > 1:
-            raise NotImplementedError(
-                "multi-block dedup batches belong to the multi-process feed, "
-                "not ported yet (ROADMAP.md A.6)")
         unique_ids = batch["unique_ids"]                               # [U]
         ws = batch["short_mark"].shape[0] if "short_mark" in batch else 0
+        nb = batch["block_mark"].shape[0] if "block_mark" in batch else 1
         enc = lambda ids, trunc=None: self.encode_news_ids(  # noqa: E731
             ids, news_feats, deterministic, trunc, generator)
-        if ws >= unique_ids.shape[0] and self.LENGTH_SPLIT_OK:
+        if nb > 1 and ws > 0 and self.LENGTH_SPLIT_OK:
+            # the multi-process feed's layout: nb blocks of W slots, each
+            # [short ws/nb | long] at one agreed width; every block's shorts
+            # in one truncated encode, every long in one full-length encode,
+            # put back in the block layout that the indices point into
+            U = unique_ids.shape[0]
+            W, wsl = U // nb, ws // nb
+            u2 = unique_ids.reshape(nb, W)
+            v_s = enc(u2[:, :wsl].reshape(-1), self._feat_trunc())
+            v_l = enc(u2[:, wsl:].reshape(-1))
+            D = v_s.shape[-1]
+            uvecs = torch.cat([v_s.reshape(nb, wsl, D), v_l.reshape(nb, W - wsl, D)],
+                              dim=1).reshape(U, D)
+        elif ws >= unique_ids.shape[0] and self.LENGTH_SPLIT_OK:
             # everything is short: one truncated encode
             uvecs = enc(unique_ids, self._feat_trunc())
         elif ws > 0 and self.LENGTH_SPLIT_OK:

@@ -13,8 +13,10 @@ same weights on every device.
 Training: the news tower drops out the projected attention output only
 (after the MHSA, as the JAX package's ``NewsEncoder``), with a mask that the
 encoder hashes from one int32 seed drawn per call from an explicit
-``torch.Generator`` (the JAX package draws it from ``make_rng("dropout")``);
-the user tower has no dropout.
+``torch.Generator`` (the JAX package draws it from ``make_rng("dropout")``)
+and folded with the rank that a :class:`RankGenerator` carries
+(``ops.fused_encoder.shard_seed``, as the JAX package's sharded encoder
+folds ``axis_index``); the user tower has no dropout.
 """
 
 from __future__ import annotations
@@ -29,7 +31,24 @@ from torch import nn
 from pytorch_news_recommender_tpu_torch.ops.attention import (
     additive_attention_with_weights, multi_head_self_attention,
 )
-from pytorch_news_recommender_tpu_torch.ops.fused_encoder import fused_news_encoder
+from pytorch_news_recommender_tpu_torch.ops.fused_encoder import (
+    fused_news_encoder, shard_seed,
+)
+
+
+class RankGenerator(torch.Generator):
+    """A CPU ``torch.Generator`` that also carries the data-parallel rank of
+    the step it seeds (``rank``, 0 unless set). :func:`draw_seed` folds it
+    into every dropout seed drawn from it, so ranks that share the step's
+    generator drop out their own rows with their own masks."""
+    rank = 0
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One int32 dropout seed from ``generator``, folded with its rank when
+    it is a :class:`RankGenerator` (``shard_seed``)."""
+    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    return shard_seed(seed, generator.rank if isinstance(generator, RankGenerator) else 0)
 
 
 def _draw(p: torch.Tensor, fill) -> None:
@@ -58,12 +77,13 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     """Flax's ``nn.Dropout``: ``x / (1 - rate)`` where kept, 0 elsewhere, in
     ``x``'s dtype; ``x`` itself when ``deterministic`` or ``rate`` is 0. The
     mask is drawn where ``x`` lies, from a seed of ``generator`` (another
-    stream than the JAX package's ``make_rng``), so each call is one draw."""
+    stream than the JAX package's ``make_rng``) by :func:`draw_seed`, so
+    each call is one draw, folded with the generator's rank."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator for its seed")
-    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    seed = draw_seed(generator)
     drawn = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.rand(x.shape, generator=drawn, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
@@ -248,7 +268,7 @@ class AttentionPoolTower(nn.Module):
         if dropout_rate > 0.0:
             if generator is None:
                 raise ValueError("dropout needs a torch.Generator for its seed")
-            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+            seed = draw_seed(generator)
         weights = [p.to(cd) for p in (self.wqkv, self.bqkv, self.wo, self.bo,
                                       self.aw, self.ab, self.aq)]
         out = fused_news_encoder(x.reshape(-1, L, D).to(cd),

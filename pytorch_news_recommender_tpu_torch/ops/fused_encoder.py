@@ -27,6 +27,10 @@ gradients); their headers say what bounds them and how they are laid out.
   ``(seed + block, row in block, column)`` over the TPU kernel's block
   geometry, equal bit for bit to the JAX package's ``host_dropout_keep``.
   The CUDA kernels compute the same hash per element.
+* :func:`shard_seed` folds the rank of a data-parallel run into a dropout
+  seed, ``seed + rank * SHARD_SEED_STRIDE``, as the JAX package's sharded
+  encoder folds ``axis_index`` (``_make_sharded_diff_encoder``): each rank
+  drops out its own rows with its own mask, forward and backward alike.
 * The kernels are built at their first launch with
   ``torch.utils.cpp_extension.load`` for ``sm_90a`` into ``build/`` at the
   root of the checkout, and bound with ``ctypes`` (the sources have a plain
@@ -67,6 +71,16 @@ _COUNT_LOCK = threading.Lock()  # serving threads launch concurrently
 
 
 # ---- dropout mask -----------------------------------------------------------
+
+# the per-rank dropout-seed stride of the JAX package's sharded encoder
+SHARD_SEED_STRIDE = 1_000_003
+
+
+def shard_seed(seed: int, rank: int) -> int:
+    """``seed + rank * SHARD_SEED_STRIDE`` modulo 2^32 (rank 0 leaves
+    ``seed`` as it is)."""
+    return (int(seed) + int(rank) * SHARD_SEED_STRIDE) & 0xFFFFFFFF
+
 
 def _block_geometry(L: int, block_news: int = 64, max_rows: int = 1280) -> int:
     """News per block of the TPU kernel (its ``_block_geometry(L)[0]`` with

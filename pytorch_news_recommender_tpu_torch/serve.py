@@ -46,14 +46,20 @@ from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config, par
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
-    """``None`` means the CUDA card, which must then exist."""
+    """``None`` means the CUDA card, which must then exist. A CUDA device
+    without an index becomes the caller's current card by index: the
+    current card is set per thread, so a bare ``cuda`` would name card 0
+    in a helper thread (the prefetch's) of a rank that owns another card."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the port serves on the GPU; "
                                "pass device='cpu' to run the plain version "
                                "on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _quantize(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -7,17 +7,22 @@ Layout under ``directory/``:
 * ``<step>/params.npz``     one float32 array per Flax path
   (``models/convert.py``);
 * ``<step>/opt_state.npz``  the optimizer's state (:meth:`Optimizer.state_dict`):
-  ``mu/<path>``, ``nu/<path>`` and, with gradient accumulation,
-  ``acc/<path>``, plus ``count`` and ``mini_step``;
+  Adam's ``mu/<path>`` and ``nu/<path>``, or Adafactor's factored
+  ``v_row/<path>`` and ``v_col/<path>`` and per-entry ``v/<path>``; with
+  gradient accumulation ``acc/<path>``; ``count`` and ``mini_step``;
 * ``<step>/state.json``     ``{"step": TrainState.step}``;
 * ``<step>/metrics.json``   the numeric metrics given to :meth:`save`.
 
 Retention keeps the ``max_to_keep`` best steps by ``metrics["auc"]`` (a step
 without one counts as 0), as the JAX package's Orbax options do. Restore is
-exact: parameters, Adam's moments and counts, and the step, so a resumed run
-continues the optimisation and, since a step's dropout seeds depend on the
-step (``train/loop.py``), its randomness too. ``Recommender.from_checkpoint``
-serves the best step of such a directory.
+exact: parameters, the optimizer's moments and counts, and the step, so a
+resumed run continues the optimisation and, since a step's dropout seeds
+depend on the step (``train/loop.py``), its randomness too.
+``Recommender.from_checkpoint`` serves the best step of such a directory.
+
+In a ``torch.distributed`` group every rank holds the same state: rank 0
+writes (the config and each step), and every rank waits at a barrier after
+a save, so that all then see the same steps; every rank restores.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from pytorch_news_recommender_tpu_torch.config import Config
 from pytorch_news_recommender_tpu_torch.models.convert import (
     assign, load_params, save_params,
 )
+from pytorch_news_recommender_tpu_torch.parallel import distributed
 
-_OPT_TREES = ("mu", "nu", "acc")
+_OPT_TREES = ("mu", "nu", "v_row", "v_col", "v", "acc")
 
 
 def load_config(directory: str | pathlib.Path) -> Config:
@@ -78,7 +84,7 @@ class CheckpointManager:
         self.directory = pathlib.Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
-        if cfg is not None:
+        if cfg is not None and distributed.process_index() == 0:
             cfg.save(self.directory / "config.json")
 
     def steps(self) -> list[int]:
@@ -92,7 +98,13 @@ class CheckpointManager:
     def save(self, step: int, state, metrics: Dict[str, Any]) -> None:
         """Writes ``state`` (a ``TrainState``) as ``<step>/`` (replacing one
         of the same step), then drops the steps outside the best
-        ``max_to_keep`` by AUC."""
+        ``max_to_keep`` by AUC. Rank 0 writes; every rank of a group calls
+        this and waits for the write."""
+        if distributed.process_index() == 0:
+            self._write(step, state, metrics)
+        distributed.barrier()
+
+    def _write(self, step: int, state, metrics: Dict[str, Any]) -> None:
         metrics = {k: float(v) for k, v in metrics.items()
                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
         final = self.directory / str(int(step))

@@ -1,8 +1,9 @@
 """Training and evaluation engine (port of the JAX package's
-``train/loop.py``, single device).
+``train/loop.py``).
 
-Adam with optional linear warm-up, global-norm clipping, AdamW and gradient
-accumulation, written out to follow optax's arithmetic step for step;
+Adam with optional linear warm-up, global-norm clipping, AdamW, Adafactor
+and gradient accumulation, written out to follow optax's arithmetic step
+for step;
 softmax cross-entropy over the candidates with the positive at slot 0, plus
 the auxiliary losses of the families that record them (TANR); deduplicated and length-split batches; two-tower evaluation with the
 impression-level metrics of ``train/metrics.py``; the fit loop with its eval
@@ -24,13 +25,27 @@ GNN: the host attaches each dedup batch's neighborhood closure
 ``run_step`` attaches it to a batch that lacks it; eval encodes the corpus
 level by level (``models.common.corpus_encode_levelwise``).
 
-Not ported yet, and refused with the ``ROADMAP.md`` item that ports them:
-Adafactor, the multi-process feed (``sliced_feed``), and mesh and model
-parallelism.
+Data parallelism on ``torch.distributed`` (``parallel/distributed.py``):
+with a process group of ``world`` ranks, each rank trains on its
+``batch_size / world`` slice of every global batch
+(``loader.train_batches_sliced``, the rank's block via ``local_block``),
+draws the step's dropout seeds from the same generator folded with its rank
+(:func:`step_generator`'s ``rank``, ``ops.fused_encoder.shard_seed``), and
+averages the weight gradients, the loss and the accuracy with one
+``all_reduce`` of one flat buffer after the backward: every rank then
+holds the same parameters and optimizer state (:meth:`Trainer.check_replicas`
+compares them at every evaluation).
+Evaluation scores each rank's rows of every batch and gathers the score
+blocks, so every rank computes the same metrics. ``sliced_feed`` takes the
+same feed in one process, and ``Trainer(replay_ranks=n)`` an ``n``-rank
+run's global batches, every rank's block in one multi-block batch. Model
+parallelism (``mesh.model_parallel_size > 1``) is not ported yet and is
+refused naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import sys
 import time
@@ -47,25 +62,33 @@ from pytorch_news_recommender_tpu_torch.data.loader import (
     LengthSplit,
     add_gnn_frontier,
     eval_batches,
+    join_blocks,
+    local_block,
     pad_batch,
     train_batches,
+    train_batches_sliced,
 )
 from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
 from pytorch_news_recommender_tpu_torch.models import build_model
 from pytorch_news_recommender_tpu_torch.models.common import RecModel, corpus_encode_levelwise
 from pytorch_news_recommender_tpu_torch.models.convert import assign
+from pytorch_news_recommender_tpu_torch.models.layers import RankGenerator
+from pytorch_news_recommender_tpu_torch.parallel import distributed
 from pytorch_news_recommender_tpu_torch.serve import resolve_device
 from pytorch_news_recommender_tpu_torch.train import metrics as M
 
 Tensors = Dict[str, torch.Tensor]
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator that draws step ``step``'s dropout seeds: a
-    function of ``(seed, step)`` alone (the JAX package's
-    ``fold_in(PRNGKey(seed), step)``; the streams differ)."""
-    return torch.Generator().manual_seed(
-        ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+def step_generator(seed: int, step: int, rank: int = 0) -> RankGenerator:
+    """The CPU generator that draws step ``step``'s dropout seeds: its draws
+    are a function of ``(seed, step)`` alone (the JAX package's
+    ``fold_in(PRNGKey(seed), step)``; the streams differ), and each seed
+    drawn from it for a dropout mask is folded with ``rank``
+    (``models.layers.draw_seed``)."""
+    g = RankGenerator()
+    g.rank = int(rank)
+    return g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
 
 
 def softmax_ce_loss(scores: torch.Tensor) -> torch.Tensor:
@@ -87,8 +110,9 @@ def training_loss(model: RecModel, scores: torch.Tensor) -> torch.Tensor:
 
 class Optimizer:
     """The JAX package's ``make_optimizer`` as optax computes it:
-    ``[clip_by_global_norm] -> adam | adamw -> learning-rate schedule``,
-    inside ``MultiSteps`` when ``grad_accum_steps > 1``.
+    ``[clip_by_global_norm] -> adam | adamw | adafactor`` with the
+    learning-rate schedule, inside ``MultiSteps`` when ``grad_accum_steps >
+    1``.
 
     * Clipping scales every gradient by ``max / ‖g‖`` when the global norm
       ``‖g‖`` reaches ``max`` (no epsilon), as ``optax.clip_by_global_norm``.
@@ -99,23 +123,66 @@ class Optimizer:
       parameter and no inner state.
     * A parameter without a gradient counts as a zero gradient, as JAX
       gives one.
+    * ``adafactor`` is ``optax.adafactor(schedule)`` at optax 0.2.6's
+      defaults (``optax/_src/factorized.py``, ``alias.py``): second moments
+      decayed by ``1 - (count + 1)^-0.8`` over ``g² + 1e-30``, factored into
+      row and column means where a parameter's second-largest dimension is at
+      least 128 (``_factored_dims``), else one per entry (``v``); the update
+      ``g / sqrt(v)`` clipped to an RMS of at most 1, scaled by the
+      learning rate and by the parameter's RMS (at least 1e-3); no momentum,
+      and no weight decay (the JAX package passes none).
     """
 
+    ADAFACTOR_MIN_DIM = 128
+    ADAFACTOR_DECAY = 0.8
+    ADAFACTOR_EPS = 1e-30
+    ADAFACTOR_CLIP = 1.0
+    ADAFACTOR_MIN_SCALE = 1e-3
+
     def __init__(self, params: Mapping[str, torch.nn.Parameter], tc: TrainConfig):
-        if tc.optimizer == "adafactor":
-            raise NotImplementedError(
-                "the adafactor optimizer is not ported yet (ROADMAP.md A.8)")
-        if tc.optimizer != "adam":
+        if tc.optimizer not in ("adam", "adafactor"):
             raise ValueError(f"unknown optimizer {tc.optimizer!r} "
                              "(expected adam|adafactor)")
         self.params = dict(params)
         self.tc = tc
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
-        zeros = lambda: {n: torch.zeros_like(p) for n, p in self.params.items()}  # noqa: E731
-        self.mu, self.nu = zeros(), zeros()
-        self.count = 0        # applied updates (adam's and the schedule's count)
+        zeros = lambda names=None: {n: torch.zeros_like(p) for n, p in self.params.items()  # noqa: E731
+                                    if names is None or n in names}
+        self.count = 0        # applied updates (the inner chain's and the schedule's count)
         self.mini_step = 0    # MultiSteps position within k
         self.acc = zeros() if tc.grad_accum_steps > 1 else None
+        if tc.optimizer == "adam":
+            self.trees = ("mu", "nu")
+            self.mu, self.nu = zeros(), zeros()
+        else:
+            self.trees = ("v_row", "v_col", "v")
+            self.factored = {n: self._factored_dims(p.shape)
+                             for n, p in self.params.items()}
+            self.v = zeros({n for n, f in self.factored.items() if f is None})
+            self.v_row, self.v_col = {}, {}
+            for n, f in self.factored.items():
+                if f is not None:
+                    p = self.params[n]
+                    d1, d0 = f
+                    self.v_row[n] = torch.zeros(_drop(p.shape, d0), dtype=p.dtype,
+                                                device=p.device)
+                    self.v_col[n] = torch.zeros(_drop(p.shape, d1), dtype=p.dtype,
+                                                device=p.device)
+        if self.acc is not None:
+            self.trees += ("acc",)
+
+    @classmethod
+    def _factored_dims(cls, shape) -> Optional[tuple]:
+        """optax's ``_factored_dims``: the axes of the second-largest and the
+        largest dimension (numpy's ``argsort`` order), or None when the
+        parameter has fewer than two axes or its second-largest dimension is
+        below 128."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(tuple(shape))
+        if shape[order[-2]] < cls.ADAFACTOR_MIN_DIM:
+            return None
+        return int(order[-2]), int(order[-1])
 
     def learning_rate(self, count: int) -> float:
         tc = self.tc
@@ -142,9 +209,16 @@ class Optimizer:
             grads = {n: torch.where(norm < clip, g, (g / norm) * clip)
                      for n, g in grads.items()}
         lr = self.learning_rate(self.count)
+        if self.tc.optimizer == "adafactor":
+            self._adafactor(grads, lr)
+        else:
+            self._adam(grads, lr)
         self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+
+    def _adam(self, grads: Dict[str, torch.Tensor], lr: float) -> None:
+        """optax's adam (adamw with ``weight_decay``) as update ``count + 1``."""
+        bc1 = 1.0 - self.b1 ** (self.count + 1)
+        bc2 = 1.0 - self.b2 ** (self.count + 1)
         wd = self.tc.weight_decay
         for n, p in self.params.items():
             g = grads[n]
@@ -155,34 +229,75 @@ class Optimizer:
                 update = update + wd * p
             p.add_(update * -lr)
 
+    def _adafactor(self, grads: Dict[str, torch.Tensor], lr: float) -> None:
+        """optax's adafactor chain at count ``self.count``, in float32 as
+        optax takes it: ``scale_by_factored_rms -> clip_by_block_rms ->
+        scale_by_learning_rate -> scale_by_param_block_rms -> scale(-1)``."""
+        f32 = np.float32
+        rho = f32(1.0) - f32(self.count + 1) ** f32(-self.ADAFACTOR_DECAY)
+        keep, new = float(rho), float(f32(1.0) - rho)
+        for n, p in self.params.items():
+            g = grads[n]
+            g2 = g * g + self.ADAFACTOR_EPS
+            if self.factored[n] is not None:
+                d1, d0 = self.factored[n]
+                v_row = self.v_row[n].mul_(keep).add_(g2.mean(dim=d0) * new)
+                v_col = self.v_col[n].mul_(keep).add_(g2.mean(dim=d1) * new)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+                col_factor = v_col.pow(-0.5)
+                update = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            else:
+                v = self.v[n].mul_(keep).add_(g2 * new)
+                update = g * v.pow(-0.5)
+            update = update / torch.clamp(
+                torch.sqrt((update * update).mean()) / self.ADAFACTOR_CLIP, min=1.0)
+            update = update * lr
+            rms = torch.sqrt((p * p).mean())
+            scale = torch.where(rms <= self.ADAFACTOR_MIN_SCALE,
+                                torch.full_like(rms, self.ADAFACTOR_MIN_SCALE), rms)
+            p.add_(update * scale * -1.0)
+
     def state_dict(self) -> Dict[str, Any]:
-        """Adam's moments ``mu``/``nu`` by parameter name and its count (the
-        warm-up schedule's count too), and ``MultiSteps``' position and
+        """The optimizer's moments by parameter name (Adam's ``mu``/``nu``;
+        Adafactor's factored ``v_row``/``v_col`` and per-entry ``v``), its
+        count (the schedule's too), and ``MultiSteps``' position and
         accumulators (``acc``, with ``grad_accum_steps > 1``). The tensors
         are the optimizer's own, not copies."""
-        out: Dict[str, Any] = {"count": self.count, "mini_step": self.mini_step,
-                               "mu": dict(self.mu), "nu": dict(self.nu)}
-        if self.acc is not None:
-            out["acc"] = dict(self.acc)
+        out: Dict[str, Any] = {"count": self.count, "mini_step": self.mini_step}
+        for key in self.trees:
+            out[key] = dict(getattr(self, key))
         return out
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Copies a :meth:`state_dict` in, onto the parameters' devices;
-        raises on missing or unexpected names."""
-        keys = ("mu", "nu") + (("acc",) if self.acc is not None else ())
+        raises on another optimizer's state and on missing or unexpected
+        names."""
         if ("acc" in state) != (self.acc is not None):
             raise ValueError("the optimizer state's gradient accumulation does "
                              "not match grad_accum_steps")
-        for key in keys:
+        foreign = [k for k in ("mu", "nu", "v_row", "v_col", "v")
+                   if k not in self.trees and state.get(k)]
+        if foreign:
+            raise ValueError(f"the optimizer state holds {foreign}, which "
+                             f"{self.tc.optimizer} does not keep")
+        # a tree without entries (no factored parameter) is not saved
+        for key in self.trees:
             own = getattr(self, key)
-            if set(state[key]) != set(own):
+            got = state.get(key, {})
+            if set(got) != set(own):
                 raise ValueError(f"optimizer state {key!r} names "
-                                 f"{sorted(set(state[key]) ^ set(own))} do not match")
-            for n, t in state[key].items():
+                                 f"{sorted(set(got) ^ set(own))} do not match")
+            for n, t in got.items():
                 own[n].copy_(torch.as_tensor(t))
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
+
+
+def _drop(shape, axis: int) -> tuple:
+    """``shape`` without ``axis`` (numpy's ``np.delete`` of one entry)."""
+    return tuple(s for i, s in enumerate(shape) if i != axis)
 
 
 @dataclasses.dataclass
@@ -203,20 +318,41 @@ class TrainState:
 class Trainer:
     """Owns the dataset's device-resident feature tables and runs training
     steps, evaluation and the fit loop on one device: the CUDA card by
-    default (which must exist), or ``device="cpu"``."""
+    default (which must exist), or ``device="cpu"``. In a
+    ``torch.distributed`` group each rank runs one ``Trainer`` on its own
+    device and its slice of every batch.
+
+    ``replay_ranks`` (one process only) trains on the global batches of a
+    ``replay_ranks``-rank data-parallel run: every rank's block of each
+    batch joined into one multi-block batch (``loader.join_blocks``), which
+    ``RecModel.resolve_batch`` encodes block by block at the widths the
+    ranks agree on. At dropout 0 it reproduces such a run on one device, up
+    to the order of the float additions (the ranks draw their dropout masks
+    at their own folded seeds, which one process does not)."""
 
     def __init__(self, cfg: Config, dataset: RecDataset,
-                 device: Optional[str | torch.device] = None):
+                 device: Optional[str | torch.device] = None, replay_ranks: int = 1):
         tc = cfg.train
-        if tc.sliced_feed:
-            raise NotImplementedError("the multi-process feed (sliced_feed) is "
-                                      "not ported yet (ROADMAP.md A.6)")
         if cfg.mesh.model_parallel_size > 1:
-            raise NotImplementedError("mesh and model-parallel training are not "
-                                      "ported yet (ROADMAP.md A.6)")
+            raise NotImplementedError("model-parallel training (the mesh's model "
+                                      "axis) is not ported yet (ROADMAP.md A.6)")
         if tc.auto_layouts:
             raise ValueError("auto_layouts chooses XLA memory layouts; it has no "
                              "meaning in the PyTorch port")
+        # the multi-process feed: every rank holds the whole dataset, seeds
+        # the same permutation and trains on its slice of each batch
+        self.n_proc = distributed.process_count()
+        self.proc_idx = distributed.process_index()
+        if replay_ranks > 1 and self.n_proc > 1:
+            raise ValueError("replay_ranks replays a data-parallel run in one "
+                             f"process, not in a group of {self.n_proc}")
+        self._replay = replay_ranks
+        self._sliced = self.n_proc > 1 or tc.sliced_feed or replay_ranks > 1
+        for name, n in (("batch_size", max(self.n_proc, replay_ranks)),
+                        ("eval_batch_size", self.n_proc)):
+            if getattr(tc, name) % n:
+                raise ValueError(f"train.{name} {getattr(tc, name)} does not split "
+                                 f"over {n} processes")
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -354,26 +490,64 @@ class Trainer:
         state.step)``. Returns ``(state, metrics)``; ``state`` is updated in
         place. With ``skip_nonfinite_updates``, a step whose loss is not
         finite leaves the parameters and the optimizer as they were; the
-        step counter advances either way."""
+        step counter advances either way.
+
+        In a group of several ranks, ``batch`` is this rank's block
+        (``loader.local_block``); the gradients, the loss and the accuracy
+        are averaged over the ranks before the update, and a non-finite
+        mean loss skips the update on every rank."""
         batch = self._to_device(self._maybe_frontier(batch))
         model = state.model
         model.zero_grad(set_to_none=True)
         scores = model(batch, self.news_feats, deterministic=False,
-                       generator=step_generator(self.cfg.train.seed + 1, state.step))
+                       generator=step_generator(self.cfg.train.seed + 1, state.step,
+                                                self.proc_idx))
         loss = training_loss(model, scores)
         model.aux_losses = {}
         metrics = {"loss": loss.detach(),
                    "acc": (scores.argmax(dim=-1) == 0).float().mean()}
-        skip = False
-        if self.cfg.train.skip_nonfinite_updates:
-            skip = not bool(torch.isfinite(loss))
+        skip_nonfinite = self.cfg.train.skip_nonfinite_updates
+        if self.n_proc > 1:
+            # every rank joins the all-reduce, whatever its own loss
+            loss.backward()
+            self._all_reduce_grads(model, metrics)
+            skip = skip_nonfinite and not bool(torch.isfinite(metrics["loss"]))
+        else:
+            skip = skip_nonfinite and not bool(torch.isfinite(loss))
+            if not skip:
+                loss.backward()
+        if skip_nonfinite:
             metrics["skipped"] = float(skip)
         if not skip:
-            loss.backward()
             state.opt.step()
         model.zero_grad(set_to_none=True)
         state.step += 1
         return state, metrics
+
+    @staticmethod
+    def _all_reduce_grads(model: RecModel, metrics: Dict[str, torch.Tensor]) -> None:
+        """Replaces every parameter's gradient (0 where it has none) and the
+        step's loss and accuracy by their means over the ranks: one
+        ``all_reduce`` of one flat buffer, the counterpart of the ``psum``
+        of the JAX package's sharded gradients. With equal slices the mean
+        of the ranks' gradients is the gradient of the global batch's mean
+        loss."""
+        params = list(model.parameters())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        scalars = torch.stack([metrics["loss"].float(), metrics["acc"].float()])
+        *grads, scalars = distributed.all_reduce_mean(grads + [scalars])
+        for p, g in zip(params, grads):
+            p.grad = g
+        metrics["loss"], metrics["acc"] = scalars[0], scalars[1]
+
+    def check_replicas(self, state: TrainState) -> None:
+        """Raises unless every rank holds the same parameters and optimizer
+        state (a checksum of each tensor, compared across the ranks; nothing
+        in one process)."""
+        opt = state.opt.state_dict()
+        tensors = list(state.model.parameters()) + [
+            t for key in state.opt.trees for t in opt[key].values()]
+        distributed.assert_replicated(tensors, "the parameters or the optimizer state")
 
     # ---- eval ----
     def _model_of(self, state_or_params) -> RecModel:
@@ -429,11 +603,14 @@ class Trainer:
         """Scores a ragged split in candidate-count buckets: ``{impression
         row: [n_candidates] float32 scores}``; impressions without a
         candidate are absent. Two-tower when the family allows it (the
-        corpus encoded once)."""
+        corpus encoded once). With the multi-process feed each rank scores
+        its rows of every padded batch and the score blocks are gathered in
+        rank order, so every rank returns the same scores."""
         model = self._model_of(state_or_params)
         bs = self.cfg.train.eval_batch_size
         two_tower = self.cfg.train.eval_two_tower and model.TWO_TOWER
         news_vecs = self.compute_news_vectors(model) if two_tower else None
+        rows = distributed.process_local_slice(bs)
 
         metas: list = []
 
@@ -442,7 +619,7 @@ class Trainer:
                                    max_impressions):
                 padded, b = pad_batch(eb.batch, bs)
                 metas.append((b, eb))
-                yield padded
+                yield {k: v[rows] for k, v in padded.items()}
 
         all_scores: Dict[int, np.ndarray] = {}
         for batch in device_prefetch(host_iter(), self.device):
@@ -451,7 +628,7 @@ class Trainer:
                 s = model.score_from_vecs(batch, news_vecs, self.news_feats)
             else:
                 s = model(batch, self.news_feats, deterministic=True)
-            s = s.float().cpu().numpy()[:b]
+            s = distributed.fetch_global(s.float())[:b]
             for j, imp in enumerate(eb.impression_ids):
                 all_scores[int(imp)] = s[j, :eb.n_candidates[j]]
         return all_scores
@@ -477,6 +654,31 @@ class Trainer:
         return out
 
     # ---- full fit loop ----
+    def sliced_batches(self, rng: np.random.Generator):
+        """One epoch of the multi-process feed (``train_batches_sliced``,
+        the GNN frontier built per block at the widths all ranks agree on),
+        shuffled by ``rng``: this rank's block of every global batch
+        (``local_block``), or with ``replay_ranks`` every rank's blocks
+        joined. Host numpy batches."""
+        tc = self.cfg.train
+
+        def feed(h, n, r):
+            return train_batches_sliced(
+                self.dataset.train, tc.batch_size, r, process_index=h, process_count=n,
+                dedup=tc.dedup_batches,
+                unique_buckets=tc.unique_buckets or DEFAULT_UNIQUE_BUCKETS,
+                length_split=self._length_split,
+                gnn_neighbors=self.dataset.news.neighbors if self._frontier_depth else None,
+                gnn_depth=self._frontier_depth, gnn_buckets=tc.gnn_frontier_buckets)
+        if self._replay > 1:
+            # every block shuffles with the same permutation: copies of
+            # rng's state, the last block's feed advancing rng itself
+            rngs = [copy.deepcopy(rng) for _ in range(self._replay - 1)] + [rng]
+            return map(join_blocks,
+                       zip(*(feed(h, self._replay, r) for h, r in enumerate(rngs))))
+        return map(lambda b: local_block(b, self.proc_idx, self.n_proc),
+                   feed(self.proc_idx, self.n_proc, rng))
+
     def fit(
         self,
         state: Optional[TrainState] = None,
@@ -507,6 +709,7 @@ class Trainer:
             nonlocal best_auc, best_step, stop
             if self.dataset.dev is None or len(self.dataset.dev) == 0:
                 return
+            self.check_replicas(state)
             t_ev = time.time()
             m = self.evaluate(state)
             m["eval_s"] = round(time.time() - t_ev, 2)
@@ -529,10 +732,13 @@ class Trainer:
 
         ub = cfg.train.unique_buckets or DEFAULT_UNIQUE_BUCKETS
         for epoch in range(epochs):
-            host_iter = train_batches(self.dataset.train, cfg.train.batch_size,
-                                      shuffle_rng, dedup=cfg.train.dedup_batches,
-                                      unique_buckets=ub,
-                                      length_split=self._length_split)
+            if self._sliced:
+                host_iter = self.sliced_batches(shuffle_rng)
+            else:
+                host_iter = train_batches(self.dataset.train, cfg.train.batch_size,
+                                          shuffle_rng, dedup=cfg.train.dedup_batches,
+                                          unique_buckets=ub,
+                                          length_split=self._length_split)
             # the GNN frontier is built in the prefetch thread, off the step
             for batch in device_prefetch(map(self._maybe_frontier, host_iter),
                                          self.device):

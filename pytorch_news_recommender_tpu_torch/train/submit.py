@@ -8,6 +8,10 @@ impression id captured at preprocessing (``split.impression_keys``), else
 ``i + 1`` in file order; an impression without a candidate is skipped.
 Scoring is the trainer's own (:meth:`Trainer.score_split`: the corpus
 encoded once, bucketed ragged batches).
+
+In a ``torch.distributed`` group the ranks score their rows of every batch
+and gather the scores (``Trainer.score_split``), and rank 0 alone writes
+the file; the JAX package's writer has no such guard (``ROADMAP.md`` §C).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from pytorch_news_recommender_tpu_torch.data.dataset import DevData
+from pytorch_news_recommender_tpu_torch.parallel import distributed
 
 
 def scores_to_ranks(scores: np.ndarray) -> np.ndarray:
@@ -39,7 +44,8 @@ def write_submission(trainer, state_or_params, split: Optional[DevData] = None,
                      path: Optional[str | pathlib.Path] = None) -> pathlib.Path:
     """Scores the test split (default ``trainer.dataset.test``) and writes
     the MIND submission file to ``path`` (default
-    ``submit_<model>_<time>.txt``)."""
+    ``submit_<model>_<time>.txt``), from rank 0 only in a group of ranks,
+    which all wait for the write; every rank returns the path."""
     split = split if split is not None else trainer.dataset.test
     if split is None:
         raise ValueError("no test split to submit")
@@ -48,11 +54,14 @@ def write_submission(trainer, state_or_params, split: Optional[DevData] = None,
         path = f"submit_{trainer.cfg.model.name}_{ts}.txt"
     path = pathlib.Path(path)
     scores = collect_scores(trainer, state_or_params, split)
-    with open(path, "w") as f:
-        for i in range(len(split)):
-            sc = scores.get(i)
-            if sc is None:
-                continue
-            key = int(split.impression_keys[i]) if split.impression_keys is not None else i + 1
-            f.write(f"{key} [{','.join(str(int(r)) for r in scores_to_ranks(sc))}]\n")
+    if distributed.process_index() == 0:
+        with open(path, "w") as f:
+            for i in range(len(split)):
+                sc = scores.get(i)
+                if sc is None:
+                    continue
+                key = (int(split.impression_keys[i]) if split.impression_keys is not None
+                       else i + 1)
+                f.write(f"{key} [{','.join(str(int(r)) for r in scores_to_ranks(sc))}]\n")
+    distributed.barrier()
     return path

@@ -248,13 +248,25 @@ def test_cli_train_profiles_and_auto_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--data", "synthetic", "--log-attention"], "A.8"),
-    (["train", "--data", "synthetic", "--coordinator", "h:1"], "A.6"),
     (["serve", "--data", "synthetic", "--ckpt", "c", "--mesh"], "A.4"),
 ])
 def test_unported_options_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("command", ["train", "submit"])
+def test_cli_cluster_flags_need_all_three(command, monkeypatch):
+    """``--coordinator`` alone (the JAX CLI's partial spec) is refused
+    before anything runs, naming what is missing; ``--no-distributed``
+    contradicts explicit flags."""
+    monkeypatch.delenv("NEWSREC_NO_DISTRIBUTED", raising=False)
+    extra = ["--ckpt", "c"] if command == "submit" else []
+    with pytest.raises(SystemExit, match="num_processes"):
+        cli.main([command, "--data", "synthetic", "--coordinator", "h:1"] + extra)
+    with pytest.raises(SystemExit, match="contradicts"):
+        cli.main([command, "--data", "synthetic", "--process-id", "0",
+                  "--no-distributed"] + extra)
 
 
 # ---- preprocessing ----------------------------------------------------------

@@ -201,8 +201,6 @@ def test_pretrained_table_loads_widens_and_raises(small):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    ({"train.optimizer": "adafactor"}, NotImplementedError, "A.8"),
-    ({"train.sliced_feed": True}, NotImplementedError, "A.6"),
     ({"mesh.model_parallel_size": 2}, NotImplementedError, "A.6"),
     ({"train.auto_layouts": True}, ValueError, "XLA"),
 ])
@@ -210,6 +208,30 @@ def test_later_slices_options_raise(small, over, error, match):
     _, ds = small
     with pytest.raises(error, match=match):
         Trainer(synthetic_config(**over), ds, device="cpu").init_state(seed=0)
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_sliced_feed_fit_matches_plain_feed(small, dedup):
+    """``sliced_feed`` in one process (the multi-process feed at one rank,
+    as the JAX package's ``test_fit_through_sliced_feed_matches_plain``
+    runs it) fits as the plain feed: without dedup the same losses and
+    AUC; with dedup the same batches up to the unique buffer's layout, so
+    the losses agree within 1e-5."""
+    cfg, ds = small
+    out = {}
+    for sliced in (False, True):
+        c = synthetic_config(**{"train.batch_size": 16, "train.eval_batch_size": 8,
+                                "train.dedup_batches": dedup, "train.log_every": 1,
+                                "train.eval_step": 0, "train.sliced_feed": sliced})
+        tr = Trainer(c, ds, device="cpu")
+        assert tr._sliced == sliced
+        log = []
+        state, _ = tr.fit(tr.init_state(seed=0), num_epochs=1, log_fn=log.append,
+                          eval_each_epoch=False)
+        out[sliced] = ([d["loss"] for d in log if "loss" in d], tr.evaluate(state))
+    assert len(out[True][0]) == len(out[False][0]) == len(ds.train) // 16
+    np.testing.assert_allclose(out[True][0], out[False][0], rtol=1e-5, atol=1e-6)
+    assert out[True][1]["auc"] == pytest.approx(out[False][1]["auc"], abs=1e-6)
 
 
 def test_gnn_frontier_buckets_set_the_frontier_widths():
