@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card: phases 1-22 below
-    python3 chip_smoke.py --nccl     # two or more cards: data-parallel
-                                     # training over nccl (``nccl_run``)
+    python3 chip_smoke.py            # one card: phases 1-24 below
+    python3 chip_smoke.py --nccl     # two or more cards: data- and model-
+                                     # parallel training over nccl, and
+                                     # mesh serving (``nccl_run``)
 
 1. Builds the kernels from ``pytorch_news_recommender_tpu_torch/ops/csrc``
    (the fused encoder forward, its backward and the tensor-core weight
@@ -115,6 +116,22 @@
    ``seed + rank * 1,000,003`` (``ops.fused_encoder.shard_seed``); then
    ``cli train --coordinator ... --log-attention`` and ``cli submit`` on
    two ranks at the small synthetic size, whose file equals one process's.
+23. The model axis on the one card (``mesh_worker``, ``gloo``, every rank on
+   ``cuda:0``): NRMS at full width on phase 6's corpus with the word table
+   split by rows over the two ranks of each data row, at (1 x 2) with psum
+   and with a2a lookups (capacity 2.0) and at (2 x 2) with a2a, MESH_STEPS
+   steps at dropout 0 and 0.2: every rank's loss equal bit for bit, the
+   replicated parameters equal on every rank and each block on its data
+   group, against one process on the same global batches (loss 1%, the
+   first update with the blocks joined, as phase 22 holds it), each rank's
+   kernel mask at its data index's folded seed, a NaN loss at capacity
+   0.02, step times, peak memory and launches per rank, and a (1 x 2)
+   checkpoint restored in one process with the ranks' AUC.
+24. ``Recommender(mesh=...)`` with the corpus cache in MESH_BLOCKS row
+   blocks on the one card, on phase 3's corpus (65,239 rows, padded), in
+   both cache modes, against the single-device recommender (``score``,
+   ``score_many``, ``top_k``, ``add_news`` past the blocks' end) with both
+   timed; then ``cli serve --mesh`` answering over HTTP.
 
 Prints timings tagged with the card's name and power limit, the kernels'
 line as JSON, and ends with ``{"ok": true, "device": {...}}``. Any failed
@@ -124,6 +141,7 @@ is not in a checkout of the repo (the package must lie beside it).
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import http.client
@@ -291,6 +309,18 @@ F32_GRAD_TOL = 1e-2
 GRAD_TOL = UPDATE_TOL = 2e-2
 # --nccl: the seconds a rank may take for its cli train and cli submit
 NCCL_RANK_S = 150
+# phase 23: the model axis on the one card, a (world / 2, 2) mesh of ranks:
+# the lookup schedules each world trains with, its steps at each dropout
+# rate, the a2a bucket capacity factor, and the factor that must overflow
+MESH_RUNS = {2: ("psum", "a2a"), 4: ("a2a",)}
+MESH_STEPS = {2: 6, 4: 4}
+MESH_CAPACITY, MESH_OVERFLOW = 2.0, 0.02
+# phase 24: the corpus cache's row blocks, all on the one card
+MESH_BLOCKS = 4
+# phase 24: a mesh score within this share of the largest |score| of the
+# single-device one (they gather the same rows); top_k ids may differ only
+# where two scores lie within this relative distance
+MESH_SCORE_TOL, MESH_TIE = 1e-4, 1e-5
 
 
 def card() -> str:
@@ -1834,16 +1864,393 @@ def ranks_run(FE, SS, tag):
     return [r["dropout_0.0"]["launches"] for r in res], replay_launches
 
 
+def mesh_worker(rank, world, port, work):
+    """Phase 23, one rank of a ``(world / 2, 2)`` process mesh on the one
+    card (``gloo``): NRMS at full width on phase 6's corpus, the word table
+    split by rows over the two ranks of each data row, MESH_STEPS steps of
+    the sliced feed at dropout 0 and at RANK_DROPOUT under each schedule of
+    MESH_RUNS (the plain versions made to raise, the launches counted from 0
+    before each run): every step's loss, the bytes of the replicated
+    parameters and of the table's block hashed, the replicas checked; the
+    peak memory and the step times; the parameters after the first step at
+    dropout 0; at dropout RANK_DROPOUT the first training forward's inputs
+    and seed kept and the kernel's output held to the plain version with the
+    mask of its data index's folded seed and with the other row's. At
+    ``world`` 2 the psum run ends with an evaluation and a checkpoint, and
+    one step at capacity factor MESH_OVERFLOW. Writes ``rank<r>.json`` and
+    ``<schedule>_rank<r>_step1.pt`` into ``work``."""
+    import hashlib
+    from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
+    from pytorch_news_recommender_tpu_torch.models import layers
+    from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.ops import segment_scatter as SS
+    from pytorch_news_recommender_tpu_torch.parallel import distributed
+    from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer, step_generator
+
+    torch.cuda.set_device(0)
+    assert distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ds = training_data(MESH_STEPS[world])
+    FE.build()
+    out = {"rank": rank}
+
+    def config(sched, rate, capacity=MESH_CAPACITY):
+        return dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, dropout=rate, embedding_lookup=sched,
+                                           a2a_capacity_factor=capacity),
+            mesh=dataclasses.replace(cfg.mesh, model_parallel_size=2))
+
+    def digest(tensors):
+        return hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes()
+                                       for t in tensors)).hexdigest()
+
+    for sched in MESH_RUNS[world]:
+        for rate in (0.0, RANK_DROPOUT):
+            rcfg = config(sched, rate)
+            trainer = Trainer(rcfg, ds, device=DEVICE)
+            state = trainer.init_state(seed=0)
+            blocks = state.opt.blocks
+            assert sorted(blocks) == ["news_encoder.word_embedding.embedding"], blocks
+            host = list(trainer.sliced_batches(np.random.default_rng(rcfg.train.seed)))
+            kept, real = [], layers.fused_news_encoder
+
+            def keep_first(x, mask, *weights, **kw):
+                if kw.get("dropout_rate", 0.0) > 0 and not kept:
+                    kept.append((x.detach().clone(), mask.clone(),
+                                 [w.detach().clone() for w in weights], dict(kw)))
+                return real(x, mask, *weights, **kw)
+            layers.fused_news_encoder = keep_first
+            for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd, FE.weight_grad):
+                fn.launches = 0
+            losses, step_ms, hashes, draws = [], [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with no_plain(FE, SS):
+                for batch in device_prefetch(host, DEVICE):
+                    draws.append(int(torch.randint(0, 2 ** 31 - 1, (), generator=step_generator(
+                        rcfg.train.seed + 1, state.step))))
+                    t0 = time.perf_counter()
+                    state, m = trainer.run_step(state, batch)
+                    losses.append(float(m["loss"]))
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    named = dict(state.model.named_parameters())
+                    hashes.append([digest(p for n, p in named.items() if n not in blocks),
+                                   digest(named[n] for n in blocks)])
+                    trainer.check_replicas(state)
+                    if rate == 0.0 and state.step == 1:
+                        torch.save({k: v.cpu() for k, v in state.params.items()},
+                                   work / f"{sched}_rank{rank}_step1.pt")
+                peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+                launches = {"fwd": FE.fused_news_encoder.launches,
+                            "bwd": FE.fused_news_encoder_bwd.launches,
+                            "wgrad": FE.weight_grad.launches}
+                run = {"losses": losses, "step_ms": step_ms, "hashes": hashes,
+                       "launches": launches, "peak_gib": peak_gib,
+                       "data_index": trainer.data_idx,
+                       "block_rows": [[n, b.start, b.rows, b.full_rows]
+                                      for n, b in blocks.items()],
+                       "block_mib": sum(3 * named[n].numel() * 4 for n in blocks) / 2 ** 20}
+                if rate == 0.0 and world == 2 and sched == "psum":
+                    metrics = trainer.evaluate(state)
+                    CheckpointManager(work / "ckpt", rcfg).save(state.step, state, metrics)
+                    run["auc"] = metrics["auc"]
+            layers.fused_news_encoder = real
+            if rate > 0:
+                x, mask, weights, kw = kept[0]
+                d = trainer.data_idx
+                assert kw["seed"] == FE.shard_seed(draws[0], d), (kw["seed"], draws[0], d)
+                with torch.no_grad():
+                    got = FE.fused_news_encoder(x, mask, *weights, **kw)
+                    real_rows = mask.sum(1) > 0
+                    errs = {}
+                    for who, r in (("own", d), ("other", 1 - d)):
+                        if r >= trainer.n_data:
+                            continue
+                        ref = FE.fused_news_encoder_reference(
+                            x, mask, *weights, num_heads=kw["num_heads"],
+                            dropout_rate=kw["dropout_rate"],
+                            seed=draws[0] + r * FE.SHARD_SEED_STRIDE)
+                        errs[who] = rel_err(got[real_rows], ref[real_rows])
+                run.update(seed=kw["seed"], draw=draws[0], mask_err=errs)
+            out[f"{sched}_{rate}"] = run
+            del trainer, state
+    if world == 2:
+        # a2a buckets far too small: the loss must come out NaN, never silent
+        trainer = Trainer(config("a2a", 0.0, MESH_OVERFLOW), ds, device=DEVICE)
+        batch = next(iter(trainer.sliced_batches(np.random.default_rng(cfg.train.seed))))
+        _, m = trainer.run_step(trainer.init_state(seed=0), batch)
+        out["overflow_loss"] = float(m["loss"])
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    distributed.barrier()
+
+
+def mesh_run(FE, SS, tag):
+    """Phase 23: the model axis on the one card. For each world of MESH_RUNS,
+    its ranks (``mesh_worker``, spawned after the kernels were built, over
+    ``gloo``, all on ``cuda:0``) train NRMS with the word table split by rows
+    over the two ranks of each data row. Held: every rank's loss equal bit
+    for bit at every step; the replicated parameters' bytes equal on every
+    rank and each block's on its data group; 3 / 3 / 12 launches a step; at
+    dropout 0 against one process on the same global batches
+    (``Trainer(replay_ranks=n_data)``): the losses within 1%, and the first
+    update, the model peers' blocks joined into the whole table, held by
+    ``update_errors`` as phases 20 and 22 hold it; at dropout 0.2 each
+    rank's kernel applied the mask of its data index's folded seed, equal on
+    model peers. At two ranks: a NaN loss at capacity factor MESH_OVERFLOW,
+    and the psum run's checkpoint restored in one process evaluates to the
+    ranks' AUC. Returns the ranks' launch counts by run."""
+    import torch.multiprocessing as mp
+    from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
+    from pytorch_news_recommender_tpu_torch.train.loop import Trainer
+
+    table = "news_encoder.word_embedding.embedding"
+    launches_by_run = {}
+    for world, scheds in MESH_RUNS.items():
+        work = WORK / f"mesh{world}"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        t0 = time.perf_counter()
+        mp.start_processes(mesh_worker, args=(world, free_port(), work), nprocs=world,
+                           join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        res = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+        n_data, steps = world // 2, MESH_STEPS[world]
+        for sched in scheds:
+            for rate in (0.0, RANK_DROPOUT):
+                runs = [r[f"{sched}_{rate}"] for r in res]
+                for r, run in enumerate(runs):
+                    assert run["losses"] == runs[0]["losses"], (r, run["losses"])
+                    assert np.all(np.isfinite(run["losses"])) and len(run["losses"]) == steps
+                    assert [h[0] for h in run["hashes"]] == [h[0] for h in runs[0]["hashes"]]
+                    assert [h[1] for h in run["hashes"]] == [h[1] for h in runs[r % 2]["hashes"]]
+                    assert run["data_index"] == r // 2
+                    lc = run["launches"]
+                    assert [lc["fwd"], lc["bwd"], lc["wgrad"]] == [3 * steps, 3 * steps,
+                                                                  12 * steps], lc
+                    launches_by_run[f"mesh{n_data}x2_{sched}_dropout{rate}_rank{r}"] = lc
+                if rate > 0:
+                    for r, run in enumerate(runs):
+                        peer = runs[r - r % 2]
+                        assert run["seed"] == peer["seed"] and run["mask_err"]["own"] < 2e-2
+                        if "other" in run["mask_err"]:
+                            assert run["mask_err"]["other"] > 2e-2, run["mask_err"]
+                    if n_data > 1:
+                        assert runs[2]["seed"] == (runs[0]["seed"] + FE.SHARD_SEED_STRIDE) % 2 ** 32
+        # one process on the same global batches (every data row's block)
+        cfg, ds = training_data(steps)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.0))
+        trainer = Trainer(cfg, ds, device=DEVICE, replay_ranks=n_data)
+        state = trainer.init_state(seed=0)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        host = list(trainer.sliced_batches(np.random.default_rng(cfg.train.seed)))
+        single, after1 = [], None
+        with no_plain(FE, SS):
+            for batch in host:
+                state, m = trainer.run_step(state, batch)
+                single.append(float(m["loss"]))
+                if after1 is None:
+                    after1 = {k: v.detach().clone() for k, v in state.params.items()}
+        _, g32, noise = grad_noise(FE, SS, trainer, f32_trainer(trainer, replay_ranks=n_data),
+                                   host[0])
+        noisy = {n for n in g32 if noise[n] > GRAD_NOISE}
+        for sched in scheds:
+            ranks = [r[f"{sched}_0.0"] for r in res]
+            loss_err = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], single))
+            assert loss_err < 0.01, (sched, loss_err, ranks[0]["losses"], single)
+            peers = [torch.load(work / f"{sched}_rank{r}_step1.pt") for r in (0, 1)]
+            step1 = {k: (torch.cat([p[k] for p in peers]) if k == table else v).to(DEVICE)
+                     for k, v in peers[0].items()}
+            assert step1[table].shape == before[table].shape
+            upd_err = update_errors(before, step1, after1, g32, noisy, set(before))
+            blocks = ranks[0]["block_rows"]
+            print(f"[phase 23] ({n_data} x 2) mesh, {sched} lookups ({spawn_s:.1f} s for the "
+                  f"world's spawn and runs): {steps} steps of global batch "
+                  f"{cfg.train.batch_size} at dropout 0 and {RANK_DROPOUT}: every rank's loss "
+                  f"equal at every step, the replicated parameters' bytes equal on all {world} "
+                  f"ranks and each block's on its data group; the word table's blocks "
+                  f"{blocks}; against one process on the same batches: loss max rel err "
+                  f"{loss_err:.3g} (tol 0.01), first update, the two blocks joined, "
+                  f"{upd_err:.3g} of each parameter's largest change (tol {UPDATE_TOL}; not "
+                  f"held, at bf16 noise: {sorted(noisy)}); dropout {RANK_DROPOUT}: seeds "
+                  f"{[r[f'{sched}_{RANK_DROPOUT}']['seed'] for r in res]} (draw + data index "
+                  f"* {FE.SHARD_SEED_STRIDE}), kernel vs the plain version with its own "
+                  f"mask / the other row's "
+                  f"{[r[f'{sched}_{RANK_DROPOUT}']['mask_err'] for r in res]}", flush=True)
+            for r, rr in enumerate(res):
+                run = rr[f"{sched}_0.0"]
+                p50, p99 = (float(np.percentile(run["step_ms"], q)) for q in (50, 99))
+                print(f"{tag} ({n_data} x 2) {sched} rank {r} (data row {r // 2}, model "
+                      f"index {r % 2}): train step p50 {p50:.2f} ms, p99 {p99:.2f} ms "
+                      f"(global batch {cfg.train.batch_size}); peak memory of the steps "
+                      f"{run['peak_gib']:.2f} GiB, the table's block with Adam's moments "
+                      f"{run['block_mib']:.1f} MiB of {2 * run['block_mib']:.1f}; launches "
+                      f"{run['launches']}; {world} processes time-sharing one card over "
+                      f"gloo, not a multi-card figure", flush=True)
+        if world == 2:
+            assert all(np.isnan(r["overflow_loss"]) for r in res), [r["overflow_loss"]
+                                                                    for r in res]
+            ranks_auc = res[0]["psum_0.0"]["auc"]
+            assert all(r["psum_0.0"]["auc"] == ranks_auc for r in res)
+            one = Trainer(dataclasses.replace(cfg, mesh=dataclasses.replace(
+                cfg.mesh, model_parallel_size=1)), ds, device=DEVICE)
+            restored = CheckpointManager(work / "ckpt").restore(one.init_state(seed=5))
+            assert restored.params[table].shape == (VOCAB, D)
+            assert restored.opt.mu[table].shape == (VOCAB, D)
+            auc = one.evaluate(restored)["auc"]
+            assert auc == ranks_auc, (auc, ranks_auc)
+            print(f"[phase 23] (1 x 2): capacity factor {MESH_OVERFLOW} gives a NaN loss on "
+                  f"both ranks; the psum run's checkpoint (step {restored.step}, the whole "
+                  f"word table and its moments) restored in one process: dev AUC "
+                  f"{auc:.6f}, equal to the ranks'", flush=True)
+        del trainer, state
+    return launches_by_run
+
+
+def mesh_serve_run(FE, SS, cfg, ds, params, ckpt, tag):
+    """Phase 24: ``Recommender(mesh=...)`` with MESH_BLOCKS row blocks of the
+    corpus cache on the one card, in both cache modes, on phase 3's corpus
+    and weights (65,239 rows: the pad path runs), against the single-device
+    ``Recommender``: ``score_many`` and ``score`` within MESH_SCORE_TOL of
+    the largest score, ``top_k`` ids equal but where two scores lie within
+    MESH_TIE, ``add_news`` across the blocks' end, and times beside the
+    single-device ones. The single-device answers and times come first; then
+    the main path (the mesh recommender's corpus encode and requests) runs
+    alone with the plain versions made to raise, its launches counted from
+    0, and they must be one per corpus-encode chunk, ``score_many`` batch,
+    ``score``, ``top_k`` and ``add_news``. Then ``cli serve --mesh`` on phase
+    7's checkpoint answers ``/score`` and ``/top_k`` over HTTP. Returns the
+    launches."""
+    from pytorch_news_recommender_tpu_torch import cli
+    from pytorch_news_recommender_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_news_recommender_tpu_torch.serve import Recommender
+    from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config
+
+    rng = np.random.default_rng(24)
+    mesh = make_mesh(cfg.mesh, [DEVICE + ":0"] * MESH_BLOCKS)
+    assert mesh.shape == {"data": MESH_BLOCKS, "model": 1}
+    n_rows = N_NEWS + 1
+    launches = 0
+
+    def close(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                     / max(1e-6, float(np.abs(np.asarray(b)).max())))
+
+    def same_top(a, b):
+        (ids, scores), (ids1, scores1) = a, b
+        assert close(scores, scores1) <= MESH_SCORE_TOL, (scores, scores1)
+        for i in np.nonzero(ids != ids1)[0]:
+            tie = np.abs(scores1 - scores1[i]) <= MESH_TIE * abs(scores1[i])
+            assert ids[i] in ids1[tie], (i, ids, ids1, scores1)
+
+    def batches(r, reqs):
+        """The ``score_many`` batches (one user-tower launch each) of ``reqs``."""
+        widths = collections.Counter(r._width_for(len(c)) for _, c, _ in reqs)
+        return sum(-(-n // r.BATCH_PAD) for n in widths.values())
+
+    rows0 = -(-n_rows // MESH_BLOCKS)
+    cap = rows0 * MESH_BLOCKS
+    words = list(ds.dicts["word"])
+    # fresh news: the first fills the last block's pad row, the last passes
+    # the blocks' end (the table grows and splits again)
+    titles = [" ".join(words[50 * i + j] for j in range(6)) for i in range(cap - n_rows + 1)]
+    for cache in ("native", "int8"):
+        # the single-device answers first, outside the mesh path's count
+        one = Recommender(cfg, ds, params, corpus_cache=cache, device=DEVICE)
+        whole = one.news_q if cache == "int8" else one.news_vecs
+        reqs = [(h, c, 0) for h, c in make_requests(rng, 2 * one.BATCH_PAD, n_rows)]
+        batch = [(h, rng.integers(1, n_rows, size=300).tolist(), 0)
+                 for h, _ in make_requests(rng, one.BATCH_PAD, n_rows)]
+        hist = batch[0][0]
+        want_many = one.score_many(reqs)
+        want_score = [one.score(h, c) for h, c, _ in reqs[:4]]
+        want_top = [one.top_k(h, 10) for h, _, _ in reqs[:8]]
+        times = {"one": (latency(lambda: one.score_many(batch), 50),
+                         latency(lambda: one.top_k(hist, 10), 50))}
+        # the mesh path alone, its launches counted from 0
+        FE.fused_news_encoder.launches = 0
+        with no_plain(FE, SS):
+            rec = Recommender(cfg, ds, params, corpus_cache=cache, mesh=mesh)
+            assert rec.block_rows == rows0
+            got_many = rec.score_many(reqs)
+            got_score = [rec.score(h, c) for h, c, _ in reqs[:4]]
+            got_top = [rec.top_k(h, 10) for h, _, _ in reqs[:8]]
+            times["mesh"] = (latency(lambda: rec.score_many(batch), 50),
+                             latency(lambda: rec.top_k(hist, 10), 50))
+            new = [rec.add_news(t) for t in titles]
+            got_added = (rec.score(new + [1, 2], new + [3, 4]), rec.top_k(new + [5], 10))
+        mesh_launches = FE.fused_news_encoder.launches
+        per_encode = math.ceil(n_rows / cfg.train.eval_encode_chunk)
+        want_launches = (per_encode + batches(rec, reqs) + 4 + 8
+                         + 50 * batches(rec, batch) + 50 + len(new) + 2)
+        assert mesh_launches == want_launches, (mesh_launches, want_launches)
+        launches += mesh_launches
+        blocks = rec.q_blocks if cache == "int8" else rec.vec_blocks
+        assert len(blocks) == MESH_BLOCKS and rec.block_rows > rows0
+        joined = rec.news_q if cache == "int8" else rec.news_vecs
+        assert torch.equal(joined[:n_rows], whole) and not joined[n_rows + len(new):].any()
+        score_err = max(close(a, b) for a, b in zip(got_many, want_many))
+        score_err = max([score_err] + [close(a, b) for a, b in zip(got_score, want_score)])
+        assert score_err <= MESH_SCORE_TOL, score_err
+        for a, b in zip(got_top, want_top):
+            same_top(a, b)
+        for i, t in enumerate(titles):
+            assert one.add_news(t) == new[i] == n_rows + i
+        assert rec.block_rows * MESH_BLOCKS > cap and rec.n_news == one.n_news
+        add_err = close(got_added[0], one.score(new + [1, 2], new + [3, 4]))
+        assert add_err <= MESH_SCORE_TOL, add_err
+        same_top(got_added[1], one.top_k(new + [5], 10))
+        print(f"[phase 24] mesh serving ({cache}): {MESH_BLOCKS} row blocks of "
+              f"{rows0} rows on {DEVICE}:0 ({n_rows} rows padded to {cap}); "
+              f"score_many / score vs the single-device recommender {score_err:.3g} of the "
+              f"largest score (tol {MESH_SCORE_TOL}), top_k ids equal but for ties within "
+              f"{MESH_TIE}; {len(new)} add_news past the blocks' end (now {rec.block_rows} "
+              f"rows a block): scores {add_err:.3g} off, top_k equal; the mesh path's "
+              f"fused_encoder_fwd launches {mesh_launches} ({per_encode} corpus-encode "
+              f"chunks + one per score_many batch, score, top_k and add_news)", flush=True)
+        print(f"{tag} mesh serving ({cache}, {MESH_BLOCKS} blocks on one card): score_many "
+              f"({rec.BATCH_PAD} x 300) p50 {times['mesh'][0][0]:.2f} ms, p99 "
+              f"{times['mesh'][0][1]:.2f} ms (single device {times['one'][0][0]:.2f} / "
+              f"{times['one'][0][1]:.2f}); top_k (k=10) p50 {times['mesh'][1][0]:.2f} ms, p99 "
+              f"{times['mesh'][1][1]:.2f} ms (single device {times['one'][1][0]:.2f} / "
+              f"{times['one'][1][1]:.2f})", flush=True)
+        del rec, one, whole, joined
+
+    # cli serve --mesh on phase 7's checkpoint (small synthetic size)
+    args = cli.build_parser().parse_args(["serve", "--data", "synthetic", "--ckpt", ckpt,
+                                          "--port", "0", "--mesh"])
+    srv = cli.build_server(args)
+    n_cards = torch.cuda.device_count()
+    assert srv.rec.mesh is not None and len(srv.rec.vec_blocks) == n_cards
+    small = Recommender.from_checkpoint(ckpt, cli._load_dataset(args, load_config(ckpt)),
+                                        device=DEVICE)
+    srv.start(block=False)
+    try:
+        got = post(srv.port, "/score", {"history": [1, 2, 3], "candidates": [4, 5, 6, 7]})
+        assert close(got["scores"], small.score([1, 2, 3], [4, 5, 6, 7])) <= MESH_SCORE_TOL
+        got = post(srv.port, "/top_k", {"history": [1, 2, 3], "k": 5})
+        same_top((np.asarray(got["ids"]), np.asarray(got["scores"])), small.top_k([1, 2, 3], 5))
+    finally:
+        srv.stop()
+    print(f"[phase 24] cli serve --mesh: {n_cards} row block(s), one a visible card; /score "
+          f"and /top_k answered over HTTP as the single-device recommender answers",
+          flush=True)
+    return launches
+
+
 def nccl_run(tag):
     """``--nccl``: ``cli train`` at the small synthetic size, with its
     dev-split evaluations (each gathers the replicas' checksums and the
     score blocks), then ``cli submit``, over the nccl backend with one
-    rank a card, at two ranks and at every card: every rank finishes on its
-    own card, rank 0 writes one metrics log and one submission file, and
-    the file equals one process's from the same checkpoint. The kernels and
-    ``native/`` are built before the ranks start; each rank logs to its own
-    file (NCCL's INFO lines included) and dumps its stacks and exits if it
-    is not done within NCCL_RANK_S, so that a hang shows where it waits."""
+    rank a card, at two ranks and at every card, data-parallel and with
+    ``--model-parallel 2`` (the word table split by rows over each pair of
+    cards): every rank finishes on its own card, rank 0 writes one metrics
+    log and one submission file, and the file equals one process's from the
+    same checkpoint. The kernels and ``native/`` are built before the ranks
+    start; each rank logs to its own file (NCCL's INFO lines too) and dumps
+    its stacks and exits if it is not done within NCCL_RANK_S, so that a
+    hang shows where it waits. Then ``cli serve --mesh`` in this process
+    splits the corpus cache over every card."""
     from pytorch_news_recommender_tpu_torch import cli, native
     from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
 
@@ -1861,8 +2268,8 @@ def nccl_run(tag):
             "'--save-dir', d] + flags) == 0; print('train done', flush=True); "
             "assert cli.main(['submit', '--data', 'synthetic', '--ckpt', d + '/nrms', "
             "'--out', d + '/ranks.txt'] + flags) == 0; print('submit done', flush=True)")
-    for world in sorted({2, cards}):
-        save, port = WORK / f"nccl{world}", free_port()
+    for world, mp in itertools.product(sorted({2, cards}), (1, 2)):
+        save, port = WORK / f"nccl{world}_mp{mp}", free_port()
         shutil.rmtree(save, ignore_errors=True)
         save.mkdir(parents=True)
         logs = [save / f"rank{r}.log" for r in range(world)]
@@ -1873,15 +2280,16 @@ def nccl_run(tag):
                 procs.append(subprocess.Popen(
                     [sys.executable, "-c", code, str(save), "--coordinator",
                      f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id",
-                     str(r)], cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT))
+                     str(r), "--model-parallel", str(mp)], cwd=root, env=env, stdout=f,
+                    stderr=subprocess.STDOUT))
         rcs = [p.wait(timeout=NCCL_RANK_S + 60) for p in procs]
         wall = time.perf_counter() - t0
         texts = [log.read_text(errors="replace") for log in logs]
         if any(rcs):
             for r, text in enumerate(texts):
-                print(f"[nccl] {world} ranks: rank {r} rc {rcs[r]}, its log's tail:\n"
-                      f"{text[-4000:]}", flush=True)
-            raise AssertionError(f"--nccl: {world} ranks ended with {rcs}")
+                print(f"[nccl] {world} ranks, model axis {mp}: rank {r} rc {rcs[r]}, its "
+                      f"log's tail:\n{text[-4000:]}", flush=True)
+            raise AssertionError(f"--nccl: {world} ranks (model axis {mp}) ended with {rcs}")
         for r, text in enumerate(texts):
             assert f"rank {r} of {world} (nccl)" in text and "submit done" in text, text[-2000:]
         lines = [json.loads(x) for x in (save / "nrms" / "metrics.jsonl").read_text()
@@ -1892,11 +2300,34 @@ def nccl_run(tag):
                          "--out", str(save / "one.txt")]) == 0
         ranks, one = (save / "ranks.txt").read_text(), (save / "one.txt").read_text()
         assert ranks == one and ranks.count("\n") > 0
-        print(f"{tag} [nccl] {world} ranks, one a card: cli train with {len(aucs)} "
-              f"evaluations (dev AUC {aucs[-1]:.4f}, the replicas' checksums gathered at "
-              f"each) and cli submit: one file of {ranks.count(chr(10))} lines, equal to "
-              f"one process's; {wall:.1f} s of wall time for both commands, process "
-              f"start-up included", flush=True)
+        print(f"{tag} [nccl] {world} ranks, one a card, a ({world // mp} x {mp}) mesh: cli "
+              f"train --model-parallel {mp} with {len(aucs)} evaluations (dev AUC "
+              f"{aucs[-1]:.4f}, the replicas' checksums gathered at each) and cli submit: "
+              f"one file of {ranks.count(chr(10))} lines, equal to one process's; "
+              f"{wall:.1f} s of wall time for both commands, process start-up included",
+              flush=True)
+    # cli serve --mesh: the corpus cache split by rows over every card
+    from pytorch_news_recommender_tpu_torch.serve import Recommender
+    from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config
+    ckpt = str(WORK / f"nccl{cards}_mp2" / "nrms")
+    args = cli.build_parser().parse_args(["serve", "--data", "synthetic", "--ckpt", ckpt,
+                                          "--port", "0", "--mesh"])
+    srv = cli.build_server(args)
+    devices = [str(b.device) for b in srv.rec.vec_blocks]
+    assert devices == [f"cuda:{i}" for i in range(cards)], devices
+    one = Recommender.from_checkpoint(ckpt, cli._load_dataset(args, load_config(ckpt)),
+                                      device=DEVICE)
+    srv.start(block=False)
+    try:
+        got = post(srv.port, "/score", {"history": [1, 2, 3], "candidates": [4, 5, 6, 7]})
+        np.testing.assert_allclose(got["scores"], one.score([1, 2, 3], [4, 5, 6, 7]),
+                                   rtol=MESH_SCORE_TOL, atol=MESH_SCORE_TOL)
+        got = post(srv.port, "/top_k", {"history": [1, 2, 3], "k": 5})
+        assert got["ids"] == one.top_k([1, 2, 3], 5)[0].tolist(), got
+    finally:
+        srv.stop()
+    print(f"{tag} [nccl] cli serve --mesh: the corpus cache in {cards} row blocks on "
+          f"{devices}; /score and /top_k answered as one card answers", flush=True)
 
 
 def latency(fn, n):
@@ -1979,6 +2410,7 @@ def main() -> int:
     print(f"corpus + seeded weights: {time.perf_counter() - t0:.1f} s "
           f"({ds.news.n_news} rows, vocab {VOCAB})", flush=True)
     rng = np.random.default_rng(0)
+    serving = (cfg, ds, params)   # phase 24 serves the same corpus and weights
     FE.fused_news_encoder.launches = 0
     rec = serve_run(cfg, ds, params, "native", FE, rng)
     serve_run(cfg, ds, params, "int8", FE, rng)
@@ -2129,6 +2561,12 @@ def main() -> int:
     # 22. two ranks on the one card over gloo, and the CLI on two ranks
     rank_launches, replay_launches = ranks_run(FE, SS, tag)
 
+    # 23. the model axis: (1 x 2) and (2 x 2) meshes of ranks on the one card
+    mesh_launches = mesh_run(FE, SS, tag)
+
+    # 24. the corpus cache in row blocks (Recommender(mesh=...)), cli serve --mesh
+    mesh_serve_launches = mesh_serve_run(FE, SS, *serving, ckpt, tag)
+
     by_path = {
         "fwd": {"serve": serve_launches, "train": train_launches["fwd"],
                 "train_dedup_gather_mxu": mxu_launches["fwd"]},
@@ -2140,6 +2578,9 @@ def main() -> int:
         for r, launches in enumerate(rank_launches):
             by_path[key][f"train_2rank_rank{r}"] = launches[key]
         by_path[key]["train_2rank_replay"] = replay_launches[key]
+        for run, launches in mesh_launches.items():
+            by_path[key][run] = launches[key]
+    by_path["fwd"]["serve_mesh"] = mesh_serve_launches
     for name, r in fam.items():
         by_path["fwd"][f"{name}_train"] = r["train"]["fwd"]
         by_path["fwd"][f"{name}_serve"] = r["serve"]

@@ -20,15 +20,20 @@ Every command that runs a model takes ``--device``: the CUDA card by default
 from the checkpoint and accept the shared model flags so that one command
 line works for all.
 
-``train`` and ``submit`` run data-parallel over ``torch.distributed``: one
+``train``, ``eval`` and ``submit`` run over ``torch.distributed``: one
 process per rank, from ``torchrun`` (its environment is detected) or with
 ``--coordinator host:port --num-processes N --process-id R`` on each
 process (``--dist-backend gloo`` for ranks that share one card; ``nccl``
-is the default where CUDA is available). Rank 0 writes the checkpoints,
-the metrics log and the submission file. ``train --log-attention`` logs
-the attention summaries of one batch through the plain path
-(``utils/inspect.py``). Not ported, refused naming its ``ROADMAP.md`` item:
-``serve --mesh``.
+is the default where CUDA is available). The ranks form a ``(N / M, M)``
+mesh for ``--model-parallel M`` (default 1: data-parallel only): the word,
+BERT and entity tables are split by rows over the ``M`` ranks of each data
+row. ``eval`` and ``submit`` take the run's own ``--model-parallel``, not
+the checkpoint's, so a model-parallel checkpoint also runs in one process.
+Rank 0 writes the checkpoints, the metrics log and the submission file.
+``train --log-attention`` logs the attention summaries of one batch
+through the plain path (``utils/inspect.py``). ``serve --mesh`` splits the
+corpus cache by rows over every visible card (over the one device of
+``--device cpu``).
 
 Usage: ``python -m pytorch_news_recommender_tpu_torch.cli <command> ...``.
 """
@@ -36,6 +41,7 @@ Usage: ``python -m pytorch_news_recommender_tpu_torch.cli <command> ...``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
@@ -340,16 +346,22 @@ def _restored(args):
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer
 
     cfg = load_config(args.ckpt)
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, model_parallel_size=args.model_parallel))
     trainer = Trainer(cfg, _load_dataset(args, cfg), device=args.device)
     return trainer, load_params(params_file(args.ckpt))
 
 
 def cmd_eval(args) -> int:
+    """Metrics of a checkpoint (over the ranks of a process group, each its
+    rows of every batch; rank 0 prints them)."""
+    rank = _initialize(args)
     trainer, params = _restored(args)
     ds = trainer.dataset
     split = ds.test if args.split == "test" else ds.dev
-    print(json.dumps(trainer.evaluate(params, split=split,
-                                      max_impressions=args.max_impressions)))
+    metrics = trainer.evaluate(params, split=split, max_impressions=args.max_impressions)
+    if rank == 0:
+        print(json.dumps(metrics))
     return 0
 
 
@@ -389,15 +401,19 @@ def build_server(args):
     from pytorch_news_recommender_tpu_torch.server import RecommenderServer
     from pytorch_news_recommender_tpu_torch.train.checkpoint import load_config
 
-    if args.mesh:
-        raise SystemExit("error: --mesh serving is not ported to PyTorch yet "
-                         "(ROADMAP.md A.4)")
     cfg = load_config(args.ckpt)
     ds = _load_dataset(args, cfg)
+    mesh = None
+    if args.mesh:
+        from pytorch_news_recommender_tpu_torch.parallel.mesh import make_mesh
+        # every visible card, or the one device asked for when it is not one
+        on_host = args.device is not None and not str(args.device).startswith("cuda")
+        mesh = make_mesh(dataclasses.replace(cfg.mesh, model_parallel_size=args.model_parallel),
+                         [args.device] if on_host else None)
     rec = Recommender.from_checkpoint(args.ckpt, ds,
                                       corpus_cache=args.corpus_cache,
                                       vectors_file=args.vectors,
-                                      device=args.device)
+                                      device=args.device, mesh=mesh)
     return RecommenderServer(rec, host=args.host, port=args.port,
                              batch_window_ms=args.batch_window_ms)
 
@@ -525,6 +541,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", required=True)
     p.add_argument("--split", choices=("dev", "test"), default="dev")
     p.add_argument("--max-impressions", type=int, default=None)
+    _add_cluster(p)
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("serve", help="HTTP serving daemon on a checkpoint")
@@ -546,7 +563,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "long after a request arrives to batch concurrent "
                         "traffic into one device call (0 = off)")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported yet: raises")
+                   help="split the corpus cache by rows over every visible card "
+                        "(the first axis of a --model-parallel mesh of them)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("export-vectors",

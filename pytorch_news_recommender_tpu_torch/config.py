@@ -163,6 +163,15 @@ class MeshConfig:
     model_axis: str = "model"
     model_parallel_size: int = 1        # 1 = pure data parallel
 
+    def mesh_shape(self, n_devices: int) -> tuple[int, int]:
+        """``(n_data, n_model)`` for ``n_devices`` devices or processes."""
+        mp = max(1, self.model_parallel_size)
+        if n_devices % mp != 0:
+            raise ValueError(
+                f"n_devices={n_devices} not divisible by model_parallel_size={mp}"
+            )
+        return (n_devices // mp, mp)
+
 
 @dataclasses.dataclass(frozen=True)
 class Config:

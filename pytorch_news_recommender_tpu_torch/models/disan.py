@@ -150,7 +150,9 @@ class DiSANRec(RecModel):
         cd = getattr(torch, cfg.compute_dtype)
         self.d_h = cfg.disan_hidden or cfg.word_embed_size
         self.word_embedding = WordEmbedding(cfg.n_words, cfg.word_embed_size, cd,
-                                            trainable=not cfg.freeze_word_embeddings)
+                                            trainable=not cfg.freeze_word_embeddings,
+                                            embedding_lookup=cfg.embedding_lookup,
+                                            a2a_capacity_factor=cfg.a2a_capacity_factor)
         self.disan = DiSANEncoder(cfg.word_embed_size, self.d_h, cfg.dropout, cd)
         self.user_encoder = UserEncoder(2 * self.d_h, cfg.user_heads_num,
                                         cfg.query_vector_dim, cd)

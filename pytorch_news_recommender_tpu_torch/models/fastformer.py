@@ -134,7 +134,9 @@ class Fastformer(RecModel):
         cd = getattr(torch, cfg.compute_dtype)
         D = cfg.word_embed_size
         self.word_embedding = WordEmbedding(cfg.n_words, D, cd,
-                                            trainable=not cfg.freeze_word_embeddings)
+                                            trainable=not cfg.freeze_word_embeddings,
+                                            embedding_lookup=cfg.embedding_lookup,
+                                            a2a_capacity_factor=cfg.a2a_capacity_factor)
         self.news_tower = _Tower(D, cfg.num_attention_heads, cfg.fastformer_layers,
                                  cfg.query_vector_dim, cfg.dropout, cd)
         self.user_tower = _Tower(D, cfg.user_heads_num, cfg.fastformer_layers,

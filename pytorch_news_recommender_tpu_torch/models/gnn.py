@@ -101,7 +101,9 @@ class GNNRec(RecModel):
             n_words=cfg.n_words, word_embed_size=cfg.word_embed_size,
             num_heads=cfg.num_attention_heads, query_dim=cfg.query_vector_dim,
             compute_dtype=cd, dropout=cfg.dropout,
-            freeze_embeddings=cfg.freeze_word_embeddings)
+            freeze_embeddings=cfg.freeze_word_embeddings,
+            embedding_lookup=cfg.embedding_lookup,
+            a2a_capacity_factor=cfg.a2a_capacity_factor)
         self.n_gat = max(1, cfg.gnn_layers)
         # Flax's names: gat0, gat1, ...
         for i in range(self.n_gat):

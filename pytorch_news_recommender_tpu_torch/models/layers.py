@@ -34,6 +34,7 @@ from pytorch_news_recommender_tpu_torch.ops.attention import (
 from pytorch_news_recommender_tpu_torch.ops.fused_encoder import (
     fused_news_encoder, shard_seed,
 )
+from pytorch_news_recommender_tpu_torch.parallel.sharded_embedding import scheduled_lookup
 
 
 class RankGenerator(torch.Generator):
@@ -116,20 +117,23 @@ class PadEmbedding(nn.Module):
     """Table whose row 0 is pad: ids 0 look up zeros, so row 0 gets a zero
     gradient (torch's ``padding_idx=0``, done by the mask). Every row is
     drawn ~N(0, 1), as Flax's ``normal(1.0)``. The lookup is in the compute
-    dtype. Category, subcategory and entity tables."""
+    dtype. Category, subcategory, user and entity tables; the entity table,
+    when row-sharded over the model axis (``row_block``), looks up through
+    the psum path (``parallel/sharded_embedding.py``)."""
 
     def __init__(self, num: int, dim: int, compute_dtype: torch.dtype):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(num, dim))
         self.compute_dtype = compute_dtype
+        self.row_block = self.mesh = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _draw(self.embedding, lambda t: t.normal_(generator=generator))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        mask = (ids != 0).to(cd)
-        return F.embedding(ids.long(), self.embedding).to(cd) * mask[..., None]
+        return scheduled_lookup(self.embedding, ids, (ids != 0).to(cd), cd,
+                                block=self.row_block, mesh=self.mesh)
 
 
 class LayerNorm(nn.Module):
@@ -194,17 +198,25 @@ class WordEmbedding(nn.Module):
     Initialized ~N(0, 1) with a zero pad row. Its gradient is the float32
     scatter-add of ``g * mask`` (taken in the compute dtype) over the looked
     up rows, as the JAX package's masked lookup gives; with ``trainable``
-    off the table gets no gradient. The lookup is ``F.embedding``, whose
-    backward sums each row's duplicates as segments after one sort (the
-    backward of ``table[ids]`` took 27 ms a step at batch 512 on an H100:
-    PERF.md)."""
+    off the table gets no gradient. The plain lookup is ``F.embedding``,
+    whose backward sums each row's duplicates as segments after one sort
+    (the backward of ``table[ids]`` took 27 ms a step at batch 512 on an
+    H100: PERF.md). Under a model axis the lookup follows
+    ``embedding_lookup`` (``auto`` | ``psum`` | ``a2a``, with
+    ``a2a_capacity_factor``; ``parallel/sharded_embedding.py``), on the
+    rank's row block when the table is sharded (``row_block``), over the
+    process mesh that ``shard_tables`` gave it (``mesh``)."""
 
     def __init__(self, n_words: int, embed_size: int, compute_dtype: torch.dtype,
-                 trainable: bool = True):
+                 trainable: bool = True, embedding_lookup: str = "auto",
+                 a2a_capacity_factor: float = 2.0):
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(n_words, embed_size))
         self.compute_dtype = compute_dtype
         self.trainable = trainable
+        self.embedding_lookup = embedding_lookup
+        self.a2a_capacity_factor = a2a_capacity_factor
+        self.row_block = self.mesh = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _draw(self.embedding, lambda t: t.normal_(generator=generator))
@@ -212,9 +224,9 @@ class WordEmbedding(nn.Module):
             self.embedding[0] = 0.0
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        cd = self.compute_dtype
         table = self.embedding if self.trainable else self.embedding.detach()
-        return F.embedding(ids.long(), table).to(cd) * mask[..., None].to(cd)
+        return scheduled_lookup(table, ids, mask, self.compute_dtype, self.embedding_lookup,
+                                self.a2a_capacity_factor, self.row_block, self.mesh)
 
 
 class AttentionPoolTower(nn.Module):
@@ -285,10 +297,13 @@ class NewsEncoder(nn.Module):
 
     def __init__(self, n_words: int, word_embed_size: int, num_heads: int,
                  query_dim: int, compute_dtype: torch.dtype, dropout: float = 0.2,
-                 freeze_embeddings: bool = False):
+                 freeze_embeddings: bool = False, embedding_lookup: str = "auto",
+                 a2a_capacity_factor: float = 2.0):
         super().__init__()
         self.word_embedding = WordEmbedding(n_words, word_embed_size, compute_dtype,
-                                            trainable=not freeze_embeddings)
+                                            trainable=not freeze_embeddings,
+                                            embedding_lookup=embedding_lookup,
+                                            a2a_capacity_factor=a2a_capacity_factor)
         self.tower = AttentionPoolTower(word_embed_size, num_heads, query_dim,
                                         compute_dtype)
         self.dropout = dropout

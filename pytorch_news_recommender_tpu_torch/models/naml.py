@@ -49,7 +49,9 @@ class NAML(RecModel):
         self.cfg = cfg
         cd = getattr(torch, cfg.compute_dtype)
         self.word_embedding = WordEmbedding(cfg.n_words, cfg.word_embed_size, cd,
-                                            trainable=not cfg.freeze_word_embeddings)
+                                            trainable=not cfg.freeze_word_embeddings,
+                                            embedding_lookup=cfg.embedding_lookup,
+                                            a2a_capacity_factor=cfg.a2a_capacity_factor)
         self.text_tower = AttentionPoolTower(cfg.word_embed_size, cfg.num_attention_heads,
                                              cfg.query_vector_dim, cd)
         self.category_embedding = PadEmbedding(cfg.category_nums, cfg.cate_embed_size, cd)

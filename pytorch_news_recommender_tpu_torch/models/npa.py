@@ -80,7 +80,9 @@ class NPA(RecModel):
         self.word_query = Dense(50, q, torch.float32)
         self.news_query = Dense(50, q, torch.float32)
         self.word_embedding = WordEmbedding(cfg.n_words, cfg.word_embed_size, cd,
-                                            trainable=not cfg.freeze_word_embeddings)
+                                            trainable=not cfg.freeze_word_embeddings,
+                                            embedding_lookup=cfg.embedding_lookup,
+                                            a2a_capacity_factor=cfg.a2a_capacity_factor)
         self.title_cnn = Conv1d(cfg.word_embed_size, cfg.num_filters, cfg.kernel_size, cd)
         self.word_pa = PersonalizedAttention(cfg.num_filters, q, cd)
         self.news_pa = PersonalizedAttention(cfg.num_filters, q, cd)

@@ -27,7 +27,9 @@ class NRMS(RecModel):
             n_words=cfg.n_words, word_embed_size=cfg.word_embed_size,
             num_heads=cfg.num_attention_heads, query_dim=cfg.query_vector_dim,
             compute_dtype=cd, dropout=cfg.dropout,
-            freeze_embeddings=cfg.freeze_word_embeddings)
+            freeze_embeddings=cfg.freeze_word_embeddings,
+            embedding_lookup=cfg.embedding_lookup,
+            a2a_capacity_factor=cfg.a2a_capacity_factor)
         self.user_encoder = UserEncoder(
             model_dim=cfg.word_embed_size, num_heads=cfg.user_heads_num,
             query_dim=cfg.query_vector_dim, compute_dtype=cd)

@@ -23,28 +23,32 @@ from __future__ import annotations
 from typing import Mapping, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from pytorch_news_recommender_tpu_torch.config import ModelConfig
 from pytorch_news_recommender_tpu_torch.models.common import Batch, RecModel
 from pytorch_news_recommender_tpu_torch.models.layers import Dense, UserEncoder, dropout
 from pytorch_news_recommender_tpu_torch.ops.attention import dot_product_scores
+from pytorch_news_recommender_tpu_torch.parallel.sharded_embedding import scheduled_lookup
 
 
 class BertEmbedding(nn.Module):
     """The per-news vector table: a trainable float32 parameter of the
-    dataset table's shape, or (frozen) the ``news_feats`` table itself."""
+    dataset table's shape, or (frozen) the ``news_feats`` table itself. The
+    trainable table, when row-sharded over the model axis (``row_block``),
+    looks up through the psum path (``parallel/sharded_embedding.py``)."""
 
     def __init__(self, shape: Tuple[int, int], trainable: bool = True):
         super().__init__()
         self.trainable = trainable
+        self.row_block = self.mesh = None
         if trainable:
             self.embedding = nn.Parameter(torch.zeros(shape))
 
     def forward(self, ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         if self.trainable:
-            return F.embedding(ids.long(), self.embedding)
+            return scheduled_lookup(self.embedding, ids, None, self.embedding.dtype,
+                                    block=self.row_block, mesh=self.mesh)
         return table[ids.long()]
 
 

@@ -1,6 +1,6 @@
 """Multi-process runtime on ``torch.distributed`` (port of the JAX package's
-``parallel/distributed.py``): the process group, the rank's slice of a
-batch, and the gathers the data-parallel ``Trainer`` needs.
+``parallel/distributed.py``): the process group, the mesh's two groups, the
+rank's slice of a batch, and the gathers the ``Trainer`` needs.
 
 * :func:`initialize` brings the group up: from explicit arguments
   (``init_process_group(init_method="tcp://<coordinator>")``), from a
@@ -9,17 +9,28 @@ batch, and the gathers the data-parallel ``Trainer`` needs.
 * :func:`process_index` / :func:`process_count` are the rank and the world
   size (0 and 1 without a group), as ``jax.process_index`` /
   ``jax.process_count``.
-* :func:`process_local_slice` is this rank's rows of a global batch.
+* :func:`mesh_groups` lays the world out as a ``(n_data, n_model)`` mesh of
+  processes (``mesh.model_parallel_size`` = ``n_model``): a rank's
+  ``data_index = rank // n_model`` and ``model_index = rank % n_model``, so
+  model peers are consecutive ranks, as JAX's device order puts them. The
+  **model group** (the ranks of one data row, same ``data_index``) holds
+  the row blocks of one sharded table between them and looks its rows up
+  together (``parallel/sharded_embedding.py``); they train on the same
+  rows. The **data group** (same ``model_index``) holds the same block of
+  each table, on different rows of the batch: a block's gradient is
+  averaged over it, and the eval's score blocks are gathered over it.
+* :func:`process_local_slice` is a data row's rows of a global batch.
 * :func:`fetch_global` gathers every rank's block of a tensor, in rank
-  order, onto every rank (the eval score blocks).
-* :func:`all_reduce_mean` averages a list of tensors over the ranks in one
+  order, onto every rank of a group (the eval score blocks, the table
+  blocks of a checkpoint).
+* :func:`all_reduce_mean` averages a list of tensors over a group in one
   collective on one flat buffer (the weight gradients of a step).
-* :func:`assert_replicated` compares a checksum of tensors across the ranks.
+* :func:`assert_replicated` compares a checksum of tensors across a group.
 
 The JAX package's ``global_batch`` has no counterpart: JAX assembles each
 process's slice into one global array, while here each rank keeps its slice
-and computes on it, and only the gradients, the step's loss and the eval
-scores cross ranks.
+and computes on it, and only the gradients, the step's loss, the sharded
+tables' rows and the eval scores cross ranks.
 
 Backends: ``nccl`` when each rank owns a card (``cuda:{LOCAL_RANK}``, made
 the current device), ``gloo`` on the CPU. ``backend="gloo"`` also serves
@@ -28,14 +39,16 @@ nccl takes only tensors on the rank's card and gloo gathers only CPU
 tensors, so the gathers move their blocks to :func:`_comm_device` first;
 the all-reduce moves its buffer to the card under nccl and leaves it where
 it is under gloo. Nothing switches backends silently: a group that cannot
-form raises.
+form raises. Every function that takes ``group`` takes ``None`` for the
+whole world.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from datetime import timedelta
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -165,13 +178,80 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
-def process_local_slice(n: int) -> slice:
-    """This rank's contiguous rows of a length-``n`` global batch."""
-    p, count = process_index(), process_count()
+def process_local_slice(n: int, index: Optional[int] = None,
+                        count: Optional[int] = None) -> slice:
+    """Row ``index`` of ``count`` (default: this rank of the world) of a
+    length-``n`` global batch, as a contiguous slice."""
+    p = process_index() if index is None else index
+    count = process_count() if count is None else count
     if n % count:
         raise ValueError(f"a batch of {n} rows does not split over {count} processes")
     per = n // count
     return slice(p * per, (p + 1) * per)
+
+
+# a group of one rank: every collective over it is the identity
+SOLO = "solo"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """A rank's place in the ``(n_data, n_model)`` process mesh and its two
+    groups: a ``torch.distributed`` group, ``None`` where the group is the
+    whole world, :data:`SOLO` where it is this rank alone."""
+
+    n_data: int
+    n_model: int
+    data_index: int
+    model_index: int
+    data_group: Any = SOLO
+    model_group: Any = SOLO
+
+
+_MESHES: dict = {}
+
+
+def mesh_groups(model_parallel_size: int) -> MeshGroups:
+    """The process mesh of the world with a model axis of
+    ``model_parallel_size`` (``MeshConfig.mesh_shape``'s ``ValueError`` when
+    it does not divide the world). The first call for a size creates the
+    groups, every rank every group in the same order, as ``dist.new_group``
+    requires; later calls return them."""
+    from pytorch_news_recommender_tpu_torch.config import MeshConfig
+
+    world, rank = process_count(), process_index()
+    n_data, n_model = MeshConfig(model_parallel_size=model_parallel_size).mesh_shape(world)
+    key = (world, rank, n_model)
+    if key in _MESHES:
+        return _MESHES[key]
+    data_index, model_index = divmod(rank, n_model)
+    data_group = SOLO if n_data == 1 else None
+    model_group = SOLO if n_model == 1 else None
+    if n_data > 1 and n_model > 1:
+        for d in range(n_data):
+            g = dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+            if d == data_index:
+                model_group = g
+        for m in range(n_model):
+            g = dist.new_group(list(range(m, world, n_model)))
+            if m == model_index:
+                data_group = g
+    mesh = MeshGroups(n_data, n_model, data_index, model_index, data_group, model_group)
+    _MESHES[key] = mesh
+    return mesh
+
+
+def group_size(group=None) -> int:
+    """The ranks in ``group`` (``None``: the world, 1 without a process
+    group; :data:`SOLO`: 1)."""
+    if group is SOLO:
+        return 1
+    return process_count() if group is None else dist.get_world_size(group)
+
+
+def _on(group) -> dict:
+    """The ``group=`` keyword of a collective (none for the world)."""
+    return {} if group is None else {"group": group}
 
 
 def _comm_device() -> torch.device:
@@ -182,31 +262,46 @@ def _comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def fetch_global(t: torch.Tensor) -> np.ndarray:
-    """Every rank's block of ``t`` (equal shapes), concatenated along the
-    first axis in rank order, as numpy on this host (without a group,
-    ``t``'s own values)."""
-    if process_count() == 1:
-        return t.cpu().numpy()
+def fetch_global(t: torch.Tensor, group=None) -> np.ndarray:
+    """Every rank's block of ``t`` (equal shapes) in ``group``, concatenated
+    along the first axis in rank order, as numpy on this host (without a
+    group, ``t``'s own values)."""
+    return gather_blocks(t, group).cpu().numpy()
+
+
+def gather_blocks(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`fetch_global` as a tensor on ``t``'s device."""
+    n = group_size(group)
+    if n == 1:
+        return t.detach()
     src = t.detach().to(_comm_device()).contiguous()
-    out = [torch.empty_like(src) for _ in range(process_count())]
-    dist.all_gather(out, src)
-    return torch.cat(out).cpu().numpy()
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, **_on(group))
+    return torch.cat(out).to(t.device)
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The mean over the ranks of each tensor, from one ``all_reduce`` of
-    one flat float32 buffer (every rank gets the same bits: the reduced
-    buffer is shared, not recomputed per rank). Returns new tensors shaped
-    as the inputs, on their device. The buffer lies on the rank's card under
-    nccl and on the tensors' own device under gloo, which reduces CUDA
-    tensors itself: staging them on the host here doubled a two-rank step
-    on one H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 22, 66 -> 135
-    ms)."""
-    dev = _comm_device() if dist.get_backend() == "nccl" else tensors[0].device
+def _reduce_device(t: torch.Tensor) -> torch.device:
+    """Where an all-reduce's buffer lies: the rank's card under nccl, the
+    tensor's own device under gloo (which reduces CUDA tensors itself)."""
+    return _comm_device() if dist.get_backend() == "nccl" else t.device
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The mean over the ranks of ``group`` of each tensor, from one
+    ``all_reduce`` of one flat float32 buffer (every rank gets the same
+    bits: the reduced buffer is shared, not recomputed per rank). Returns
+    new tensors shaped as the inputs, on their device. The buffer lies on
+    the rank's card under nccl and on the tensors' own device under gloo,
+    which reduces CUDA tensors itself: staging them on the host here doubled
+    a two-rank step on one H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase
+    22, 66 -> 135 ms)."""
+    n = group_size(group)
+    if n == 1:
+        return [t.detach().clone() for t in tensors]
+    dev = _reduce_device(tensors[0])
     flat = torch.cat([t.detach().reshape(-1).float().to(dev) for t in tensors])
-    dist.all_reduce(flat)
-    flat /= process_count()
+    dist.all_reduce(flat, **_on(group))
+    flat /= n
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape).to(t.device, t.dtype))
@@ -214,19 +309,33 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
-def assert_replicated(tensors: Sequence[torch.Tensor], what: str) -> None:
-    """Raises unless every rank holds the same ``tensors``, compared by a
-    checksum: each tensor's float64 sum and sum of squares, gathered from
-    every rank and compared exactly."""
-    if process_count() == 1:
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sums ``t`` over the ranks of ``group`` in place (on the rank's card
+    under nccl, where ``t`` lies under gloo) and returns it."""
+    if group_size(group) == 1:
+        return t
+    dev = _reduce_device(t)
+    if dev == t.device:
+        dist.all_reduce(t, **_on(group))
+        return t
+    buf = t.to(dev)
+    dist.all_reduce(buf, **_on(group))
+    return t.copy_(buf)
+
+
+def assert_replicated(tensors: Sequence[torch.Tensor], what: str, group=None) -> None:
+    """Raises unless every rank of ``group`` holds the same ``tensors``,
+    compared by a checksum: each tensor's float64 sum and sum of squares,
+    gathered from every rank and compared exactly."""
+    if group_size(group) == 1 or not tensors:
         return
     sums = torch.stack([torch.stack([t.detach().double().sum(),
                                      (t.detach().double() ** 2).sum()])
                         for t in tensors])
-    rows = fetch_global(sums[None])
+    rows = fetch_global(sums[None], group)
     bad = [r for r in range(1, len(rows)) if not np.array_equal(rows[r], rows[0])]
     if bad:
-        raise RuntimeError(f"{what} differ between rank 0 and ranks {bad}")
+        raise RuntimeError(f"{what} differ between rank 0 and ranks {bad} of the group")
 
 
 def barrier() -> None:

@@ -21,11 +21,25 @@ as in the JAX package.
 ``corpus_cache="int8"`` keeps the table quantized per row (int8 values +
 one float32 scale per news), 4x smaller than float32.
 
+The corpus cache (``native``, or int8 values and scales) is a list of
+contiguous row blocks: one on the recommender's device, or with ``mesh=``
+(``parallel.mesh.make_mesh``) ``mesh.shape[axis_names[0]]`` of them, one on
+each device of the mesh's first axis, the rows zero-padded to a multiple of
+the block count (never replicated): a corpus larger than one card serves
+from several. One process drives every device, as JAX's single controller
+does; the model and the feature tables stay on the first device.
+``score``/``score_many`` gather each id's row from its block onto the first
+device; ``top_k`` runs the user tower once, scores each block on its device
+(the pad row 0 and rows at or past ``n_news`` at ``-inf``), takes a top-k
+per block and merges the candidates by score, ties to the lower id;
+``add_news`` writes into the last rows or, when the blocks are full, grows
+the table by ``GROW_BLOCK`` rows and splits it again. ``news_vecs``,
+``news_q`` and ``news_scale`` give the whole tables.
+
 On a CUDA device both towers run through the fused encoder kernel
 (``ops/fused_encoder.py``). An entry point runs on the card unless the
-caller passes ``device="cpu"``: with ``device=None`` and no CUDA, it raises.
-``mesh=`` (the JAX package's row-sharded corpus cache) is not ported yet.
-PyTorch runs eagerly, so there is nothing to compile or warm; the candidate
+caller passes ``device="cpu"`` (or a mesh of host devices): with
+``device=None`` and no CUDA, it raises. PyTorch runs eagerly, so there is nothing to compile or warm; the candidate
 width buckets are kept so that ``score`` and ``score_many`` cut long lists
 exactly where the JAX package does.
 """
@@ -93,14 +107,17 @@ class Recommender:
         mesh=None,
         device: Optional[str | torch.device] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= serving (a row-sharded corpus cache) is not ported to "
-                "PyTorch yet; see ROADMAP.md")
         if corpus_cache not in ("native", "int8"):
             raise ValueError(f"corpus_cache must be native|int8, "
                              f"got {corpus_cache!r}")
+        if device is None and mesh is not None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # the devices of the cache's row blocks (the mesh's first axis)
+        self._block_devices = ([resolve_device(d) for d in mesh.devices[:, 0]]
+                               if mesh is not None else [self.device])
+        self.block_rows = 0
         self.cfg = cfg
         self.model_cfg = cfg.model.with_artifact_meta(dataset.meta)
         self.news_feats = {k: torch.as_tensor(v, device=self.device)
@@ -124,8 +141,7 @@ class Recommender:
         self._cd = getattr(torch, self.model_cfg.compute_dtype)
 
         n = dataset.news.n_news
-        vecs = None
-        self.news_q = self.news_scale = self.news_vecs = None
+        vecs = q = scale = None
         if vectors_file is not None:
             # precomputed table from the same weights; skips the corpus encode
             with np.load(vectors_file) as z:
@@ -133,10 +149,9 @@ class Recommender:
                     if corpus_cache != "int8":
                         raise ValueError("vectors_file holds an int8 table; pass "
                                          "corpus_cache='int8' to serve from it")
-                    self.news_q = torch.as_tensor(z["news_q"], device=self.device)
-                    self.news_scale = torch.as_tensor(z["news_scale"],
-                                                      device=self.device)
-                    n_file = self.news_q.shape[0]
+                    q = torch.as_tensor(z["news_q"], device=self.device)
+                    scale = torch.as_tensor(z["news_scale"], device=self.device)
+                    n_file = q.shape[0]
                 else:
                     vecs = torch.as_tensor(z["news_vectors"], device=self.device)
                     n_file = vecs.shape[0]
@@ -147,9 +162,10 @@ class Recommender:
             vecs = self._encode_corpus(n, cfg.train.eval_encode_chunk)
 
         if vecs is not None and corpus_cache == "int8":
-            self.news_q, self.news_scale = _quantize(vecs)
-        elif vecs is not None:
-            self.news_vecs = vecs
+            (q, scale), vecs = _quantize(vecs), None
+        # each cache table as a list of row blocks, one per block device
+        self.vec_blocks, self.q_blocks, self.scale_blocks = (
+            None if t is None else self._split(t) for t in (vecs, q, scale))
         self.n_news = int(n)   # real news count; tables may be over-allocated
 
     @torch.no_grad()
@@ -176,12 +192,59 @@ class Recommender:
         (``config.json`` + ``params.npz``)."""
         return cls(load_config(ckpt_dir), dataset, load_params(params_file(ckpt_dir)), **kw)
 
+    def _split(self, table: torch.Tensor) -> list:
+        """``table`` zero-padded to a multiple of the block count and cut
+        into contiguous row blocks, block ``i`` on the ``i``-th block device
+        (sets :attr:`block_rows`)."""
+        n = len(self._block_devices)
+        pad = (-table.shape[0]) % n
+        if pad:
+            table = torch.cat([table, table.new_zeros((pad,) + tuple(table.shape[1:]))])
+        self.block_rows = table.shape[0] // n
+        return [b.to(d) for b, d in zip(table.split(self.block_rows), self._block_devices)]
+
+    def _joined(self, blocks: Optional[list]) -> Optional[torch.Tensor]:
+        """The whole table of ``blocks`` on this recommender's device."""
+        if blocks is None:
+            return None
+        return blocks[0] if len(blocks) == 1 else torch.cat([b.to(self.device) for b in blocks])
+
+    @property
+    def news_vecs(self) -> Optional[torch.Tensor]:
+        """The float corpus table (``None`` with an int8 cache)."""
+        return self._joined(self.vec_blocks)
+
+    @property
+    def news_q(self) -> Optional[torch.Tensor]:
+        """The int8 corpus table (``None`` with a native cache)."""
+        return self._joined(self.q_blocks)
+
+    @property
+    def news_scale(self) -> Optional[torch.Tensor]:
+        """The int8 table's per-row scales (``None`` with a native cache)."""
+        return self._joined(self.scale_blocks)
+
+    def _take(self, blocks: list, ids: torch.Tensor) -> torch.Tensor:
+        """The rows ``ids`` of a table in row blocks, each gathered from its
+        block, on this recommender's device."""
+        R = self.block_rows
+        out = None
+        for b, blk in enumerate(blocks):
+            rows = blk[(ids - b * R).clamp(0, R - 1).to(blk.device)].to(self.device)
+            if out is None:
+                out = rows
+                continue
+            mine = (ids // R == b).reshape(ids.shape + (1,) * (rows.ndim - ids.ndim))
+            out = torch.where(mine, rows, out)
+        return out
+
     def _lookup(self, ids: torch.Tensor) -> torch.Tensor:
         """Cached corpus rows for ``ids`` (dequantized when int8)."""
         ids = ids.long()
         if self.corpus_cache == "int8":
-            return (self.news_q[ids].float() * self.news_scale[ids]).to(self._cd)
-        return self.news_vecs[ids]
+            return (self._take(self.q_blocks, ids).float()
+                    * self._take(self.scale_blocks, ids)).to(self._cd)
+        return self._take(self.vec_blocks, ids)
 
     # ---- request paths ----
     def _pad_history(self, history: Sequence[int]) -> np.ndarray:
@@ -272,14 +335,35 @@ class Recommender:
                 "serves dot-product families with one")
         b = torch.as_tensor(self._pad_history(history)[None], device=self.device)
         user_vec = self.model.encode_user(self._lookup(b), (b != 0).float()).float()
-        if self.corpus_cache == "int8":
-            scores = (user_vec @ self.news_q.float().T) * self.news_scale[:, 0][None]
-        else:
-            scores = user_vec @ self.news_vecs.float().T
-        rows = torch.arange(scores.shape[1], device=self.device)[None]
+        blocks = self.q_blocks if self.corpus_cache == "int8" else self.vec_blocks
+        scales = self.scale_blocks or [None] * len(blocks)
+        # each block's top-k on its device, merged by score, ties to the lower id
+        parts = [self._top_of(user_vec, b * self.block_rows, t, s, k)
+                 for b, (t, s) in enumerate(zip(blocks, scales))]
+        if len(parts) > 1:
+            scores = torch.cat([s.to(self.device) for s, _ in parts], dim=1)
+            ids = torch.cat([i.to(self.device) for _, i in parts], dim=1)
+            by_id = torch.argsort(ids, dim=1)
+            scores, ids = scores.gather(1, by_id), ids.gather(1, by_id)
+            best = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :k]
+            parts = [(scores.gather(1, best), ids.gather(1, best))]
+        # one block needs no merge: its top-k is the corpus's
+        scores, ids = parts[0]
+        return ids[0].cpu().numpy(), scores[0].cpu().numpy()
+
+    def _top_of(self, user_vec: torch.Tensor, start: int, table: torch.Tensor,
+                scale: Optional[torch.Tensor], k: int):
+        """``(scores, ids)`` of the ``k`` best rows of the cache's row block
+        that starts at row ``start``, on its device, the int8 rows times
+        their ``scale``: the pad row 0 and rows at or past ``n_news``
+        excluded."""
+        scores = user_vec.to(table.device) @ table.float().T
+        if scale is not None:
+            scores = scores * scale[:, 0][None]
+        rows = start + torch.arange(scores.shape[1], device=table.device)[None]
         scores = scores.masked_fill((rows < 1) | (rows >= self.n_news), -torch.inf)
-        top_scores, top_ids = torch.topk(scores, k)
-        return top_ids[0].cpu().numpy(), top_scores[0].cpu().numpy()
+        top_scores, top = torch.topk(scores, min(k, scores.shape[1]))
+        return top_scores, top + start
 
     # ---- fresh-news ingestion ----
     def tokenize_new_news(self, title: str, abstract: str = "",
@@ -343,6 +427,17 @@ class Recommender:
         rows = self._fresh_rows(title, abstract, category, subcategory, entities)
         return self._encode_rows(rows).float().cpu().numpy()
 
+    def _grown_blocks(self, blocks: list, nid: int, row) -> list:
+        """Row blocks with ``row`` at ``nid``, written in place; when the
+        blocks are full, they are joined, grown by GROW_BLOCK rows and split
+        again."""
+        if nid >= sum(b.shape[0] for b in blocks):
+            return self._split(self._grown(self._joined(blocks), nid, row))
+        blk, r = divmod(nid, self.block_rows)
+        blocks[blk][r] = torch.as_tensor(row, dtype=blocks[blk].dtype,
+                                         device=blocks[blk].device)
+        return blocks
+
     def _grown(self, table: torch.Tensor, nid: int, row) -> torch.Tensor:
         """``table`` with ``row`` at ``nid``, grown by GROW_BLOCK rows when
         full. Writes in place when there is room."""
@@ -362,10 +457,10 @@ class Recommender:
         nid = self.n_news
         if self.corpus_cache == "int8":
             q, s = _quantize(vec)
-            self.news_q = self._grown(self.news_q, nid, q)
-            self.news_scale = self._grown(self.news_scale, nid, s)
+            self.q_blocks = self._grown_blocks(self.q_blocks, nid, q)
+            self.scale_blocks = self._grown_blocks(self.scale_blocks, nid, s)
         else:
-            self.news_vecs = self._grown(self.news_vecs, nid, vec)
+            self.vec_blocks = self._grown_blocks(self.vec_blocks, nid, vec)
         for k in list(self.news_feats):
             if k in rows:
                 self.news_feats[k] = self._grown(self.news_feats[k], nid, rows[k])

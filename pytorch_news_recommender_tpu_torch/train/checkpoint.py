@@ -20,9 +20,15 @@ resumed run continues the optimisation and, since a step's dropout seeds
 depend on the step (``train/loop.py``), its randomness too.
 ``Recommender.from_checkpoint`` serves the best step of such a directory.
 
-In a ``torch.distributed`` group every rank holds the same state: rank 0
-writes (the config and each step), and every rank waits at a barrier after
-a save, so that all then see the same steps; every rank restores.
+In a ``torch.distributed`` group every rank holds the same replicated
+state: rank 0 writes (the config and each step), and every rank waits at a
+barrier after a save, so that all then see the same steps; every rank
+restores. Under a model axis each rank holds row blocks of the sharded
+tables and of their moments: on save the ranks of every model group join
+their blocks (``all_gather``), so that rank 0 writes the same whole arrays
+as a one-process run; on restore every rank reads the whole arrays and keeps
+its rows. A model-parallel checkpoint therefore loads in one process, and a
+one-process checkpoint resumes under a model axis.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ from pytorch_news_recommender_tpu_torch.models.convert import (
     assign, load_params, save_params,
 )
 from pytorch_news_recommender_tpu_torch.parallel import distributed
+from pytorch_news_recommender_tpu_torch.parallel.sharded_embedding import (
+    joined_rows, local_rows,
+)
 
 _OPT_TREES = ("mu", "nu", "v_row", "v_col", "v", "acc")
 
@@ -99,21 +108,38 @@ class CheckpointManager:
         """Writes ``state`` (a ``TrainState``) as ``<step>/`` (replacing one
         of the same step), then drops the steps outside the best
         ``max_to_keep`` by AUC. Rank 0 writes; every rank of a group calls
-        this and waits for the write."""
+        this (joining its table blocks) and waits for the write."""
+        params, opt = self._whole(state)
         if distributed.process_index() == 0:
-            self._write(step, state, metrics)
+            self._write(step, state.step, params, opt, metrics)
         distributed.barrier()
 
-    def _write(self, step: int, state, metrics: Dict[str, Any]) -> None:
+    @staticmethod
+    def _whole(state) -> tuple:
+        """The state's parameters and optimizer state with every row block
+        (``state.opt.blocks`` and ``row_moments``) joined over the
+        optimizer's model group into the whole table."""
+        params, opt = state.params, state.opt.state_dict()
+        blocks, group = state.opt.blocks, state.opt.model_group
+        if not blocks:
+            return params, opt
+        opt = dict(opt)
+        for tree in state.opt.trees:
+            rows = [n for t, n in state.opt.row_moments if t == tree]
+            opt[tree] = joined_rows(opt[tree], rows, group)
+        return joined_rows(params, blocks, group), opt
+
+    def _write(self, step: int, state_step: int, params, opt,
+               metrics: Dict[str, Any]) -> None:
         metrics = {k: float(v) for k, v in metrics.items()
                    if isinstance(v, (int, float)) and not isinstance(v, bool)}
         final = self.directory / str(int(step))
         tmp = self.directory / f".tmp-{int(step)}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        save_params(tmp / "params.npz", state.params)
-        _save_opt(tmp / "opt_state.npz", state.opt.state_dict())
-        (tmp / "state.json").write_text(json.dumps({"step": int(state.step)}))
+        save_params(tmp / "params.npz", params)
+        _save_opt(tmp / "opt_state.npz", opt)
+        (tmp / "state.json").write_text(json.dumps({"step": int(state_step)}))
         (tmp / "metrics.json").write_text(json.dumps(metrics))
         shutil.rmtree(final, ignore_errors=True)
         tmp.rename(final)
@@ -139,9 +165,10 @@ class CheckpointManager:
     def restore(self, state, step: Optional[int] = None):
         """Loads step ``step`` (default: the best, else the latest) into
         ``state`` (typically a fresh ``Trainer.init_state()``): parameters,
-        optimizer state and step. Returns ``state``."""
+        optimizer state and step; a row block takes its rows of the whole
+        table. Returns ``state``."""
         d = self.directory / str(self._step_or_default(step))
-        assign(state.model, load_params(d / "params.npz"))
+        assign(state.model, local_rows(load_params(d / "params.npz"), state.opt.blocks))
         state.opt.load_state_dict(_load_opt(d / "opt_state.npz"))
         state.step = int(json.loads((d / "state.json").read_text())["step"])
         return state

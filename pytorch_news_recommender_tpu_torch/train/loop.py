@@ -25,22 +25,35 @@ GNN: the host attaches each dedup batch's neighborhood closure
 ``run_step`` attaches it to a batch that lacks it; eval encodes the corpus
 level by level (``models.common.corpus_encode_levelwise``).
 
-Data parallelism on ``torch.distributed`` (``parallel/distributed.py``):
-with a process group of ``world`` ranks, each rank trains on its
-``batch_size / world`` slice of every global batch
-(``loader.train_batches_sliced``, the rank's block via ``local_block``),
-draws the step's dropout seeds from the same generator folded with its rank
-(:func:`step_generator`'s ``rank``, ``ops.fused_encoder.shard_seed``), and
-averages the weight gradients, the loss and the accuracy with one
-``all_reduce`` of one flat buffer after the backward: every rank then
-holds the same parameters and optimizer state (:meth:`Trainer.check_replicas`
-compares them at every evaluation).
-Evaluation scores each rank's rows of every batch and gathers the score
-blocks, so every rank computes the same metrics. ``sliced_feed`` takes the
-same feed in one process, and ``Trainer(replay_ranks=n)`` an ``n``-rank
-run's global batches, every rank's block in one multi-block batch. Model
-parallelism (``mesh.model_parallel_size > 1``) is not ported yet and is
-refused naming its ``ROADMAP.md`` item.
+Parallelism on ``torch.distributed`` (``parallel/distributed.py``): the
+``world`` ranks form a ``(n_data, n_model)`` mesh, ``n_model`` =
+``mesh.model_parallel_size`` (``distributed.mesh_groups``).
+
+* Data axis: each data row trains on its ``batch_size / n_data`` slice of
+  every global batch (``loader.train_batches_sliced``, its block via
+  ``local_block``) and draws the step's dropout seeds from the same
+  generator folded with its **data** index (:func:`step_generator`'s
+  ``rank``, ``ops.fused_encoder.shard_seed``), so the model peers of a row
+  draw the same masks on the same rows and stay replicas.
+* Model axis: the word, BERT and entity tables are split by rows over the
+  ranks of a data row (``parallel/sharded_embedding.py``: each rank holds
+  its block, and Adam's moments of it); lookups gather over the model
+  group by ``model.embedding_lookup``.
+* After the backward a block's gradient is averaged over the data group;
+  every replicated parameter's, with the loss and the accuracy, over the
+  whole world (one ``all_reduce`` of one flat buffer each), so that model
+  peers hold the same bits even where a card sums in a varying order.
+  Global-norm clipping and Adafactor's statistics over a table's rows sum
+  the blocks over the model group. :meth:`Trainer.check_replicas` compares
+  replicated tensors over the world and blocks over the data group at
+  every evaluation.
+
+Evaluation scores each data row's rows of every batch and gathers the score
+blocks over the data group, so every rank computes the same metrics (every
+rank encodes the corpus, its model group in lockstep). ``sliced_feed``
+takes the same feed in one process, and ``Trainer(replay_ranks=n)`` an
+``n``-row run's global batches, every row's block in one multi-block
+batch.
 """
 
 from __future__ import annotations
@@ -74,6 +87,9 @@ from pytorch_news_recommender_tpu_torch.models.common import RecModel, corpus_en
 from pytorch_news_recommender_tpu_torch.models.convert import assign
 from pytorch_news_recommender_tpu_torch.models.layers import RankGenerator
 from pytorch_news_recommender_tpu_torch.parallel import distributed
+from pytorch_news_recommender_tpu_torch.parallel.sharded_embedding import (
+    RowBlock, local_rows, shard_tables,
+)
 from pytorch_news_recommender_tpu_torch.serve import resolve_device
 from pytorch_news_recommender_tpu_torch.train import metrics as M
 
@@ -85,7 +101,8 @@ def step_generator(seed: int, step: int, rank: int = 0) -> RankGenerator:
     are a function of ``(seed, step)`` alone (the JAX package's
     ``fold_in(PRNGKey(seed), step)``; the streams differ), and each seed
     drawn from it for a dropout mask is folded with ``rank``
-    (``models.layers.draw_seed``)."""
+    (``models.layers.draw_seed``): the data index of the trainer's rank, as
+    JAX's sharded encoder folds ``axis_index(data)``."""
     g = RankGenerator()
     g.rank = int(rank)
     return g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
@@ -131,6 +148,14 @@ class Optimizer:
       ``g / sqrt(v)`` clipped to an RMS of at most 1, scaled by the
       learning rate and by the parameter's RMS (at least 1e-3); no momentum,
       and no weight decay (the JAX package passes none).
+
+    ``blocks`` names the parameters that are this rank's row block of a
+    table split over ``model_group`` (``parallel/sharded_embedding.py``):
+    their moments are blocks too (Adafactor's factored moment along the
+    rows as well; the other factored moment is whole), and every statistic
+    over a table's rows (the clipping norm, Adafactor's row means, its
+    update RMS and parameter RMS) sums the blocks over the group, so the
+    update is the one-process update of the whole table.
     """
 
     ADAFACTOR_MIN_DIM = 128
@@ -139,12 +164,15 @@ class Optimizer:
     ADAFACTOR_CLIP = 1.0
     ADAFACTOR_MIN_SCALE = 1e-3
 
-    def __init__(self, params: Mapping[str, torch.nn.Parameter], tc: TrainConfig):
+    def __init__(self, params: Mapping[str, torch.nn.Parameter], tc: TrainConfig,
+                 blocks: Optional[Mapping[str, RowBlock]] = None, model_group=None):
         if tc.optimizer not in ("adam", "adafactor"):
             raise ValueError(f"unknown optimizer {tc.optimizer!r} "
                              "(expected adam|adafactor)")
         self.params = dict(params)
         self.tc = tc
+        self.blocks = dict(blocks or {})
+        self.model_group = model_group
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
         zeros = lambda names=None: {n: torch.zeros_like(p) for n, p in self.params.items()  # noqa: E731
                                     if names is None or n in names}
@@ -156,8 +184,8 @@ class Optimizer:
             self.mu, self.nu = zeros(), zeros()
         else:
             self.trees = ("v_row", "v_col", "v")
-            self.factored = {n: self._factored_dims(p.shape)
-                             for n, p in self.params.items()}
+            self.factored = {n: self._factored_dims(self._full_shape(n))
+                             for n in self.params}
             self.v = zeros({n for n, f in self.factored.items() if f is None})
             self.v_row, self.v_col = {}, {}
             for n, f in self.factored.items():
@@ -170,6 +198,31 @@ class Optimizer:
                                                 device=p.device)
         if self.acc is not None:
             self.trees += ("acc",)
+        # (tree, name) of the moments that are row blocks: every moment of a
+        # block but the factored one that averages over the table's rows
+        self.row_moments = {(t, n) for n in self.blocks for t in self.trees
+                            if n in getattr(self, t)
+                            and not (t == "v_row" and self.factored[n][1] == 0)
+                            and not (t == "v_col" and self.factored[n][0] == 0)}
+
+    def _full_shape(self, n: str) -> tuple:
+        shape = tuple(self.params[n].shape)
+        rb = self.blocks.get(n)
+        return shape if rb is None else (rb.full_rows,) + shape[1:]
+
+    def _mean(self, n: str, t: torch.Tensor, dim: Optional[int] = None,
+              rows_axis: bool = True, keepdim: bool = False) -> torch.Tensor:
+        """``t.mean(dim)`` over the whole table of ``n`` where ``t`` is a row
+        block and the reduced axis (all of them for ``dim=None``) is the
+        table's rows: the block sums added over the model group, divided by
+        the whole count; else ``t``'s own mean."""
+        rb = self.blocks.get(n)
+        if rb is None or not rows_axis:
+            return t.mean() if dim is None else t.mean(dim=dim, keepdim=keepdim)
+        total = t.sum() if dim is None else t.sum(dim=dim, keepdim=keepdim)
+        total = distributed.all_reduce_sum_(total.contiguous(), self.model_group)
+        count = t.numel() // t.shape[0] * rb.full_rows if dim is None else rb.full_rows
+        return total / count
 
     @classmethod
     def _factored_dims(cls, shape) -> Optional[tuple]:
@@ -205,7 +258,7 @@ class Optimizer:
             grads, self.acc = self.acc, {n: torch.zeros_like(a) for n, a in self.acc.items()}
         clip = self.tc.grad_clip_norm
         if clip > 0:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+            norm = self.global_norm(grads)
             grads = {n: torch.where(norm < clip, g, (g / norm) * clip)
                      for n, g in grads.items()}
         lr = self.learning_rate(self.count)
@@ -214,6 +267,16 @@ class Optimizer:
         else:
             self._adam(grads, lr)
         self.count += 1
+
+    def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """``‖g‖`` over every parameter of the whole model: each replicated
+        gradient once, the squares of the row blocks summed over the model
+        group (a collective when there are blocks)."""
+        if not self.blocks:
+            return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+        sq = [(g.float() ** 2).sum() for n, g in grads.items() if n not in self.blocks]
+        sq_rows = sum((grads[n].float() ** 2).sum() for n in self.blocks).reshape(1)
+        return torch.sqrt(sum(sq) + distributed.all_reduce_sum_(sq_rows, self.model_group)[0])
 
     def _adam(self, grads: Dict[str, torch.Tensor], lr: float) -> None:
         """optax's adam (adamw with ``weight_decay``) as update ``count + 1``."""
@@ -241,19 +304,23 @@ class Optimizer:
             g2 = g * g + self.ADAFACTOR_EPS
             if self.factored[n] is not None:
                 d1, d0 = self.factored[n]
-                v_row = self.v_row[n].mul_(keep).add_(g2.mean(dim=d0) * new)
-                v_col = self.v_col[n].mul_(keep).add_(g2.mean(dim=d1) * new)
+                # a mean reduces a row block's rows where it runs over axis 0
+                v_row = self.v_row[n].mul_(keep).add_(
+                    self._mean(n, g2, d0, rows_axis=d0 == 0) * new)
+                v_col = self.v_col[n].mul_(keep).add_(
+                    self._mean(n, g2, d1, rows_axis=d1 == 0) * new)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+                row_factor = (v_row / self._mean(n, v_row, reduced_d1, rows_axis=d1 == 0,
+                                                 keepdim=True)).pow(-0.5)
                 col_factor = v_col.pow(-0.5)
                 update = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             else:
                 v = self.v[n].mul_(keep).add_(g2 * new)
                 update = g * v.pow(-0.5)
             update = update / torch.clamp(
-                torch.sqrt((update * update).mean()) / self.ADAFACTOR_CLIP, min=1.0)
+                torch.sqrt(self._mean(n, update * update)) / self.ADAFACTOR_CLIP, min=1.0)
             update = update * lr
-            rms = torch.sqrt((p * p).mean())
+            rms = torch.sqrt(self._mean(n, p * p))
             scale = torch.where(rms <= self.ADAFACTOR_MIN_SCALE,
                                 torch.full_like(rms, self.ADAFACTOR_MIN_SCALE), rms)
             p.add_(update * scale * -1.0)
@@ -273,7 +340,8 @@ class Optimizer:
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Copies a :meth:`state_dict` in, onto the parameters' devices;
         raises on another optimizer's state and on missing or unexpected
-        names."""
+        names. A row moment given whole (a checkpoint's) is cut to this
+        rank's rows."""
         if ("acc" in state) != (self.acc is not None):
             raise ValueError("the optimizer state's gradient accumulation does "
                              "not match grad_accum_steps")
@@ -290,7 +358,10 @@ class Optimizer:
                 raise ValueError(f"optimizer state {key!r} names "
                                  f"{sorted(set(got) ^ set(own))} do not match")
             for n, t in got.items():
-                own[n].copy_(torch.as_tensor(t))
+                t = torch.as_tensor(t)
+                if (key, n) in self.row_moments:
+                    t = local_rows({n: t}, self.blocks)[n]
+                own[n].copy_(t)
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
 
@@ -320,7 +391,11 @@ class Trainer:
     steps, evaluation and the fit loop on one device: the CUDA card by
     default (which must exist), or ``device="cpu"``. In a
     ``torch.distributed`` group each rank runs one ``Trainer`` on its own
-    device and its slice of every batch.
+    device, its data row's slice of every batch and, with
+    ``mesh.model_parallel_size > 1``, its row blocks of the sharded tables
+    (each table module looks up over the mesh it was sharded with). A
+    model axis wider than one needs that many processes: in one process it
+    raises ``MeshConfig.mesh_shape``'s ``ValueError``.
 
     ``replay_ranks`` (one process only) trains on the global batches of a
     ``replay_ranks``-rank data-parallel run: every rank's block of each
@@ -333,23 +408,23 @@ class Trainer:
     def __init__(self, cfg: Config, dataset: RecDataset,
                  device: Optional[str | torch.device] = None, replay_ranks: int = 1):
         tc = cfg.train
-        if cfg.mesh.model_parallel_size > 1:
-            raise NotImplementedError("model-parallel training (the mesh's model "
-                                      "axis) is not ported yet (ROADMAP.md A.6)")
         if tc.auto_layouts:
             raise ValueError("auto_layouts chooses XLA memory layouts; it has no "
                              "meaning in the PyTorch port")
         # the multi-process feed: every rank holds the whole dataset, seeds
-        # the same permutation and trains on its slice of each batch
+        # the same permutation and trains on its data row's slice of each
+        # batch; the model peers of a row take the same slice
         self.n_proc = distributed.process_count()
-        self.proc_idx = distributed.process_index()
+        self.n_data, n_model = cfg.mesh.mesh_shape(self.n_proc)
+        self.mesh = distributed.mesh_groups(n_model) if self.n_proc > 1 else None
+        self.data_idx = self.mesh.data_index if self.mesh is not None else 0
         if replay_ranks > 1 and self.n_proc > 1:
             raise ValueError("replay_ranks replays a data-parallel run in one "
                              f"process, not in a group of {self.n_proc}")
         self._replay = replay_ranks
         self._sliced = self.n_proc > 1 or tc.sliced_feed or replay_ranks > 1
-        for name, n in (("batch_size", max(self.n_proc, replay_ranks)),
-                        ("eval_batch_size", self.n_proc)):
+        for name, n in (("batch_size", max(self.n_data, replay_ranks)),
+                        ("eval_batch_size", self.n_data)):
             if getattr(tc, name) % n:
                 raise ValueError(f"train.{name} {getattr(tc, name)} does not split "
                                  f"over {n} processes")
@@ -409,9 +484,12 @@ class Trainer:
             seed = self.cfg.train.seed if seed is None else seed
             model.reset_parameters(torch.Generator().manual_seed(seed))
         self._apply_pretrained(model)
+        # every rank drew the whole tables alike; each keeps its row blocks
+        blocks = shard_tables(model, self.mesh)
         model.to(self.device)
-        return TrainState(model, Optimizer(dict(model.named_parameters()),
-                                           self.cfg.train))
+        return TrainState(model, Optimizer(
+            dict(model.named_parameters()), self.cfg.train, blocks,
+            self.mesh.model_group if self.mesh is not None else None))
 
     def _apply_pretrained(self, model: RecModel) -> None:
         """Overwrites embedding tables with the dataset's pretrained matrices
@@ -492,16 +570,17 @@ class Trainer:
         finite leaves the parameters and the optimizer as they were; the
         step counter advances either way.
 
-        In a group of several ranks, ``batch`` is this rank's block
-        (``loader.local_block``); the gradients, the loss and the accuracy
-        are averaged over the ranks before the update, and a non-finite
-        mean loss skips the update on every rank."""
+        In a group of several ranks, ``batch`` is this rank's data row's
+        block (``loader.local_block``); the gradients, the loss and the
+        accuracy are averaged over the ranks before the update (row blocks
+        over the data group), and a non-finite mean loss skips the update on
+        every rank."""
         batch = self._to_device(self._maybe_frontier(batch))
         model = state.model
         model.zero_grad(set_to_none=True)
         scores = model(batch, self.news_feats, deterministic=False,
                        generator=step_generator(self.cfg.train.seed + 1, state.step,
-                                                self.proc_idx))
+                                                self.data_idx))
         loss = training_loss(model, scores)
         model.aux_losses = {}
         metrics = {"loss": loss.detach(),
@@ -510,7 +589,7 @@ class Trainer:
         if self.n_proc > 1:
             # every rank joins the all-reduce, whatever its own loss
             loss.backward()
-            self._all_reduce_grads(model, metrics)
+            self._all_reduce_grads(state, metrics)
             skip = skip_nonfinite and not bool(torch.isfinite(metrics["loss"]))
         else:
             skip = skip_nonfinite and not bool(torch.isfinite(loss))
@@ -524,30 +603,47 @@ class Trainer:
         state.step += 1
         return state, metrics
 
-    @staticmethod
-    def _all_reduce_grads(model: RecModel, metrics: Dict[str, torch.Tensor]) -> None:
+    def _all_reduce_grads(self, state: TrainState, metrics: Dict[str, torch.Tensor]) -> None:
         """Replaces every parameter's gradient (0 where it has none) and the
-        step's loss and accuracy by their means over the ranks: one
-        ``all_reduce`` of one flat buffer, the counterpart of the ``psum``
-        of the JAX package's sharded gradients. With equal slices the mean
-        of the ranks' gradients is the gradient of the global batch's mean
-        loss."""
-        params = list(model.parameters())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        step's loss and accuracy by their means: the replicated parameters',
+        the loss and the accuracy over the whole world, in one ``all_reduce``
+        of one flat buffer (the counterpart of the ``psum`` of the JAX
+        package's sharded gradients), and the row blocks' over the data
+        group, in another. With equal slices the mean of the data rows'
+        gradients is the gradient of the global batch's mean loss; the
+        model peers of a row hold the same rows, and averaging their
+        replicated gradients too gives them the same bits."""
+        blocks = state.opt.blocks
+        params = list(state.model.named_parameters())
+        grad = lambda p: p.grad if p.grad is not None else torch.zeros_like(p)  # noqa: E731
+        repl = [p for n, p in params if n not in blocks]
+        rows = [p for n, p in params if n in blocks]
         scalars = torch.stack([metrics["loss"].float(), metrics["acc"].float()])
-        *grads, scalars = distributed.all_reduce_mean(grads + [scalars])
-        for p, g in zip(params, grads):
+        *grads, scalars = distributed.all_reduce_mean([grad(p) for p in repl] + [scalars])
+        for p, g in zip(repl, grads):
             p.grad = g
+        if rows:
+            for p, g in zip(rows, distributed.all_reduce_mean(
+                    [grad(p) for p in rows], self.mesh.data_group)):
+                p.grad = g
         metrics["loss"], metrics["acc"] = scalars[0], scalars[1]
 
     def check_replicas(self, state: TrainState) -> None:
         """Raises unless every rank holds the same parameters and optimizer
-        state (a checksum of each tensor, compared across the ranks; nothing
-        in one process)."""
+        state, and the ranks of each data group the same row blocks and
+        their moments (a checksum of each tensor; nothing in one
+        process)."""
         opt = state.opt.state_dict()
-        tensors = list(state.model.parameters()) + [
-            t for key in state.opt.trees for t in opt[key].values()]
-        distributed.assert_replicated(tensors, "the parameters or the optimizer state")
+        blocks = state.opt.blocks
+        repl = [p for n, p in state.model.named_parameters() if n not in blocks]
+        rows = [p for n, p in state.model.named_parameters() if n in blocks]
+        for key in state.opt.trees:
+            for n, t in opt[key].items():
+                (rows if (key, n) in state.opt.row_moments else repl).append(t)
+        distributed.assert_replicated(repl, "the parameters or the optimizer state")
+        if rows:
+            distributed.assert_replicated(rows, "the table blocks or their moments",
+                                          self.mesh.data_group)
 
     # ---- eval ----
     def _model_of(self, state_or_params) -> RecModel:
@@ -555,8 +651,9 @@ class Trainer:
             return state_or_params.model
         if isinstance(state_or_params, RecModel):
             return state_or_params
+        # a state dict of whole tables or of this rank's blocks
         model = build_model(self.model_cfg, self._feat_shapes)
-        assign(model, state_or_params)
+        assign(model, local_rows(state_or_params, shard_tables(model, self.mesh)))
         return model.to(self.device)
 
     @torch.no_grad()
@@ -604,13 +701,15 @@ class Trainer:
         row: [n_candidates] float32 scores}``; impressions without a
         candidate are absent. Two-tower when the family allows it (the
         corpus encoded once). With the multi-process feed each rank scores
-        its rows of every padded batch and the score blocks are gathered in
-        rank order, so every rank returns the same scores."""
+        its data row's rows of every padded batch and the score blocks are
+        gathered over the data group in row order, so every rank returns the
+        same scores."""
         model = self._model_of(state_or_params)
         bs = self.cfg.train.eval_batch_size
         two_tower = self.cfg.train.eval_two_tower and model.TWO_TOWER
         news_vecs = self.compute_news_vectors(model) if two_tower else None
-        rows = distributed.process_local_slice(bs)
+        rows = distributed.process_local_slice(bs, self.data_idx, self.n_data)
+        data_group = self.mesh.data_group if self.mesh is not None else None
 
         metas: list = []
 
@@ -628,7 +727,7 @@ class Trainer:
                 s = model.score_from_vecs(batch, news_vecs, self.news_feats)
             else:
                 s = model(batch, self.news_feats, deterministic=True)
-            s = distributed.fetch_global(s.float())[:b]
+            s = distributed.fetch_global(s.float(), data_group)[:b]
             for j, imp in enumerate(eb.impression_ids):
                 all_scores[int(imp)] = s[j, :eb.n_candidates[j]]
         return all_scores
@@ -657,8 +756,8 @@ class Trainer:
     def sliced_batches(self, rng: np.random.Generator):
         """One epoch of the multi-process feed (``train_batches_sliced``,
         the GNN frontier built per block at the widths all ranks agree on),
-        shuffled by ``rng``: this rank's block of every global batch
-        (``local_block``), or with ``replay_ranks`` every rank's blocks
+        shuffled by ``rng``: this rank's data row's block of every global
+        batch (``local_block``), or with ``replay_ranks`` every row's blocks
         joined. Host numpy batches."""
         tc = self.cfg.train
 
@@ -676,8 +775,8 @@ class Trainer:
             rngs = [copy.deepcopy(rng) for _ in range(self._replay - 1)] + [rng]
             return map(join_blocks,
                        zip(*(feed(h, self._replay, r) for h, r in enumerate(rngs))))
-        return map(lambda b: local_block(b, self.proc_idx, self.n_proc),
-                   feed(self.proc_idx, self.n_proc, rng))
+        return map(lambda b: local_block(b, self.data_idx, self.n_data),
+                   feed(self.data_idx, self.n_data, rng))
 
     def fit(
         self,

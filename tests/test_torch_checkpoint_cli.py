@@ -247,12 +247,41 @@ def test_cli_train_profiles_and_auto_resumes(tmp_path, capsys):
     assert "restored checkpoint" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["serve", "--data", "synthetic", "--ckpt", "c", "--mesh"], "A.4"),
-])
-def test_unported_options_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(argv)
+def test_cli_serve_mesh_answers_score_and_top_k(tmp_path):
+    """``cli serve --mesh --device cpu`` builds a mesh ``Recommender`` over
+    the one CPU device (one row block) and answers ``/score`` and ``/top_k``
+    over HTTP as the single-device ``Recommender`` does."""
+    import http.client
+
+    from pytorch_news_recommender_tpu_torch.models import build_model
+
+    cfg = synthetic_config()
+    ds = synthetic.generate(cfg.data, seed=0, bert_dim=64, n_users=200, n_neighbors=8,
+                            n_test=64)
+    model = build_model(cfg.model.with_artifact_meta(ds.meta))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    save_checkpoint(tmp_path / "ckpt", cfg, model.state_dict())
+    args = cli.build_parser().parse_args(
+        ["serve", "--data", "synthetic", "--ckpt", str(tmp_path / "ckpt"), "--port", "0",
+         "--device", "cpu", "--mesh"])
+    srv = cli.build_server(args)
+    rec = srv.rec
+    assert rec.mesh is not None and rec.mesh.shape == {"data": 1, "model": 1}
+    assert len(rec.vec_blocks) == 1 and rec.block_rows == ds.news.n_news
+    one = Recommender(cfg, ds, model.state_dict(), device="cpu")
+    srv.start(block=False)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=30)
+
+        def post(path, body):
+            conn.request("POST", path, body=json.dumps(body))
+            return json.loads(conn.getresponse().read())
+        r = post("/score", {"history": [1, 2, 3], "candidates": [4, 5, 6]})
+        np.testing.assert_array_equal(r["scores"], one.score([1, 2, 3], [4, 5, 6]))
+        r = post("/top_k", {"history": [1, 2, 3], "k": 5})
+        np.testing.assert_array_equal(r["ids"], one.top_k([1, 2, 3], 5)[0])
+    finally:
+        srv.stop()
 
 
 @pytest.mark.parametrize("command", ["train", "submit"])

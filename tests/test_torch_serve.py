@@ -15,10 +15,11 @@ from pytorch_news_recommender_tpu.data import synthetic as jax_synthetic
 from pytorch_news_recommender_tpu.serve import Recommender as JaxRecommender
 from pytorch_news_recommender_tpu.train.loop import Trainer
 from pytorch_news_recommender_tpu_torch import cli
-from pytorch_news_recommender_tpu_torch.config import synthetic_config
+from pytorch_news_recommender_tpu_torch.config import MeshConfig, synthetic_config
 from pytorch_news_recommender_tpu_torch.data import synthetic
 from pytorch_news_recommender_tpu_torch.models import build_model
 from pytorch_news_recommender_tpu_torch.models.convert import from_flax, save_checkpoint
+from pytorch_news_recommender_tpu_torch.parallel.mesh import make_mesh
 from pytorch_news_recommender_tpu_torch.serve import Recommender
 from pytorch_news_recommender_tpu_torch.server import RecommenderServer
 
@@ -207,5 +208,6 @@ def test_entry_points_need_cuda_unless_told_cpu(served, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Recommender(rec.cfg, ds, state)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Recommender(rec.cfg, ds, state, mesh=object(), device="cpu")
+    # a mesh defaults to every CUDA card, which must exist
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(MeshConfig())

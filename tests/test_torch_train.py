@@ -201,7 +201,9 @@ def test_pretrained_table_loads_widens_and_raises(small):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    ({"mesh.model_parallel_size": 2}, NotImplementedError, "A.6"),
+    # a model axis of 2 needs two processes: the JAX mesh_shape error
+    ({"mesh.model_parallel_size": 2}, ValueError,
+     r"n_devices=1 not divisible by model_parallel_size=2"),
     ({"train.auto_layouts": True}, ValueError, "XLA"),
 ])
 def test_later_slices_options_raise(small, over, error, match):
