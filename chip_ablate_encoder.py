@@ -1,22 +1,28 @@
-"""Where the first (CUDA-core) design of the fused news encoder's forward
-spent its time, stage by stage, on one NVIDIA card.
+"""Where today's forward of the fused news encoder spends its time, part
+by part, on one NVIDIA card.
 
     python3 chip_ablate_encoder.py
 
 The counterpart of the JAX package's ``benchmarks/ablate_encoder.py``
-(``main`` and ``main2``): the six truncations of the CUDA-core forward
-kernel of the port's first slices (``ops/ablate_encoder.py``;
-``ops/csrc/ablate_encoder.cu`` says what each
-computes) at M=28,672, L=20 with the all-ones mask, as the harness runs
-them, and at M=4096, L=20 with a real mask (the training step's long block,
-a corpus-encode chunk), bf16, D=300, 10 heads, Q=200. For each stage it
+(``main`` and ``main2``): the six truncations of the forward
+(``ops/ablate_encoder.py``; ``ops/csrc/ablate_encoder.cu`` says what each
+computes), built from the pieces of today's tensor-core forward
+(``ops/csrc/tiles.cuh``; V3 runs the forward's own tail kernel), at
+M=28,672, L=20 with the all-ones mask, as the harness runs them, and at
+M=4096, L=20 with a real mask (the training step's long block, a
+corpus-encode chunk), bf16, D=300, 10 heads, Q=200. For each stage it
 prints the kernel's time (CUDA events), its plain version's, its bound, its
-largest difference from the plain version, and for V0 the time of
-``x.view(M, L, D).sum(1)``, the one PyTorch call of the same function; then
-today's forward kernel (``fused_news_encoder``, on the tensor cores) on
-the same ``x``, and the differences that read as the cost of each part of
-the CUDA-core design. Every timing line is tagged with the card's name and power limit.
-Needs a CUDA card: without one it prints no result and exits 2.
+largest difference from the plain version, whether two launches gave the
+same bits, and for V0 the time of ``x.view(M, L, D).sum(1)``, the one
+PyTorch call of the same function; then the forward kernel
+(``fused_news_encoder``) on the same ``x``, and the split of the forward
+that the stages give: the QKV product (V1), the forward's own attention
+over its 64-row tiles (forward - V3: V3 is the forward with scores,
+softmax and P v left out), the tail with its ``o1`` round trip through
+device memory (V3 - V1); then the harness's attention over 160-row
+subtiles (V2 - V1) and the forward against V2 + (V3 - V1). Every timing
+line is tagged with the card's name and power limit. Needs a CUDA card:
+without one it prints no result and exits 2.
 """
 
 from __future__ import annotations
@@ -36,9 +42,18 @@ NAMES = {"passthrough": "V0", "qkv": "V1", "attn": "V2", "tail": "V3",
          "attn_slices": "V2a", "attn_nosoftmax": "V2b"}
 
 
-def iters(M):
-    """Timed launches per stage after one warm-up."""
+def iters(M, stage=None):
+    """Timed launches of a stage after one warm-up. V0 (a sum of some 0.1
+    ms) takes 100, twice, in turns with its PyTorch sum."""
+    if stage == "passthrough":
+        return 100
     return 5 if M > 10_000 else 20
+
+
+def launches(M):
+    """The ablation's launches in :func:`table` at ``M``: per stage its
+    output, a repeat, then a warm-up and the timed launches (twice for V0)."""
+    return sum(2 + (2 if s == "passthrough" else 1) * (iters(M, s) + 1) for s in AE.STAGES)
 
 
 def inputs(M, real_mask, device, dtype=torch.bfloat16, seed=0):
@@ -76,26 +91,37 @@ def encoder_args(args):
 def table(M, real_mask=False, device="cuda"):
     """Each stage once through :func:`ablate_encoder`, held to its plain
     version on the same inputs, and on a card timed beside the plain
-    version and (V0) the PyTorch sum; then the full forward on the same x.
-    Returns ``{"inputs", "stages": {stage: {"out", "max_abs_err",
+    version and (V0, in turns) the PyTorch sum; then the full forward on
+    the same x.
+    Two launches of each stage are compared bit for bit. Returns
+    ``{"inputs", "stages": {stage: {"out", "bit_equal", "max_abs_err",
     "max_rel_err", "bound_ms", "bound_by", "ms", "plain_ms"[, "library_ms"]}},
     "forward": {...}}``; on the CPU every time is None (a CPU run measures no
     device time)."""
     args = inputs(M, real_mask, device)
     on_card = torch.device(device).type == "cuda"
-    n = iters(M)
-    timed = (lambda fn: CS.cuda_ms(fn, n)) if on_card else (lambda fn: None)  # noqa: E731
+
+    def timed(fn, stage=None):
+        return CS.cuda_ms(fn, iters(M, stage)) if on_card else None
+
     stages = {}
     for stage in AE.STAGES:
         out = AE.ablate_encoder(stage, *args)
+        again = AE.ablate_encoder(stage, *args)
         plain = AE.ablate_encoder_reference(stage, *args)
-        row = {"out": out, "max_rel_err": CS.rel_err(out, plain),
-               "max_abs_err": float((out.float() - plain.float()).abs().max()),
-               "ms": timed(lambda: AE.ablate_encoder(stage, *args)),
-               "plain_ms": timed(lambda: AE.ablate_encoder_reference(stage, *args))}
-        row["bound_ms"], row["bound_by"] = CS.ablation_bound(stage, M, L, args[0].element_size())
+        row = {"out": out, "bit_equal": bool(torch.equal(out, again)),
+               "max_rel_err": CS.rel_err(out, plain),
+               "max_abs_err": float((out.float() - plain.float()).abs().max())}
+        kernel = lambda: AE.ablate_encoder(stage, *args)  # noqa: E731
         if stage == "passthrough":
-            row["library_ms"] = timed(lambda: args[0].view(M, L, D).sum(1))
+            # kernel, sum, kernel, sum; the better of each pair
+            library = lambda: args[0].view(M, L, D).sum(1)  # noqa: E731
+            k1, l1, k2, l2 = (timed(f, stage) for f in (kernel, library, kernel, library))
+            row["ms"], row["library_ms"] = (min(k1, k2), min(l1, l2)) if on_card else (None, None)
+        else:
+            row["ms"] = timed(kernel)
+        row["plain_ms"] = timed(lambda: AE.ablate_encoder_reference(stage, *args))
+        row["bound_ms"], row["bound_by"] = CS.ablation_bound(stage, M, L, args[0].element_size())
         stages[stage] = row
     enc = encoder_args(args)
     forward = {"out": FE.fused_news_encoder(*enc, num_heads=H),
@@ -114,17 +140,20 @@ def report(M, real_mask, t, tag):
                if "library_ms" in r else "")
         print(f"{tag}   {NAMES[stage]:3s} {stage:14s}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}; "
-              f"max err vs plain {r['max_rel_err']:.3g} of the largest output", flush=True)
+              f"max err vs plain {r['max_rel_err']:.3g} of the largest output; two launches "
+              f"{'equal' if r['bit_equal'] else 'DIFFER'} bit for bit", flush=True)
     f = t["forward"]
     print(f"{tag}   full forward (fused_news_encoder): kernel {f['ms']:.4f} ms, plain "
           f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms ({f['bound_by']})", flush=True)
     ms = {s: r["ms"] for s, r in t["stages"].items()}
-    print(f"{tag}   read as (the CUDA-core design): staging + pooling (V0) "
-          f"{ms['passthrough']:.4f} ms; projection (V1 - V0) "
-          f"{ms['qkv'] - ms['passthrough']:.4f} ms; tail (V3 - V1) "
-          f"{ms['tail'] - ms['qkv']:.4f} ms; subtile attention (V2 - V1) "
-          f"{ms['attn'] - ms['qkv']:.4f} ms, without softmax and mask (V2b - V1) "
-          f"{ms['attn_nosoftmax'] - ms['qkv']:.4f} ms", flush=True)
+    attn, tail = ms["attn"] - ms["qkv"], ms["tail"] - ms["qkv"]
+    print(f"{tag}   read as today's forward: QKV product (V1) {ms['qkv']:.4f} ms; its own "
+          f"64-row attention (forward - V3) {f['ms'] - ms['tail']:.4f} ms; tail with the o1 "
+          f"round trip (V3 - V1) {tail:.4f} ms. The harness's 160-row attention (V2 - V1) "
+          f"{attn:.4f} ms, without softmax and mask (V2b - V1) "
+          f"{ms['attn_nosoftmax'] - ms['qkv']:.4f} ms; V2 + (V3 - V1) {ms['attn'] + tail:.4f} "
+          f"ms against the forward's {f['ms']:.4f} ms; x read and summed (V0) "
+          f"{ms['passthrough']:.4f} ms", flush=True)
 
 
 def main() -> int:

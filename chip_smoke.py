@@ -47,10 +47,11 @@
    / ``export-vectors`` at the small synthetic size with the exported table
    served through ``Recommender(vectors_file=...)``.
 8. Runs the stage ablation of the forward (``chip_ablate_encoder.py``'s
-   table: six truncations of the forward kernel, then the full forward on
-   the same input) at M=28,672, L=20 with the all-ones mask and at M=4096
-   with a real mask that holds an all-pad item, holds each stage's kernel
-   against its plain version, and counts the launches.
+   table: six truncations of today's forward, built from its tensor-core
+   pieces, then the full forward on the same input) at M=28,672, L=20 with
+   the all-ones mask and at M=4096 with a real mask that holds an all-pad
+   item, holds each stage's kernel against its plain version and two of its
+   launches against each other bit for bit, and counts the launches.
 9-11. Trains, evaluates and serves the ``nrms_entity``, ``tanr`` and
    ``hierec`` families at NRMS's full width on one corpus with 10 entities
    per news (a 20,000-entity vocabulary, 100-d vectors), 18 categories and
@@ -279,8 +280,10 @@ WGRAD_PRODUCTS = [("wgrad", D, 3 * D, torch.bfloat16, True, R_LONG),
     ("gnn_wgrad_daw", D, Q, torch.float32, True, R_GNN),
     ("gnn_wgrad_daq", Q, 1, torch.float32, False, R_GNN)]
 # ablation kernel vs plain version, max|a - b| / max|b| per stage: both
-# round to bf16 at the same points, their f32 sums run in another order, so
-# a value at a rounding edge may land one bf16 step away
+# round to bf16 at the harness's points, their f32 sums run in another order,
+# so a value at a rounding edge may land one bf16 step away; the kernel also
+# rounds q, k, v and p to bf16 for the attention products, as the bf16
+# forward does (some 2^-9 of each product, ablate_encoder.cu's header)
 ABLATION_TOL = 2e-2
 DEVICE = "cuda"
 # phase 20: Adafactor's steps; phase 22: the two ranks' steps (at phase 6's
@@ -1250,18 +1253,20 @@ def ablation_run(FE, tag):
     AE.ablate_encoder.launches = FE.fused_news_encoder.launches = 0
     tables = {M: CA.table(M, real_mask) for M, real_mask in CA.SHAPES}
     launches = {"ablation": AE.ablate_encoder.launches, "fwd": FE.fused_news_encoder.launches}
-    # per stage (and for the forward): its output, a warm-up, the timed launches
-    per_stage = sum(CA.iters(M) + 2 for M, _ in CA.SHAPES)
-    assert launches == {"ablation": len(AE.STAGES) * per_stage, "fwd": per_stage}, launches
+    # the forward: its output, a warm-up, the timed launches
+    expect = {"ablation": sum(CA.launches(M) for M, _ in CA.SHAPES),
+              "fwd": sum(CA.iters(M) + 2 for M, _ in CA.SHAPES)}
+    assert launches == expect, (launches, expect)
     for (M, real_mask), t in zip(CA.SHAPES, tables.values()):
         for stage, r in t["stages"].items():
             out = r.pop("out")
             assert out.shape == (M, D) and bool(torch.isfinite(out.float()).all()), (M, stage)
             assert r["max_rel_err"] < ABLATION_TOL, (M, stage, r["max_rel_err"])
+            assert r["bit_equal"], (M, stage, "two launches differ")
         CA.report(M, real_mask, t, tag)
     print(f"[phase 8] encoder ablation: every stage's kernel within {ABLATION_TOL} of its "
-          f"plain version at M={' and M='.join(str(M) for M, _ in CA.SHAPES)}; launches "
-          f"{launches}", flush=True)
+          f"plain version at M={' and M='.join(str(M) for M, _ in CA.SHAPES)}, two launches "
+          f"equal bit for bit; launches {launches}", flush=True)
     M0 = CA.SHAPES[0][0]
     stages = tables[M0]["stages"]
     variants = {}
@@ -1285,6 +1290,10 @@ def ablation_run(FE, tag):
                       "mask": "all ones"},
             "variants": variants,
             "forward_ms": tables[M0]["forward"]["ms"], "forward_launches": launches["fwd"],
+            # today's forward split by the stages: V1, forward - V3, V3 - V1
+            "forward_split": {"qkv": stages["qkv"]["ms"],
+                              "attention": tables[M0]["forward"]["ms"] - stages["tail"]["ms"],
+                              "tail": stages["tail"]["ms"] - stages["qkv"]["ms"]},
             "by_M": {M: {**{s: r["ms"] for s, r in t["stages"].items()},
                          "forward": t["forward"]["ms"]} for M, t in tables.items()}}
 

@@ -130,6 +130,8 @@ def _build_config(args, sample_size=None):
         d["data"]["sample_size"] = sample_size
     if args.description:
         d["description"] = args.description
+    if getattr(args, "debug_nans", False):
+        d["train"]["debug_nans"] = True
     if args.skip_nonfinite:
         d["train"]["skip_nonfinite_updates"] = True
     if args.epochs is not None:
@@ -530,6 +532,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run here (trace.json)")
     p.add_argument("--skip-nonfinite", action="store_true",
                    help="skip (not apply) updates whose loss is non-finite")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast: raise FloatingPointError at the first non-finite "
+                        "loss, gradient or eval score (one device sync a step)")
     p.add_argument("--log-attention", action="store_true",
                    help="log per-site additive-attention weight summaries "
                         "to metrics.jsonl after training")

@@ -119,9 +119,9 @@ def ablate_encoder(stage, x2, maskf, wqkv, bqkv, wo, bo, aw, ab, aq):
     if x2.device.type == "cpu":
         return ablate_encoder_reference(stage, x2, maskf, *weights)
     FE._on_cuda(x2, "encoder ablation")
-    code = STAGES.index(stage)
+    code, dcode = STAGES.index(stage), FE._DTYPE_CODE[x2.dtype]
     lib = FE._lib()
-    smem = lib.newsrec_ablate_encoder_smem_bytes(code, L, D, H, Q)
+    smem = lib.newsrec_ablate_encoder_smem_bytes(code, dcode, L, D, H, Q)
     if smem > FE.MAX_SMEM:
         raise ValueError(f"D={D} Q={Q} needs {smem} bytes of shared memory; one block "
                          f"has {FE.MAX_SMEM}")
@@ -132,11 +132,25 @@ def ablate_encoder(stage, x2, maskf, wqkv, bqkv, wo, bo, aw, ab, aq):
     out = torch.empty((M, D), dtype=x2.dtype, device=x2.device)
     if M == 0:
         return out
+    # scratch: the weights as the forward's kernels read them (every stage
+    # but passthrough); the tail's o1 and, where the forward's tail takes its
+    # wide variant, its f32 o2
+    ws = o1 = o2 = None
+    if stage != "passthrough":
+        ws = FE._weight_scratch(lib.newsrec_fused_encoder_fwd_ws_elems, x2.dtype, D, H, Q,
+                                x2.device)
+    if stage == "tail":
+        o1 = torch.empty((M * L, D), dtype=x2.dtype, device=x2.device)
+        o2_elems = lib.newsrec_fused_encoder_fwd_o2_elems(dcode, M, L, D, H, Q)
+        if o2_elems:
+            o2 = torch.empty(o2_elems, dtype=torch.float32, device=x2.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x2.device):
         rc = lib.newsrec_ablate_encoder(
-            code, FE._DTYPE_CODE[x2.dtype], x2.data_ptr(), maskf.data_ptr(),
-            *(t.data_ptr() for t in weights), out.data_ptr(), M, L, D, H, Q,
-            1.0 / math.sqrt(D // H), torch.cuda.current_stream(x2.device).cuda_stream)
+            code, dcode, x2.data_ptr(), maskf.data_ptr(),
+            *(t.data_ptr() for t in weights), out.data_ptr(), ptr(ws), ptr(o1), ptr(o2),
+            M, L, D, H, Q, 1.0 / math.sqrt(D // H),
+            torch.cuda.current_stream(x2.device).cuda_stream)
     FE._raise_on(lib, rc, f"encoder ablation ({stage})")
     FE._count(ablate_encoder)
     return out

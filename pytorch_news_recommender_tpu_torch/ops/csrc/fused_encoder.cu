@@ -188,34 +188,6 @@ struct ASmemF32 {
   }
 };
 
-// A tile's rows of a bf16 matrix in device memory (row stride ld, cols % 4
-// == 0) into an operand tile of Rt rows and cols16 columns (row stride
-// ldt), zeros past rows and cols, by 8-byte cp.async in one group: all the
-// copies are in flight at once. The first wait of the tile_product that
-// reads the tile covers the group (groups complete in order).
-__device__ __forceinline__ void copy_tile(const __nv_bfloat16* __restrict__ src, long ld,
-                                          int rows, int cols, int Rt, int cols16,
-                                          __nv_bfloat16* dst, int ldt) {
-  const int per = cols16 / 4;
-  for (int i = threadIdx.x; i < Rt * per; i += blockDim.x) {
-    const int r = i / per, c = i % per * 4;
-    const bool valid = r < rows && c < cols;
-    cp_async(dst + r * ldt + c, valid ? src + r * ld + c : src, 8, valid ? 8 : 0);
-  }
-  cp_async_commit();
-}
-
-// the staging of a tile's T rows: copied as they are in bf16, split into
-// high and low parts in f32
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int rows, int D, int Rt,
-                                           __nv_bfloat16* hi, __nv_bfloat16* lo, int ldt) {
-  if constexpr (sizeof(T) == 4)
-    stage_tile<4>(src, D, rows, D, Rt, round16(D), hi, lo, ldt, true);
-  else
-    copy_tile(src, D, rows, D, Rt, round16(D), hi, ldt);
-}
-
 // One block per tile of whole items and group of hpb heads: per head, q|k|v
 // = T(x Wqkv + b) over the head's columns (each of q, k, v padded from dh to
 // round16(dh) with zeros), the scores over the tile's block diagonal, the
@@ -540,6 +512,40 @@ fwd_tail_kernel(const float* __restrict__ mask, const T* __restrict__ o1, BOp wo
   }
 }
 
+// fwd_tail over o1 ([M * L, D] in T) with the weights already in ws
+template <typename T>
+cudaError_t launch_tail(const void* mask, const void* o1, const void* ws, const void* bo,
+                        const void* ab, const void* aq, void* out, void* o2, int M, int L, int D,
+                        int H, int Q, unsigned seed, int block_rows, unsigned threshold,
+                        float keep_scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr bool kF32 = sizeof(T) == 4;
+  const WsLayout wl = ws_layout(D, H, Q);
+  const bf16* w_hi = static_cast<const bf16*>(ws);
+  auto lo_of = [&](long off) { return kF32 ? w_hi + wl.total + off : nullptr; };
+  const BOp wo_b = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
+  const BOp aw_b = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, D, Q);
+  const int tiles = (M + items_per_tile(L) - 1) / items_per_tile(L);
+  const bool wide = tile_rows(L) > kTileRows;
+  const int var = fwd_variant<kF32>(L, D, H, Q);
+  if ((var & kVarFwdTail) && o2 == nullptr) return cudaErrorInvalidValue;
+  auto tail_kernel = wide ? fwd_tail_kernel<T, true, false>
+                          : (var & kVarFwdTail ? fwd_tail_kernel<T, false, true>
+                                               : fwd_tail_kernel<T, false, false>);
+  const int tail_smem = (int)(var & kVarFwdTail ? tail_fwd_smem_bytes_of<kF32, false, true>(L, D, Q)
+                                                : tail_fwd_smem_bytes<kF32>(L, D, Q));
+  cudaError_t err = cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         tail_smem);
+  if (err != cudaSuccess) return err;
+  static_assert(Cfg<kF32>::Pool::W == Cfg<kF32>::PoolWide::W, "one block size for fwd_tail");
+  tail_kernel<<<tiles, 32 * Cfg<kF32>::Pool::W, tail_smem, stream>>>(
+      static_cast<const float*>(mask), static_cast<const T*>(o1), wo_b, aw_b,
+      static_cast<const T*>(bo), static_cast<const T*>(ab), static_cast<const T*>(aq),
+      static_cast<T*>(out), static_cast<float*>(o2), M, L, D, Q, seed, block_rows, threshold,
+      keep_scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void* bqkv,
                    const void* wo, const void* bo, const void* aw, const void* ab,
@@ -548,6 +554,8 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
                    float keep_scale, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr bool kF32 = sizeof(T) == 4;
+  const int var = fwd_variant<kF32>(L, D, H, Q);
+  if ((var & kVarFwdTail) && o2 == nullptr) return cudaErrorInvalidValue;
   // the weights as the kernels read them, in ws (WsLayout), once per call
   const WsLayout wl = ws_layout(D, H, Q);
   bf16* w_hi = static_cast<bf16*>(ws);
@@ -558,31 +566,18 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
                                       static_cast<const T*>(aw), D, H, Q, w_hi, w_lo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto lo_of = [&](long off) { return kF32 ? w_lo + off : nullptr; };
   const int tiles = (M + items_per_tile(L) - 1) / items_per_tile(L);
   const int dhp = round16(D / H);
-  const BOp wo_b = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
-  const BOp aw_b = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, D, Q);
   // head 0's q|k|v columns, each padded to dhp (the kernel moves to head h)
-  const BOp qkv_head{w_hi + wl.head, lo_of(wl.head), wl.ld_head, D, 3 * dhp, dhp, D / H};
-
-  const bool wide = tile_rows(L) > kTileRows;
-  const int var = fwd_variant<kF32>(L, D, H, Q);
-  if ((var & kVarFwdTail) && o2 == nullptr) return cudaErrorInvalidValue;
-  auto tail_kernel = wide ? fwd_tail_kernel<T, true, false>
-                          : (var & kVarFwdTail ? fwd_tail_kernel<T, false, true>
-                                               : fwd_tail_kernel<T, false, false>);
+  const BOp qkv_head{w_hi + wl.head, kF32 ? w_lo + wl.head : nullptr, wl.ld_head, D, 3 * dhp,
+                     dhp, D / H};
   auto attn_kernel = fwd_attn_kernel<T, false>;
   if constexpr (kF32)
     if (var & kVarFwdAttn) attn_kernel = fwd_attn_kernel<T, true>;
   const int attn_smem = (int)(var & kVarFwdAttn ? attn_fwd_smem_bytes<kF32, true>(L, D, H)
                                                 : attn_fwd_smem_bytes<kF32>(L, D, H));
-  const int tail_smem = (int)(var & kVarFwdTail ? tail_fwd_smem_bytes_of<kF32, false, true>(L, D, Q)
-                                                : tail_fwd_smem_bytes<kF32>(L, D, Q));
   if ((err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  attn_smem)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  tail_smem)) != cudaSuccess)
+                                  attn_smem)) != cudaSuccess)
     return err;
   const int hpb = tiles >= kAllHeadsTiles ? H : 1;
   attn_kernel<<<dim3(tiles, (H + hpb - 1) / hpb), 32 * Cfg<kF32>::Attn::W, attn_smem,
@@ -590,13 +585,8 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
                                  qkv_head, static_cast<const T*>(bqkv), static_cast<T*>(o1), M,
                                  L, D, H, hpb, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  static_assert(Cfg<kF32>::Pool::W == Cfg<kF32>::PoolWide::W, "one block size for fwd_tail");
-  tail_kernel<<<tiles, 32 * Cfg<kF32>::Pool::W, tail_smem, stream>>>(
-      static_cast<const float*>(mask), static_cast<const T*>(o1), wo_b, aw_b,
-      static_cast<const T*>(bo), static_cast<const T*>(ab), static_cast<const T*>(aq),
-      static_cast<T*>(out), static_cast<float*>(o2), M, L, D, Q, seed, block_rows, threshold,
-      keep_scale);
-  return cudaGetLastError();
+  return launch_tail<T>(mask, o1, ws, bo, ab, aq, out, o2, M, L, D, H, Q, seed, block_rows,
+                        threshold, keep_scale, stream);
 }
 
 }  // namespace
@@ -630,6 +620,23 @@ int newsrec_fused_encoder_fwd(int dtype, const void* x, const void* mask, const 
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, out, o1, ws, o2, M, L,
                                  D, H, Q, scale, seed, block_rows, threshold, keep_scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// fwd_tail alone, with no dropout, over o1 [M, L, D] (dtype as above) and
+// the weights that an earlier launch on the same stream wrote into ws
+// (WsLayout): the tail of newsrec_fused_encoder_fwd. The stage ablation
+// (ablate_encoder.cu) runs it after its own o1. o2 as above. Returns a
+// cudaError_t code.
+int newsrec_fused_encoder_fwd_tail(int dtype, const void* mask, const void* o1, const void* ws,
+                                   const void* bo, const void* ab, const void* aq, void* out,
+                                   void* o2, int M, int L, int D, int H, int Q, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_tail<float>(mask, o1, ws, bo, ab, aq, out, o2, M, L, D, H, Q, 0u, 1, 0u, 1.f, s);
+  if (dtype == 1)
+    return launch_tail<__nv_bfloat16>(mask, o1, ws, bo, ab, aq, out, o2, M, L, D, H, Q, 0u, 1, 0u,
+                                      1.f, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,13 @@
 // Tensor-core pieces shared by the fused encoder's forward
-// (fused_encoder.cu) and backward (fused_encoder_bwd.cu): the tiles of
-// whole items (tile_rows, items_per_tile), the weights re-laid once per call
-// into 16-byte aligned rows (WsLayout, stage_weights_kernel), the weight
-// operand (BOp) and the A operands (ASmem, AStream), and tile_product, the
-// block's product with a weight over a cp.async ring of 64-deep weight
-// tiles on mma.sync m16n8k16 (bf16 operands, f32 sums, high/low split of
-// f32 operands). The backward's head note says how they were designed.
+// (fused_encoder.cu), backward (fused_encoder_bwd.cu) and stage ablation
+// (ablate_encoder.cu): the tiles of whole items (tile_rows, items_per_tile),
+// the weights re-laid once per call into 16-byte aligned rows (WsLayout,
+// stage_weights_kernel), the staging of a tile's rows (stage_rows), the
+// weight operand (BOp) and the A operands (ASmem, AStream), and
+// tile_product, the block's product with a weight over a cp.async ring of
+// 64-deep weight tiles on mma.sync m16n8k16 (bf16 operands, f32 sums,
+// high/low split of f32 operands). The backward's head note says how they
+// were designed.
 
 #pragma once
 
@@ -236,6 +238,34 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src, long ld, i
   }
 }
 
+// A tile's rows of a bf16 matrix in device memory (row stride ld, cols % 4
+// == 0) into an operand tile of Rt rows and cols16 columns (row stride
+// ldt), zeros past rows and cols, by 8-byte cp.async in one group: all the
+// copies are in flight at once. The first wait of the tile_product that
+// reads the tile covers the group (groups complete in order).
+__device__ __forceinline__ void copy_tile(const __nv_bfloat16* __restrict__ src, long ld,
+                                          int rows, int cols, int Rt, int cols16,
+                                          __nv_bfloat16* dst, int ldt) {
+  const int per = cols16 / 4;
+  for (int i = threadIdx.x; i < Rt * per; i += blockDim.x) {
+    const int r = i / per, c = i % per * 4;
+    const bool valid = r < rows && c < cols;
+    cp_async(dst + r * ldt + c, valid ? src + r * ld + c : src, 8, valid ? 8 : 0);
+  }
+  cp_async_commit();
+}
+
+// the staging of a tile's T rows: copied as they are in bf16, split into
+// high and low parts in f32
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int rows, int D, int Rt,
+                                           __nv_bfloat16* hi, __nv_bfloat16* lo, int ldt) {
+  if constexpr (sizeof(T) == 4)
+    stage_tile<4>(src, D, rows, D, Rt, round16(D), hi, lo, ldt, true);
+  else
+    copy_tile(src, D, rows, D, Rt, round16(D), hi, ldt);
+}
+
 // The copies of one staged weight tile: depth k0 .. k0 + KT - 1, columns
 // n0 .. n0 + NT - 1 of the product, 8 values a copy; what lies past K or N
 // (or past seg_n in a segment) is zero-filled, not read.
@@ -269,23 +299,24 @@ __device__ __forceinline__ void load_b(const BOp& b, const __nv_bfloat16* src,
 // C = A B over the block's Rt rows (a multiple of 16) and B's N columns, on
 // the tensor cores, handed to epi(r, n, C[r][n], C[r][n + 1]) for even n <
 // N. The passes: A_hi B_hi, then A_lo B_hi where A is split (kASplit), then
-// A_hi B_lo where the weights are f32 (kBLo). The block walks 64-row groups
-// x NT-column chunks x kKT-deep weight tiles in one sequence, ST tiles in
-// flight in a cp.async ring (`ring`, ST x (A's stage + B's)); warp w of W
-// takes the 16 x 8UJ units w, w + W of a 64 x NT chunk. Every thread of the
-// block calls it; it ends with a barrier.
+// A_hi B_lo where the weights are f32 (kBLo). The block walks G-row groups
+// (G = 64 unless asked) x NT-column chunks x kKT-deep weight tiles in one
+// sequence, ST tiles in flight in a cp.async ring (`ring`, ST x (A's stage
+// + B's)); warp w of W takes the 16 x 8UJ units w, w + W of a G x NT chunk.
+// Every thread of the block calls it; it ends with a barrier.
 template <int NT, int UJ, int ST, int W, bool kByCols, bool kASplit, bool kBLo,
-          bool kGather = false, typename AOp, typename EpiFn>
+          bool kGather = false, int G = 64, typename AOp, typename EpiFn>
 __device__ void tile_product(const AOp& A, const BOp& B, int Rt, unsigned char* ring, EpiFn epi) {
   static_assert(UJ % 2 == 0 && NT % (8 * UJ) == 0, "units of whole n16 pairs");
+  static_assert(G % 16 == 0, "groups of whole row blocks");
   constexpr int NU = NT / (8 * UJ);          // units across a chunk
-  constexpr int kU = (4 * NU + W - 1) / W;  // units per warp at most
+  constexpr int kU = (G / 16 * NU + W - 1) / W;  // units per warp at most
   constexpr int ldb = kByCols ? kKT + 8 : NT + 8;
   const int a_bytes = AOp::stage_bytes(Rt);
   const int stage = a_bytes + b_stage_bytes<NT>(kBLo);
   const int K16 = round16(B.K);
   const int kts = (K16 + kKT - 1) / kKT, chunks = (B.N + NT - 1) / NT;
-  const int steps = (Rt + 63) / 64 * chunks * kts;
+  const int steps = (Rt + G - 1) / G * chunks * kts;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   auto b_hi = [&](unsigned char* st) { return reinterpret_cast<__nv_bfloat16*>(st + a_bytes); };
   // the k-tile and chunk of the next step to load, counted on (no division)
@@ -320,13 +351,13 @@ __device__ void tile_product(const AOp& A, const BOp& B, int Rt, unsigned char* 
     const unsigned char* st = ring + (s % ST) * stage;
     const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(st + a_bytes);
     const __nv_bfloat16* bl = bh + b_part<NT>();
-    const int rows = Rt - grp * 64 < 64 ? Rt - grp * 64 : 64;
+    const int rows = Rt - grp * G < G ? Rt - grp * G : G;
     const int units = rows / 16 * NU;
 #pragma unroll
     for (int ui = 0; ui < kU; ++ui) {
       const int u = warp + ui * W;
       if (u >= units) continue;
-      const int m0 = grp * 64 + u / NU * 16, nl = u % NU * 8 * UJ;
+      const int m0 = grp * G + u / NU * 16, nl = u % NU * 8 * UJ;
       if (chunk * NT + nl >= B.N) continue;
 #pragma unroll
       for (int ks = 0; ks < kKT; ks += 16) {
@@ -362,7 +393,7 @@ __device__ void tile_product(const AOp& A, const BOp& B, int Rt, unsigned char* 
       for (int ui = 0; ui < kU; ++ui) {
         const int u = warp + ui * W;
         if (u < units) {
-          const int m0 = grp * 64 + u / NU * 16, nl = u % NU * 8 * UJ;
+          const int m0 = grp * G + u / NU * 16, nl = u % NU * 8 * UJ;
 #pragma unroll
           for (int j = 0; j < UJ; ++j) {
             const int n = chunk * NT + nl + j * 8 + 2 * t;

@@ -293,9 +293,9 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_long
     lib.newsrec_segment_scatter_seg.argtypes = [ctypes.c_long]
     lib.newsrec_segment_scatter_seg.restype = i
-    lib.newsrec_ablate_encoder.argtypes = [i, i] + [p] * 10 + [i] * 5 + [fl, p]
+    lib.newsrec_ablate_encoder.argtypes = [i, i] + [p] * 13 + [i] * 5 + [fl, p]
     lib.newsrec_ablate_encoder.restype = i
-    lib.newsrec_ablate_encoder_smem_bytes.argtypes = [i] * 5
+    lib.newsrec_ablate_encoder_smem_bytes.argtypes = [i] * 6
     lib.newsrec_ablate_encoder_smem_bytes.restype = ctypes.c_long
     lib.newsrec_cuda_error_string.argtypes = [i]
     lib.newsrec_cuda_error_string.restype = ctypes.c_char_p

@@ -125,6 +125,24 @@ def training_loss(model: RecModel, scores: torch.Tensor) -> torch.Tensor:
     return loss
 
 
+def _raise_nonfinite(state, loss: torch.Tensor, n_proc: int = 1) -> None:
+    """``debug_nans``: raises ``FloatingPointError`` naming the step and the
+    first of the loss and the gradients that is not finite. One device sync;
+    on several ranks the flags are summed over the world first, since a row
+    block's gradient lives on its model peers only, so every rank raises
+    together."""
+    named = [("loss", loss)] + [(n, p.grad) for n, p in state.model.named_parameters()
+                                if p.grad is not None]
+    bad = torch.stack([~torch.isfinite(t).all() for _, t in named]).float()
+    if n_proc > 1:
+        distributed.all_reduce_sum_(bad)
+    bad = bad.tolist()
+    if any(bad):
+        first = next(n for (n, _), b in zip(named, bad) if b)
+        what = "loss" if first == "loss" else f"gradient of {first}"
+        raise FloatingPointError(f"debug_nans: non-finite {what} at step {state.step}")
+
+
 class Optimizer:
     """The JAX package's ``make_optimizer`` as optax computes it:
     ``[clip_by_global_norm] -> adam | adamw | adafactor`` with the
@@ -568,7 +586,9 @@ class Trainer:
         state.step)``. Returns ``(state, metrics)``; ``state`` is updated in
         place. With ``skip_nonfinite_updates``, a step whose loss is not
         finite leaves the parameters and the optimizer as they were; the
-        step counter advances either way.
+        step counter advances either way. With ``debug_nans``, a non-finite
+        loss or gradient raises ``FloatingPointError`` before the update
+        (one device sync a step; without the option the step adds none).
 
         In a group of several ranks, ``batch`` is this rank's data row's
         block (``loader.local_block``); the gradients, the loss and the
@@ -590,11 +610,15 @@ class Trainer:
             # every rank joins the all-reduce, whatever its own loss
             loss.backward()
             self._all_reduce_grads(state, metrics)
+            if self.cfg.train.debug_nans:
+                _raise_nonfinite(state, metrics["loss"], self.n_proc)
             skip = skip_nonfinite and not bool(torch.isfinite(metrics["loss"]))
         else:
             skip = skip_nonfinite and not bool(torch.isfinite(loss))
             if not skip:
                 loss.backward()
+            if self.cfg.train.debug_nans:
+                _raise_nonfinite(state, loss)
         if skip_nonfinite:
             metrics["skipped"] = float(skip)
         if not skip:
@@ -745,6 +769,8 @@ class Trainer:
         all_scores = self.score_split(state_or_params, data, max_impressions)
         labels, scores = [], []
         for imp, sc in all_scores.items():
+            if self.cfg.train.debug_nans and not np.isfinite(sc).all():
+                raise FloatingPointError(f"debug_nans: non-finite score in eval impression {imp}")
             _, y = data.impression(imp)
             labels.append(y[:len(sc)])
             scores.append(sc)

@@ -191,11 +191,35 @@ def cuda_device():
 @pytest.mark.parametrize("stage", AE.STAGES)
 def test_kernel_matches_plain_on_card(cuda_device, stage, dtype):
     """A CUDA call goes to the kernel (one launch) and agrees with the plain
-    version on a real mask with an all-pad item, in two grid steps."""
+    version on a real mask with an all-pad item, in two grid steps; a second
+    launch gives the same bits (no atomics, fixed sum orders)."""
     args = [t.to(cuda_device) for t in _torch(_inputs(8, M, real_mask=True), dtype)]
     before = AE.ablate_encoder.launches
     got = AE.ablate_encoder(stage, *args)
+    again = AE.ablate_encoder(stage, *args)
     torch.cuda.synchronize()
-    assert AE.ablate_encoder.launches == before + 1
+    assert AE.ablate_encoder.launches == before + 2
+    assert torch.equal(got, again)
     expect = AE.ablate_encoder_reference(stage, *args)
     _assert_close(got.float().cpu().numpy(), expect.float().cpu().numpy(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smem_needs_are_the_layouts_sums(cuda_device, dtype):
+    """The library's shared-memory needs at the harness's widths are the sums
+    that ``csrc/ablate_encoder.cu``'s header gives: V0 4 items' partial
+    sums, V1 / V2a x, the ring and the f32 q|k|v tile, V2 / V2b the 160-row
+    layout (x whole in bf16, streamed in f32), V3 at least V1's and the
+    forward's tail; all within one block."""
+    lib = FE._lib()
+    code = FE._DTYPE_CODE[dtype]
+    need = {s: lib.newsrec_ablate_encoder_smem_bytes(i, code, L, D, AE.H, Q)
+            for i, s in enumerate(AE.STAGES)}
+    f32 = dtype == torch.float32
+    # 4 items of 1 (f32) or 2 (bf16) rows of f32 partial sums
+    assert need["passthrough"] == 4 * (1 if f32 else 2) * D * 4
+    assert need["qkv"] == need["attn_slices"] == (162_176 if f32 else 108_416)
+    assert need["attn"] == need["attn_nosoftmax"] == (226_560 if f32 else 218_624)
+    assert need["tail"] >= need["qkv"]
+    assert need["tail"] >= lib.newsrec_fused_encoder_smem_bytes(code, L, D, AE.H, Q)
+    assert max(need.values()) <= FE.MAX_SMEM

@@ -409,6 +409,21 @@ for name, over, gen in (("nrms", {}, {}), ("gnn", GNN, GNN_GEN)):
         layers.fused_news_encoder = real
         tr.check_replicas(state)
         r["drop_losses"] = drop_losses
+        # debug_nans with a NaN on rank 1 alone: the step's means carry it,
+        # so both ranks raise at the same step
+        cfg = synthetic_config(**{**FIT, "train.debug_nans": True})
+        tr = Trainer(cfg, ds, device="cpu")
+        state = tr.init_state(seed=0)
+        if rank == 1:
+            with torch.no_grad():
+                state.model.user_encoder.tower.aq[0] = float("nan")
+        b = next(train_batches_sliced(ds.train, 16, np.random.default_rng(0),
+                                      process_index=rank, process_count=world))
+        try:
+            tr.run_step(state, local_block(b, rank, world))
+            r["nan_raised"] = None
+        except FloatingPointError as e:
+            r["nan_raised"] = str(e)
     result[name] = r
 print("RESULT " + json.dumps(result), flush=True)
 """
@@ -473,7 +488,8 @@ def test_two_process_fit_matches_single_process(tmp_path):
     JAX package's two-process test holds its run); rank 0's checkpoint
     restores on both. With dropout 0.2 each rank's tower calls use the step
     generator's draws folded with its rank (``seed + rank * 1,000,003``),
-    and the ranks' parameters still agree."""
+    and the ranks' parameters still agree. With ``debug_nans``, a NaN on one
+    rank makes both raise at the same step."""
     res = _run_workers(tmp_path, "fit")
     for name, over, gen in (("nrms", {}, {}), ("gnn", GNN, GNN_GEN)):
         a, b = res[0][name], res[1][name]
@@ -487,6 +503,8 @@ def test_two_process_fit_matches_single_process(tmp_path):
     assert res[0]["nrms"]["ckpt_ok"] and res[1]["nrms"]["ckpt_ok"]
     assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["6", "config.json"]
     assert res[0]["nrms"]["drop_losses"] == res[1]["nrms"]["drop_losses"]
+    for r in (0, 1):
+        assert res[r]["nrms"]["nan_raised"] == "debug_nans: non-finite loss at step 0", r
     for r in (0, 1):
         for seeds, draws in res[r]["nrms"]["drop_seeds"]:
             # every news tower call of the step (the user tower has no dropout)
