@@ -293,9 +293,12 @@ def cmd_train(args) -> int:
     prof = None
     if args.profile_dir:
         from torch.profiler import ProfilerActivity, profile
+
+        from pytorch_news_recommender_tpu_torch.utils import tracing
         activities = [ProfilerActivity.CPU]
         if trainer.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        tracing.reset()
         prof = profile(activities=activities)
         prof.start()
     try:
@@ -306,6 +309,9 @@ def cmd_train(args) -> int:
             trace = pathlib.Path(args.profile_dir) / "trace.json"
             trace.parent.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(trace))
+            # the feed worker's spans, which the profiler does not record
+            tracing.add_to_trace(trace)
+            tracing.reset()
             print(f"profiler trace written to {trace}", file=sys.stderr)
     if args.log_attention:
         # the attention summaries of one batch through the plain path (the
@@ -529,7 +535,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "dir if one exists (crash-restart recovery)")
     p.add_argument("--description", default="")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of the run here (trace.json)")
+                   help="write a torch.profiler trace of the run here (trace.json), "
+                        "with the program's spans of every thread")
     p.add_argument("--skip-nonfinite", action="store_true",
                    help="skip (not apply) updates whose loss is non-finite")
     p.add_argument("--debug-nans", action="store_true",

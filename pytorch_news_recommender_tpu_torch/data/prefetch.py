@@ -9,6 +9,11 @@ stream waits on an event recorded after the copy, and each tensor is
 marked as used by that stream (``record_stream``), so a batch is never read
 before its copy lands nor freed while a step still reads it. On the CPU it
 is a plain iterator over ``torch.from_numpy`` views.
+
+Spans (``utils/tracing.py``): ``newsrec.feed.wait`` on the consumer, from
+entering ``next`` to holding the batch; ``newsrec.feed.build`` around the
+host iterator's ``next`` (on the worker thread, or inside the wait on the
+CPU) and ``newsrec.feed.upload`` around the pinning and the copy's enqueue.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+from pytorch_news_recommender_tpu_torch.utils import tracing
 
 Batch = Dict[str, np.ndarray]
 
@@ -31,10 +38,16 @@ def device_prefetch(batches: Iterator[Batch], device: torch.device,
     the batches as dicts of tensors on ``device``. ``depth`` bounds how many
     batches are uploaded ahead of the consumer (2 = double buffering)."""
     device = torch.device(device)
+    batches = iter(batches)
     if device.type != "cuda":
-        for b in batches:
-            yield {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
-        return
+        while True:
+            with tracing.span("newsrec.feed.wait"):
+                with tracing.span("newsrec.feed.build"):
+                    b = next(batches, _SENTINEL)
+                if b is _SENTINEL:
+                    return
+                dev = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in b.items()}
+            yield dev
 
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list[BaseException] = []
@@ -44,15 +57,18 @@ def device_prefetch(batches: Iterator[Batch], device: torch.device,
         try:
             with torch.cuda.device(device):
                 side = torch.cuda.Stream(device)
-                for b in batches:
-                    if stop.is_set():
+                while True:
+                    with tracing.span("newsrec.feed.build"):
+                        b = next(batches, _SENTINEL)
+                    if b is _SENTINEL or stop.is_set():
                         break
-                    host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                            for k, v in b.items()}
-                    with torch.cuda.stream(side):
-                        dev = {k: t.to(device, non_blocking=True) for k, t in host.items()}
-                        done = torch.cuda.Event()
-                        done.record(side)
+                    with tracing.span("newsrec.feed.upload"):
+                        host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                                for k, v in b.items()}
+                        with torch.cuda.stream(side):
+                            dev = {k: t.to(device, non_blocking=True) for k, t in host.items()}
+                            done = torch.cuda.Event()
+                            done.record(side)
                     q.put((dev, done))
         except BaseException as e:  # propagate to the consumer
             err.append(e)
@@ -63,14 +79,15 @@ def device_prefetch(batches: Iterator[Batch], device: torch.device,
     t.start()
     try:
         while True:
-            item = q.get()
-            if item is _SENTINEL:
-                break
-            dev, done = item
-            compute = torch.cuda.current_stream(device)
-            compute.wait_event(done)
-            for v in dev.values():
-                v.record_stream(compute)
+            with tracing.span("newsrec.feed.wait"):
+                item = q.get()
+                if item is _SENTINEL:
+                    break
+                dev, done = item
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(done)
+                for v in dev.values():
+                    v.record_stream(compute)
             yield dev
     finally:
         # an abandoned generator (early stop) lets the worker finish

@@ -92,6 +92,7 @@ from pytorch_news_recommender_tpu_torch.parallel.sharded_embedding import (
 )
 from pytorch_news_recommender_tpu_torch.serve import resolve_device
 from pytorch_news_recommender_tpu_torch.train import metrics as M
+from pytorch_news_recommender_tpu_torch.utils import tracing
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -594,37 +595,47 @@ class Trainer:
         block (``loader.local_block``); the gradients, the loss and the
         accuracy are averaged over the ranks before the update (row blocks
         over the data group), and a non-finite mean loss skips the update on
-        every rank."""
-        batch = self._to_device(self._maybe_frontier(batch))
-        model = state.model
-        model.zero_grad(set_to_none=True)
-        scores = model(batch, self.news_feats, deterministic=False,
-                       generator=step_generator(self.cfg.train.seed + 1, state.step,
-                                                self.data_idx))
-        loss = training_loss(model, scores)
-        model.aux_losses = {}
-        metrics = {"loss": loss.detach(),
-                   "acc": (scores.argmax(dim=-1) == 0).float().mean()}
-        skip_nonfinite = self.cfg.train.skip_nonfinite_updates
-        if self.n_proc > 1:
-            # every rank joins the all-reduce, whatever its own loss
-            loss.backward()
-            self._all_reduce_grads(state, metrics)
-            if self.cfg.train.debug_nans:
-                _raise_nonfinite(state, metrics["loss"], self.n_proc)
-            skip = skip_nonfinite and not bool(torch.isfinite(metrics["loss"]))
-        else:
-            skip = skip_nonfinite and not bool(torch.isfinite(loss))
+        every rank.
+
+        Spans (``utils/tracing.py``): ``newsrec.train.step`` around the
+        whole, and inside it ``newsrec.train.forward`` (the model and the
+        loss), ``.backward``, ``.all_reduce`` and ``.optimizer``."""
+        with tracing.span("newsrec.train.step"):
+            batch = self._to_device(self._maybe_frontier(batch))
+            model = state.model
+            model.zero_grad(set_to_none=True)
+            with tracing.span("newsrec.train.forward"):
+                scores = model(batch, self.news_feats, deterministic=False,
+                               generator=step_generator(self.cfg.train.seed + 1, state.step,
+                                                        self.data_idx))
+                loss = training_loss(model, scores)
+            model.aux_losses = {}
+            metrics = {"loss": loss.detach(),
+                       "acc": (scores.argmax(dim=-1) == 0).float().mean()}
+            skip_nonfinite = self.cfg.train.skip_nonfinite_updates
+            if self.n_proc > 1:
+                # every rank joins the all-reduce, whatever its own loss
+                with tracing.span("newsrec.train.backward"):
+                    loss.backward()
+                with tracing.span("newsrec.train.all_reduce"):
+                    self._all_reduce_grads(state, metrics)
+                if self.cfg.train.debug_nans:
+                    _raise_nonfinite(state, metrics["loss"], self.n_proc)
+                skip = skip_nonfinite and not bool(torch.isfinite(metrics["loss"]))
+            else:
+                skip = skip_nonfinite and not bool(torch.isfinite(loss))
+                if not skip:
+                    with tracing.span("newsrec.train.backward"):
+                        loss.backward()
+                if self.cfg.train.debug_nans:
+                    _raise_nonfinite(state, loss)
+            if skip_nonfinite:
+                metrics["skipped"] = float(skip)
             if not skip:
-                loss.backward()
-            if self.cfg.train.debug_nans:
-                _raise_nonfinite(state, loss)
-        if skip_nonfinite:
-            metrics["skipped"] = float(skip)
-        if not skip:
-            state.opt.step()
-        model.zero_grad(set_to_none=True)
-        state.step += 1
+                with tracing.span("newsrec.train.optimizer"):
+                    state.opt.step()
+            model.zero_grad(set_to_none=True)
+            state.step += 1
         return state, metrics
 
     def _all_reduce_grads(self, state: TrainState, metrics: Dict[str, torch.Tensor]) -> None:

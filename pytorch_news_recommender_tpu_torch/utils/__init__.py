@@ -1,1 +1,1 @@
-"""Utilities of the port (run logging)."""
+"""Utilities of the port (run logging, tracing)."""

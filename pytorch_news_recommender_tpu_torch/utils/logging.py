@@ -1,5 +1,5 @@
-"""Structured run logging: JSONL metrics + wall-clock timing (the port's
-copy of the JAX package's ``utils/logging.py``).
+"""Structured run logging: JSONL metrics (the port's copy of the JAX
+package's ``utils/logging.py``; spans and timing are ``utils/tracing.py``).
 
 Replaces the reference's print-based loss lines and ``res.txt`` appends
 (``MIND_2020/train_eval.py:130-134,274-278``) with machine-readable output.
@@ -34,18 +34,3 @@ class JsonlLogger:
         if self.echo:
             print(line, file=sys.stderr, flush=True)
 
-
-class Timer:
-    """Context-manager stopwatch (reference ``tools.py:18-27`` decorator)."""
-
-    def __init__(self, name: str = ""):
-        self.name = name
-        self.elapsed = 0.0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self._t0
-        return False
