@@ -767,6 +767,8 @@ def train_run(FE, SS, cfg, ds, phase):
                "wgrad": FE.weight_grad, "scatter": SS.scatter_add_rows}
     for fn in counted.values():
         fn.launches = 0
+    for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd):
+        fn.wgmma_launches = 0
     losses, step_ms, widths = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -791,6 +793,8 @@ def train_run(FE, SS, cfg, ds, phase):
         metrics = trainer.evaluate(state)
         eval_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
+    # of #1's and #2's launches, those whose weight products ran on wgmma
+    wgmma = {k: f"{counted[k].wgmma_launches}/{launches[k]}" for k in ("fwd", "bwd")}
     if uses_encoder_kernels(state.model):
         assert launches["fwd"] and launches["bwd"], launches
     else:
@@ -805,8 +809,9 @@ def train_run(FE, SS, cfg, ds, phase):
           f"{np.mean([w for w, _, _ in widths]):.0f} (short block "
           f"{np.mean([s for _, s, _ in widths]):.0f}){frontier}; dev AUC "
           f"{metrics['auc']:.4f} over 512 impressions (eval {eval_s:.2f} s); launches "
-          f"{launches}", flush=True)
-    return {"launches": launches, "step_launches": step_launches, "step_ms": step_ms,
+          f"{launches}; wgmma_launches / launches {wgmma}", flush=True)
+    return {"launches": launches, "wgmma": wgmma, "step_launches": step_launches,
+            "step_ms": step_ms,
             "trainer": trainer, "state": state, "first": first, "metrics": metrics,
             "loss_err": loss_err, "grad_err": grad_err, "steps_peak_gib": steps_peak_gib}
 

@@ -5,10 +5,13 @@
 // benchmarks/ablate_encoder.py:30 (its bodies k_passthrough, k_qkv, k_attn,
 // k_tail, k_attn_slices, k_attn_nosoftmax): six truncations of the fused
 // encoder's forward. Each is built from the pieces of today's forward
-// (fused_encoder.cu on tiles.cuh: stage_weights_kernel and WsLayout, the
-// tile of whole items, tile_product over the cp.async ring on mma.sync
-// m16n8k16 with f32 sums, ASmem / AStream, and fwd_tail itself), so the
-// difference of two stages reads as the cost of one part of that forward.
+// (fused_encoder.cu on tiles.cuh: stage_weights and the weights' layouts,
+// the tile of whole items, tile_product with f32 sums on its two engines,
+// ASmem / AStream, and fwd_tail itself), so the difference of two stages
+// reads as the cost of one part of that forward. V1, V2a and V3 take
+// tile_product's engine as the forward does (wgmma in bf16); V2 and V2b's
+// 160-row groups are past one wgmma M and stay on mma.sync, so their QKV
+// product is not the forward's in bf16.
 // Inputs in the harness's layout: x [M*L, D], mask [M*L] f32, weights in
 // x's dtype T; out [M, D] in T.
 //
@@ -252,9 +255,7 @@ ablate_items_kernel(const T* __restrict__ x, BOp wqkv, const T* __restrict__ bqk
       const int seg = i / dhp, d = i % dhp;
       hb[i] = d < dh ? to_f(bqkv[seg * D + h * dh + d]) : 0.f;
     }
-    BOp b = wqkv;
-    b.hi += h * 3 * dhp;
-    if (kF32) b.lo += h * 3 * dhp;
+    const BOp b = from_col<false>(wqkv, h * 3 * dhp);
     tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32, true>(
         ASmem{x_hi, x_lo, ldX}, b, Rt, ring, [=](int r, int n, float a0, float a1) {
           store2(qf + r * ldq + n, a0 + hb[n], a1 + hb[n + 1]);
@@ -349,9 +350,7 @@ ablate_subtile_kernel(const T* __restrict__ x, const float* __restrict__ mask, B
       const int seg = i / dhp, d = i % dhp;
       hb[i] = d < dh ? to_f(bqkv[seg * D + h * dh + d]) : 0.f;
     }
-    BOp b = wqkv;
-    b.hi += h * 3 * dhp;
-    if (kF32) b.lo += h * 3 * dhp;
+    const BOp b = from_col<false>(wqkv, h * 3 * dhp);
     auto qkv_epi = [=](int r, int n, float a0, float a1) {
       const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
       float v0 = 0.f, v1 = 0.f;
@@ -555,7 +554,6 @@ cudaError_t launch(int stage, const void* xv, const float* mask, const void* wqk
                    const void* bqkv, const void* wo, const void* bo, const void* aw,
                    const void* ab, const void* aq, void* outv, void* ws, void* o1v, void* o2,
                    int M, int L, int D, int H, int Q, float scale, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   constexpr bool kF32 = sizeof(T) == 4;
   const T* x = static_cast<const T*>(xv);
   const T* bq = static_cast<const T*>(bqkv);
@@ -566,20 +564,12 @@ cudaError_t launch(int stage, const void* xv, const float* mask, const void* wqk
     return run(ablate_sum_kernel<T>, dim3((M + ipb - 1) / ipb), sum_block(D, sizeof(T)),
                smem, stream, x, out, M, L, D, ipb);
   }
-  // the weights as the forward's kernels read them, in ws (WsLayout)
-  const WsLayout wl = ws_layout(D, H, Q);
-  bf16* w_hi = static_cast<bf16*>(ws);
-  bf16* w_lo = kF32 ? w_hi + wl.total : nullptr;
-  const long n_w = 3L * D * D + (long)D * D + (long)D * Q;
-  stage_weights_kernel<T><<<(int)((n_w + 255) / 256 < 2048 ? (n_w + 255) / 256 : 2048), 256, 0,
-                            stream>>>(static_cast<const T*>(wqkv), static_cast<const T*>(wo),
-                                      static_cast<const T*>(aw), D, H, Q, w_hi, w_lo);
-  cudaError_t err = cudaGetLastError();
+  // the weights as the forward's kernels read them, in ws; the subtile
+  // stages' 160-row groups take mma.sync, which reads WsLayout alone
+  const bool wg = wgmma_engine(kF32, L) && !per_subtile(stage);
+  cudaError_t err = stage_weights<T>(wqkv, wo, aw, ws, D, H, Q, wg, kTlFwd, stream);
   if (err != cudaSuccess) return err;
-  const int dhp = round16(D / H);
-  // head 0's q|k|v columns, each padded to dhp (the kernels move to head h)
-  const BOp qkv_head{w_hi + wl.head, kF32 ? w_lo + wl.head : nullptr, wl.ld_head, D, 3 * dhp,
-                     dhp, D / H};
+  const BOp qkv_head = weight_ops<T>(ws, D, H, Q, wg).qkv_head;
   if (per_subtile(stage)) {
     const int blocks = (int)((long)M * L / kSub), hpb = blocks >= kAllHeadsBlocks ? H : 1;
     const dim3 grid(blocks, (H + hpb - 1) / hpb);

@@ -3,7 +3,8 @@
 // kernels: type conversion at the TPU kernel's rounding points, warp
 // reductions, the tensor-core primitives (cp.async, the high/low bf16
 // split, mma.sync m16n8k16 and its ldmatrix fragment loads; tiles.cuh
-// builds the tile product on them) and the dropout hash.
+// builds the tile product on them), Hopper's bulk copies on an mbarrier and
+// its warpgroup MMA (wgmma) with A in registers, and the dropout hash.
 
 #pragma once
 
@@ -11,6 +12,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
@@ -144,6 +146,142 @@ __device__ __forceinline__ void frag_b_t(unsigned (*b)[2], const __nv_bfloat16* 
   unsigned r[4];
   ldmatrix_x4(r, s + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k + ((lane >> 3) & 1) * 8);
   b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+}
+
+// ---- Hopper pieces: bulk copies on an mbarrier, and wgmma ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// The mbarrier at `bar` (8 bytes of shared memory) for `count` arrivals
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_inval(unsigned long long* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// the barrier inits visible to the other threads and to the async proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// orders this thread's earlier generic-proxy accesses of shared memory
+// before later async-proxy ones (bulk copies, wgmma operand reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// one arrival that also expects `bytes` of transfers on the barrier
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// to shared memory by the copy engine, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of v across a wgmma fence or wait
+__device__ __forceinline__ void reg_fence(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+
+// The shared-memory descriptor of a K-major bf16 B operand without swizzle
+// whose 8 x 8 core matrices (8 columns of the product, each 8 deep, 128
+// contiguous bytes) lie 128 bytes apart along k and 1,024 bytes apart
+// along n: a 64-deep staged weight tile as tiles.cuh lays it out.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32);
+}
+
+// d (+)= a b over m64nNk16 on the warpgroup: a in registers, each warp's 16
+// rows as mma_bf16's A fragment (rows 16 w .. 16 w + 15 for warp w of the
+// warpgroup), b from shared memory through `desc`; d per warp is N / 8
+// m16n8 C fragments side by side (d[4j .. 4j + 3] for columns 8j ..);
+// acc 0 overwrites d. Asynchronous: wgmma_commit, then wgmma_wait.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float* d, const unsigned* a, uint64_t desc, int acc);
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float* d, const unsigned* a, uint64_t desc,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<48>(float* d, const unsigned* a, uint64_t desc,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<80>(float* d, const unsigned* a, uint64_t desc,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 // v as a bf16 high part and, where the operand is split, a low part

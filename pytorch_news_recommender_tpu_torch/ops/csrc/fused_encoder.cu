@@ -22,9 +22,12 @@
 // Layout: tiles of whole items on the tensor cores, as in the backward
 // (tiles.cuh: 64 token rows, 5 items at L=12, 3 at L=20, 1 at L=50; one
 // item of round16(L) rows past 64). Three launches per call:
-//   stage_weights_kernel: the weights re-laid into ws (WsLayout: head-major
-//              Wqkv with dh padded to 16, every row 16-byte aligned), so
-//              that every weight copy is one 16-byte cp.async;
+//   stage_weights_kernel: the weights re-laid into ws: for wgmma (bf16,
+//              tiles of at most 64 rows) TlLayout's K-major core matrices,
+//              a head's q|k|v columns with dh padded to 16 and pads written
+//              as zeros, each 64-deep weight tile one bulk copy; for
+//              mma.sync WsLayout (head-major Wqkv with dh padded to 16,
+//              every row 16-byte aligned, every copy one 16-byte cp.async);
 //   fwd_attn:  per tile and head, q|k|v = T(x Wqkv + b) over the head's
 //              columns (tile_product), the scores over the tile's block
 //              diagonal, the softmax in registers (the row sum in f32 before
@@ -34,11 +37,16 @@
 //              while its fragments are loaded), summed per row in a fixed
 //              order, the pooling softmax per item with max(den, 1e-30) and
 //              out = T(sum_l w_l o2_l / den).
-// * Every product is mma.sync m16n8k16 bf16 with f32 sums. In bf16 every
-//   operand is already bf16 at the TPU kernel's rounding points (x, q, k, v,
-//   T(e), o1, T(o2)): one pass. In f32 (T = float) operands and weights are
-//   split into bf16 high and low parts, three passes (A_hi B_hi + A_lo B_hi +
-//   A_hi B_lo), some 2^-16 of each product, as in the backward.
+// * Every product is bf16 on the tensor cores with f32 sums. The weight
+//   products (QKV, Wo, aw) go through tile_product: in bf16, at tiles of at
+//   most 64 rows, on wgmma m64nNk16 (tiles.cuh: a head's 96 columns as two
+//   warpgroups of 48 in fwd_attn, 128-column chunks as four of 32 in
+//   fwd_tail); the attention's scores and P v stay on mma.sync m16n8k16. In
+//   bf16 every operand is already bf16 at the TPU kernel's rounding points
+//   (x, q, k, v, T(e), o1, T(o2)): one pass. In f32 (T = float) operands and
+//   weights are split into bf16 high and low parts, three passes (A_hi B_hi
+//   + A_lo B_hi + A_hi B_lo), some 2^-16 of each product, as in the
+//   backward, all on mma.sync, as is one item of L > 64.
 // * A tile's rows (x, then o1) are staged by 8-byte cp.async copies all in
 //   flight at once in bf16 (600-byte rows allow no wider copy), and by
 //   loads split into high and low parts in f32.
@@ -90,8 +98,13 @@
 // Bound. At L=20 an item needs 2*L*D*(3D+D+Q) + 4*H*L^2*dh = 17.3 MFLOP
 // and moves 12 KB (bf16 tokens in, one vector out), so the work is bound by
 // operations: 1.13 TFLOP for a 65,238-news corpus, 1.1 ms at the bf16 peak.
-// At L=20 a 64-row tile issues some 15 k m16n8k16 MMAs (QKV 9,120, Wo 2,888,
-// aw 1,976, attention 1,280, the block diagonal's 64^2 scores included).
+// At L=20 a 64-row tile holds some 15 k m16n8k16 MMAs' work (QKV 9,120, Wo
+// 2,888, aw 1,976, attention 1,280, the block diagonal's 64^2 scores
+// included); on wgmma the weight products are 703 m64nNk16 a tile.
+// Measured on an H100 80GB HBM3 at 700 W, M=28,672, L=20, bf16: the forward
+// 5.54 ms (7.42 on mma.sync), its QKV product (the ablation's V1) 1.78 ms
+// (3.20) against a 0.313 ms bound: the wgmma engine is bound by its issue
+// and latency, not by the tensor cores (tiles.cuh).
 
 #include "tiles.cuh"
 
@@ -250,9 +263,7 @@ fwd_attn_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
       const int seg = i / dhp, d = i % dhp;
       hb[i] = d < dh ? to_f(bqkv[seg * D + h * dh + d]) : 0.f;
     }
-    BOp b = wqkv;
-    b.hi += h * 3 * dhp;
-    if (kF32) b.lo += h * 3 * dhp;
+    const BOp b = from_col<false>(wqkv, h * 3 * dhp);
     auto qkv_epi = [=](int r, int n, float a0, float a1) {
       const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
       float v0 = 0.f, v1 = 0.f;
@@ -518,13 +529,8 @@ cudaError_t launch_tail(const void* mask, const void* o1, const void* ws, const 
                         const void* ab, const void* aq, void* out, void* o2, int M, int L, int D,
                         int H, int Q, unsigned seed, int block_rows, unsigned threshold,
                         float keep_scale, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   constexpr bool kF32 = sizeof(T) == 4;
-  const WsLayout wl = ws_layout(D, H, Q);
-  const bf16* w_hi = static_cast<const bf16*>(ws);
-  auto lo_of = [&](long off) { return kF32 ? w_hi + wl.total + off : nullptr; };
-  const BOp wo_b = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
-  const BOp aw_b = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, D, Q);
+  const WeightOps w = weight_ops<T>(ws, D, H, Q, wgmma_engine(kF32, L));
   const int tiles = (M + items_per_tile(L) - 1) / items_per_tile(L);
   const bool wide = tile_rows(L) > kTileRows;
   const int var = fwd_variant<kF32>(L, D, H, Q);
@@ -539,7 +545,7 @@ cudaError_t launch_tail(const void* mask, const void* o1, const void* ws, const 
   if (err != cudaSuccess) return err;
   static_assert(Cfg<kF32>::Pool::W == Cfg<kF32>::PoolWide::W, "one block size for fwd_tail");
   tail_kernel<<<tiles, 32 * Cfg<kF32>::Pool::W, tail_smem, stream>>>(
-      static_cast<const float*>(mask), static_cast<const T*>(o1), wo_b, aw_b,
+      static_cast<const float*>(mask), static_cast<const T*>(o1), w.wo, w.aw,
       static_cast<const T*>(bo), static_cast<const T*>(ab), static_cast<const T*>(aq),
       static_cast<T*>(out), static_cast<float*>(o2), M, L, D, Q, seed, block_rows, threshold,
       keep_scale);
@@ -552,25 +558,15 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
                    const void* aq, void* out, void* o1, void* ws, void* o2, int M, int L, int D,
                    int H, int Q, float scale, unsigned seed, int block_rows, unsigned threshold,
                    float keep_scale, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   constexpr bool kF32 = sizeof(T) == 4;
   const int var = fwd_variant<kF32>(L, D, H, Q);
   if ((var & kVarFwdTail) && o2 == nullptr) return cudaErrorInvalidValue;
-  // the weights as the kernels read them, in ws (WsLayout), once per call
-  const WsLayout wl = ws_layout(D, H, Q);
-  bf16* w_hi = static_cast<bf16*>(ws);
-  bf16* w_lo = kF32 ? w_hi + wl.total : nullptr;
-  const long n_w = 3L * D * D + (long)D * D + (long)D * Q;
-  stage_weights_kernel<T><<<(int)((n_w + 255) / 256 < 2048 ? (n_w + 255) / 256 : 2048), 256, 0,
-                            stream>>>(static_cast<const T*>(wqkv), static_cast<const T*>(wo),
-                                      static_cast<const T*>(aw), D, H, Q, w_hi, w_lo);
-  cudaError_t err = cudaGetLastError();
+  // the weights as the kernels read them, in ws, once per call
+  const bool wg = wgmma_engine(kF32, L);
+  cudaError_t err = stage_weights<T>(wqkv, wo, aw, ws, D, H, Q, wg, kTlFwd, stream);
   if (err != cudaSuccess) return err;
+  const WeightOps w = weight_ops<T>(ws, D, H, Q, wg);
   const int tiles = (M + items_per_tile(L) - 1) / items_per_tile(L);
-  const int dhp = round16(D / H);
-  // head 0's q|k|v columns, each padded to dhp (the kernel moves to head h)
-  const BOp qkv_head{w_hi + wl.head, kF32 ? w_lo + wl.head : nullptr, wl.ld_head, D, 3 * dhp,
-                     dhp, D / H};
   auto attn_kernel = fwd_attn_kernel<T, false>;
   if constexpr (kF32)
     if (var & kVarFwdAttn) attn_kernel = fwd_attn_kernel<T, true>;
@@ -582,7 +578,7 @@ cudaError_t launch(const void* x, const void* mask, const void* wqkv, const void
   const int hpb = tiles >= kAllHeadsTiles ? H : 1;
   attn_kernel<<<dim3(tiles, (H + hpb - 1) / hpb), 32 * Cfg<kF32>::Attn::W, attn_smem,
                 stream>>>(static_cast<const T*>(x), static_cast<const float*>(mask),
-                                 qkv_head, static_cast<const T*>(bqkv), static_cast<T*>(o1), M,
+                                 w.qkv_head, static_cast<const T*>(bqkv), static_cast<T*>(o1), M,
                                  L, D, H, hpb, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_tail<T>(mask, o1, ws, bo, ab, aq, out, o2, M, L, D, H, Q, seed, block_rows,
@@ -674,9 +670,16 @@ void newsrec_fused_encoder_fwd_tile(int L, int* items, int* rows) {
   *rows = tile_rows(L);
 }
 
-// bfloat16 values of the weights' layout (ws of newsrec_fused_encoder_fwd
+// bfloat16 values of the weights' layouts (ws of newsrec_fused_encoder_fwd
 // holds this many, twice for float32)
-long newsrec_fused_encoder_fwd_ws_elems(int D, int H, int Q) { return ws_layout(D, H, Q).total; }
+long newsrec_fused_encoder_fwd_ws_elems(int D, int H, int Q) { return ws_elems(D, H, Q); }
+
+// the engine of the per-item kernels' weight products at these shapes
+// (tiles.cuh's wgmma_engine): 1 wgmma, 0 mma.sync
+int newsrec_fused_encoder_engine(int dtype, int L, int D, int H, int Q) {
+  (void)D, (void)H, (void)Q;
+  return wgmma_engine(dtype == 0, L) ? 1 : 0;
+}
 
 const char* newsrec_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

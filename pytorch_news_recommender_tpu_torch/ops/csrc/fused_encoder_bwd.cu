@@ -28,8 +28,10 @@
 //              dK, dV; writes dqkv.
 //   dx:        dx = T(dqkv Wqkv^T), row by row: one block per 64 token
 //              rows, whatever the items.
-// * Every product is mma.sync m16n8k16 bf16 with f32 sums (tile_product for
-//   the weight products, the attention's five inline). Operands the TPU
+// * Every product is bf16 on the tensor cores with f32 sums: the weight
+//   products by tile_product, on wgmma in bf16 at tiles of at most 64 rows
+//   (dx's 64-row blocks too), else on mma.sync m16n8k16 (tiles.cuh); the
+//   attention's five inline on mma.sync m16n8k16. Operands the TPU
 //   kernel's rounding leaves in bf16 (x, o1, T(o2), q, k, v, dO1, T(P), dS)
 //   take one pass; the f32 operands dpre, do2 and dqkv are split into bf16
 //   high and low parts (two passes, A_hi B + A_lo B). In f32 (T = float)
@@ -37,13 +39,17 @@
 //   per call): three passes, A_hi B_hi + A_lo B_hi + A_hi B_lo, about 2^-16
 //   of each product, as in weight_grad.
 // * The weights go through shared memory: 64-deep tiles of Wo, aw, a head's
-//   q|k|v columns of Wqkv, and the transposes of Wo, aw and Wqkv (stored by
-//   columns, read with ldmatrix without .trans), in a cp.async ring of 2-3
-//   stages, the copies of the next tiles under the MMAs of this one. Each
-//   warp takes 16-row units of the 64-row tile (Cfg): pool_bwd (bf16) runs
-//   16 warps on 128-column chunks (16 x 32 units), dx 16 on all of D at
-//   once (16 x 80), attn_bwd 8 on a head's 96 columns (16 x 48), two blocks
-//   per SM. Each staged tile serves all 64
+//   q|k|v columns of Wqkv, and the transposes of Wo, aw and Wqkv, in a ring
+//   of 2-3 stages, the copies of the next tiles under the MMAs of this one.
+//   On wgmma each tile is one bulk copy of TlLayout's core matrices (the
+//   transposes as copies of their own, K-major like the rest, written once
+//   per call; wgmma's transpose bit for B was not tried), and the block's
+//   warpgroups split a chunk: pool_bwd 4 x 32 columns of 128, dx 4 x 80 of
+//   320, attn_bwd 2 x 48 of a head's 96 (two blocks per SM). On mma.sync
+//   each warp takes 16-row units of the tile (Cfg; the transposes read by
+//   columns with ldmatrix without .trans): pool_bwd (bf16) 16 warps on
+//   128-column chunks (16 x 32 units), dx 16 on all of D at once (16 x 80),
+//   attn_bwd 8 on a head's 96 columns (16 x 48). Each staged tile serves all 64
 //   rows of the block, not one item's L; weight reads from L2 fall by 64 / L
 //   against one block per item (R_t = 128 would halve them again, but
 //   pool_bwd's f32 intermediates and operand tiles take 160 KB of shared
@@ -54,8 +60,9 @@
 //   is one 16-byte cp.async, a quarter or an eighth as many copies to
 //   issue. Depth and width pads (D = 300 -> 304, Q = 200 -> 208, dh = 30 ->
 //   32) are zeros written once in shared memory or zero-filled by the
-//   copies, which read only a unit's valid values; no pad is read from
-//   device memory.
+//   copies, which read only a unit's valid values (mma.sync), or zeros that
+//   TlLayout holds and the bulk copies read (wgmma). A tile's bf16 rows (x,
+//   o1) are staged by cp.async copies all in flight at once (stage_rows).
 // * Shared memory limits L. Past 64 rows pool_bwd takes narrower weight
 //   tiles (Cfg's PoolWide), attn_bwd's T(P) and dS overwrite its scores
 //   and dP row by row, and dx's blocks do not depend on L, so that at
@@ -324,7 +331,7 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
   const float* o2r = kWideD ? o2_g + row0 * D : o2s;
   const float* tr = kWideD ? t_g + row0 * Q : ts;
   auto gval = [=](int r, int n) { return g[(long)gi[r] * D + n]; };
-  if (!kStreamA) stage_tile<4>(o1 + row0 * D, D, nrows, D, Rt, D16, a_hi, a_lo, ld1, kF32);
+  if (!kStreamA) stage_rows(o1 + row0 * D, nrows, D, Rt, a_hi, a_lo, ld1);
   for (int r = tid; r < Rt; r += blockDim.x) {
     mk[r] = r < nrows ? mask[row0 + r] : 0.f;
     gi[r] = item0 + (r < nrows ? r / L : 0);
@@ -352,9 +359,10 @@ pool_bwd_kernel(const float* __restrict__ g, const float* __restrict__ mask,
   else
     tile_product<C::NT, C::UJ, C::ST, C::W, false, kF32, kF32>(ASmem{a_hi, a_lo, ld1}, wo, Rt,
                                                                 ring, o2_epi);
-  // o2 . g per row; T(o2) as the next A
+  // o2 . g per row (unrolled, so that the loads of g overlap); T(o2) as the next A
   for (int r = warp; r < nrows; r += C::W) {
     float dw = 0.f;
+#pragma unroll 4
     for (int d = lane; d < D; d += 32) dw = fmaf(o2r[r * D + d], gval(r, d), dw);
     dw = warp_sum(dw);
     if (lane == 0) dwf[r] = dw;
@@ -515,7 +523,7 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
   const int nitems = M - item0 < ipt ? M - item0 : ipt, nrows = nitems * L;
   const long row0 = (long)item0 * L, ld3 = 3L * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  if (!kStream) stage_tile<4>(x + row0 * D, D, nrows, D, Rt, D16, x_hi, x_lo, ldX, kF32);
+  if (!kStream) stage_rows(x + row0 * D, nrows, D, Rt, x_hi, x_lo, ldX);
   for (int r = tid; r < Rt; r += blockDim.x) {
     mk[r] = r < nrows ? mask[row0 + r] : 0.f;
     itm[r] = r / L;  // rows past the last item fall in items of their own
@@ -546,9 +554,7 @@ attn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ mask, BOp wqk
       const int seg = i / dhp, d = i % dhp;
       hb[i] = d < dh ? to_f(bqkv[seg * D + h * dh + d]) : 0.f;
     }
-    BOp b = wqkv;
-    b.hi += h * 3 * dhp;
-    if (kF32) b.lo += h * 3 * dhp;
+    const BOp b = from_col<false>(wqkv, h * 3 * dhp);
     auto qkv_epi = [=](int r, int n, float a0, float a1) {
       const int seg = n >= 2 * dhp ? 2 : (n >= dhp ? 1 : 0), d = n - seg * dhp;
       float v0 = 0.f, v1 = 0.f;
@@ -733,9 +739,7 @@ dx_kernel(const float* __restrict__ dqkv_g, BOp wqkv_t, T* __restrict__ dx, long
   const int nrows = rows - row0 < Rt ? (int)(rows - row0) : Rt;
   using C = typename Cfg<kF32>::Dx;
   const int n0 = blockIdx.y * C::NT;
-  BOp b = wqkv_t;
-  b.hi += (long)n0 * b.ld;
-  if (b.lo != nullptr) b.lo += (long)n0 * b.ld;
+  BOp b = from_col<true>(wqkv_t, n0);
   b.N = D - n0 < C::NT ? D - n0 : C::NT;
   tile_product<C::NT, C::UJ, C::ST, C::W, true, true, kF32>(
       AStream{dqkv_g + row0 * 3 * D, 3L * D, nrows, 3 * D, Rt}, b, Rt, smem,
@@ -983,26 +987,13 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
                        void* do1_s, void* ws, int M, int L, int D, int H, int Q, float scale,
                        unsigned seed, int block_rows, unsigned threshold, float keep_scale,
                        cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
   constexpr bool kF32 = sizeof(T) == 4;
-  // the weights as the kernels read them, in ws (WsLayout), once per call
-  const WsLayout wl = ws_layout(D, H, Q);
-  bf16* w_hi = static_cast<bf16*>(ws);
-  bf16* w_lo = kF32 ? w_hi + wl.total : nullptr;
-  const long n_w = 3L * D * D + (long)D * D + (long)D * Q;
-  stage_weights_kernel<T><<<(int)((n_w + 255) / 256 < 2048 ? (n_w + 255) / 256 : 2048), 256, 0,
-                            stream>>>(static_cast<const T*>(wqkv), static_cast<const T*>(wo),
-                                      static_cast<const T*>(aw), D, H, Q, w_hi, w_lo);
-  cudaError_t err = cudaGetLastError();
+  // the weights as the kernels read them, in ws, once per call
+  const bool wg = wgmma_engine(kF32, L);
+  cudaError_t err = stage_weights<T>(wqkv, wo, aw, ws, D, H, Q, wg, kTlAll, stream);
   if (err != cudaSuccess) return err;
-  auto lo_of = [&](long off) { return kF32 ? w_lo + off : nullptr; };
+  const WeightOps w = weight_ops<T>(ws, D, H, Q, wg);
   const int tiles = (M + items_per_tile(L) - 1) / items_per_tile(L);
-  const int dhp = round16(D / H);
-  const BOp wo_b = plain_b(w_hi + wl.o, lo_of(wl.o), wl.ld_o, D, D);
-  const BOp aw_b = plain_b(w_hi + wl.aw, lo_of(wl.aw), wl.ld_aw, D, Q);
-  const BOp qkv_t = transposed(plain_b(w_hi + wl.qkv, lo_of(wl.qkv), wl.ld_qkv, D, 3 * D));
-  // head 0's q|k|v columns, each padded to dhp (the kernel moves to head h)
-  const BOp qkv_head{w_hi + wl.head, lo_of(wl.head), wl.ld_head, D, 3 * dhp, dhp, D / H};
 
   const bool wide = tile_rows(L) > kTileRows;
   const int var = bwd_variant<kF32>(L, D, H, Q);
@@ -1027,14 +1018,14 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
   static_assert(Cfg<kF32>::Pool::W == Cfg<kF32>::PoolWide::W, "one block size for pool_bwd");
   pool_kernel<<<tiles, 32 * Cfg<kF32>::Pool::W, pool_smem, stream>>>(
       static_cast<const float*>(g), static_cast<const float*>(mask), static_cast<const T*>(o1),
-      wo_b, aw_b, static_cast<const T*>(bo), static_cast<const T*>(ab),
+      w.wo, w.aw, static_cast<const T*>(bo), static_cast<const T*>(ab),
       static_cast<const T*>(aq), static_cast<float*>(o2_s), static_cast<float*>(t_s),
       static_cast<float*>(dpre_s), static_cast<float*>(do2_s), static_cast<float*>(ds_s),
       static_cast<T*>(do1_s), M, L, D, Q, seed, block_rows, threshold, keep_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   static_assert(Cfg<kF32>::Attn::W == Cfg<kF32>::AttnStream::W, "one block size for attn_bwd");
   attn_kernel<<<tiles, 32 * Cfg<kF32>::Attn::W, attn_smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mask), qkv_head,
+      static_cast<const T*>(x), static_cast<const float*>(mask), w.qkv_head,
       static_cast<const T*>(bqkv), static_cast<const T*>(do1_s), static_cast<float*>(dqkv_s), M,
       L, D, H, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1042,7 +1033,7 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* mask, const voi
   const long rows = (long)M * L;
   dx_kernel<T><<<dim3((int)((rows + kTileRows - 1) / kTileRows), (D + dx_cols - 1) / dx_cols),
                  32 * Cfg<kF32>::Dx::W, dx_smem, stream>>>(
-      static_cast<const float*>(dqkv_s), qkv_t, static_cast<T*>(dx), rows, D);
+      static_cast<const float*>(dqkv_s), w.qkv_t, static_cast<T*>(dx), rows, D);
   return cudaGetLastError();
 }
 
@@ -1131,7 +1122,7 @@ void newsrec_fused_encoder_bwd_tile(int L, int* items, int* rows) {
 
 // bfloat16 values of the weights' layout for the per-item kernels (ws of
 // newsrec_fused_encoder_bwd holds this many, twice for float32)
-long newsrec_fused_encoder_bwd_ws_elems(int D, int H, int Q) { return ws_layout(D, H, Q).total; }
+long newsrec_fused_encoder_bwd_ws_elems(int D, int H, int Q) { return ws_elems(D, H, Q); }
 
 // partial tiles newsrec_weight_grad needs room for: splits x Kout x N
 // floats (1 split: none, the kernel writes out directly)

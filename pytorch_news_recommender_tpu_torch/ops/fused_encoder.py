@@ -23,6 +23,11 @@ gradients); their headers say what bounds them and how they are laid out.
   on the CPU. :func:`fused_news_encoder` takes that route on a CUDA tensor
   whenever autograd records (and launches the forward kernel alone
   otherwise), so no CUDA call returns an output without a gradient node.
+* :func:`engine` names the engine of the kernels' weight products at a
+  shape (``wgmma`` for bfloat16 at tiles of at most 64 rows, else
+  ``mma.sync``); ``fused_news_encoder.wgmma_launches`` and
+  ``fused_news_encoder_bwd.wgmma_launches`` count the launches that took
+  ``wgmma``, beside ``launches``.
 * :func:`dropout_keep` is the dropout mask: a murmur3-finalizer hash of
   ``(seed + block, row in block, column)`` over the TPU kernel's block
   geometry, equal bit for bit to the JAX package's ``host_dropout_keep``.
@@ -279,8 +284,9 @@ def _lib() -> ctypes.CDLL:
                  "newsrec_fused_encoder_bwd_smem_bytes"):
         getattr(lib, name).argtypes = [i] * 5
         getattr(lib, name).restype = ctypes.c_long
-    lib.newsrec_fused_encoder_variant.argtypes = [i] * 5
-    lib.newsrec_fused_encoder_variant.restype = i
+    for name in ("newsrec_fused_encoder_variant", "newsrec_fused_encoder_engine"):
+        getattr(lib, name).argtypes = [i] * 5
+        getattr(lib, name).restype = i
     lib.newsrec_fused_encoder_variant_name.argtypes = [i]
     lib.newsrec_fused_encoder_variant_name.restype = ctypes.c_char_p
     lib.newsrec_fused_encoder_fwd_o2_elems.argtypes = [i, lg, i, i, i, i]
@@ -313,9 +319,11 @@ def _raise_on(lib, rc: int, what: str) -> None:
                            + lib.newsrec_cuda_error_string(rc).decode())
 
 
-def _count(fn) -> None:
+def _count(fn, wgmma: bool = False) -> None:
     with _COUNT_LOCK:
         fn.launches += 1
+        if wgmma:
+            fn.wgmma_launches += 1
 
 
 def _check(x, mask, weights, num_heads):
@@ -422,7 +430,7 @@ def fused_news_encoder(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
             *_dropout_args(seed, L, dropout_rate),
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "fused encoder")
-    _count(fused_news_encoder)
+    _count(fused_news_encoder, _wgmma(lib, x.dtype, L, D, num_heads, Q))
     return (out, o1) if save_o1 else out
 
 
@@ -481,6 +489,18 @@ def variant(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> Tuple[str, ..
             names.append(name.decode())
         i += 1
     return tuple(names)
+
+
+def _wgmma(lib, dtype, L, D, H, Q) -> bool:
+    return bool(lib.newsrec_fused_encoder_engine(_DTYPE_CODE[dtype], L, D, H, Q))
+
+
+def engine(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> str:
+    """The engine of the per-item kernels' weight products at these shapes,
+    as the built library chooses it (``tiles.cuh``'s ``wgmma_engine``):
+    ``"wgmma"`` for bfloat16 and tiles of at most 64 rows, else
+    ``"mma.sync"`` (builds the library; needs ``nvcc``)."""
+    return "wgmma" if _wgmma(_lib(), dtype, L, D, H, Q) else "mma.sync"
 
 
 def _tile(fn, L: int) -> Tuple[int, int]:
@@ -543,7 +563,7 @@ def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
                 *_dropout_args(seed, L, dropout_rate),
                 torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(lib, rc, "fused encoder backward")
-        _count(fused_news_encoder_bwd)
+        _count(fused_news_encoder_bwd, _wgmma(lib, x.dtype, L, D, num_heads, Q))
     return dx, x, o1, (o2_s, t_s, dpre_s, do2_s, ds_s, dqkv_s)
 
 
@@ -570,9 +590,10 @@ def fused_news_encoder_bwd(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, *,
     return dx, dwqkv, dbqkv, dwo, dbo, daw, dab, weight_grad(t_s, ds_s)[:, 0]
 
 
-# Launches of each kernel since its count was last set to 0.
-fused_news_encoder.launches = 0
-fused_news_encoder_bwd.launches = 0
+# Launches of each kernel since its count was last set to 0; of #1's and
+# #2's, those whose weight products ran on wgmma (engine()).
+fused_news_encoder.launches = fused_news_encoder.wgmma_launches = 0
+fused_news_encoder_bwd.launches = fused_news_encoder_bwd.wgmma_launches = 0
 weight_grad.launches = 0
 
 

@@ -177,6 +177,22 @@ def test_cpu_tensors_take_the_plain_version_and_build_nothing():
     assert FE._lib.cache_info().currsize == 0
 
 
+def test_cpu_calls_count_no_wgmma_launch():
+    """The plain path, forward and backward, launches nothing: neither
+    count moves, the wgmma count included."""
+    x, mask, w, _ = _inputs(2, 5, 20, 64, 32)
+    t = [torch.from_numpy(a) for a in (x, mask, *w)]
+    fns = (FE.fused_news_encoder, FE.fused_news_encoder_bwd)
+    before = [(fn.launches, fn.wgmma_launches) for fn in fns]
+    _, o1 = FE.fused_news_encoder(t[0], t[1], *t[2:], num_heads=4, save_o1=True)
+    g = torch.ones(5, 64)
+    FE.fused_news_encoder_bwd(g, t[0], t[1], o1, *t[2:], num_heads=4)
+    assert [(fn.launches, fn.wgmma_launches) for fn in fns] == before
+    if not torch.cuda.is_available():
+        assert [fn.wgmma_launches for fn in fns] == [0, 0]
+    assert FE._lib.cache_info().currsize == 0
+
+
 def test_other_devices_raise():
     x, mask, w, _ = _inputs(3, 2, 20, 64, 32)
     t = [torch.from_numpy(a).to("meta") for a in (x, mask, *w)]
@@ -341,6 +357,29 @@ def test_variant_chooser_widens_only_where_the_layout_does_not_fit_on_card(
     need = (lib.newsrec_fused_encoder_smem_bytes(code, *NAML_USER),
             lib.newsrec_fused_encoder_bwd_smem_bytes(code, *NAML_USER))
     assert need == NAML_SMEM[dtype] and max(need) <= FE.MAX_SMEM
+
+
+# (dtype, L, D, H, Q) -> the engine: wgmma at every shape of the training
+# cells in bf16 (NRMS's titles at 12 and 20, NAML's abstracts at 40, both
+# histories and NAML's user tower at 50), mma.sync in f32 and past 64 rows
+ENGINES = [(torch.bfloat16, L, 300, 10, 200, "wgmma") for L in (12, 20, 40, 50)] + [
+    (torch.bfloat16, 50, 800, 10, 400, "wgmma"), (torch.bfloat16, 80, 300, 10, 200, "mma.sync"),
+    (torch.float32, 20, 300, 10, 200, "mma.sync"), (torch.float32, 50, 800, 10, 400, "mma.sync")]
+
+
+@pytest.mark.parametrize("dtype,L,D,H,Q,engine", ENGINES)
+def test_engine_follows_dtype_and_tile_on_card(cuda_device, dtype, L, D, H, Q, engine):
+    """The library reports the engine of the weight products, and a launch
+    counts as a wgmma launch exactly where that is wgmma."""
+    assert FE.engine(dtype, L, D, H, Q) == engine
+    x, mask, w, _ = _inputs(4, 3, L, D, Q)
+    t = [torch.from_numpy(a).to(cuda_device).to(dtype) for a in (x, *w)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    fn = FE.fused_news_encoder
+    before = (fn.launches, fn.wgmma_launches)
+    fn(t[0], m, *t[1:], num_heads=H)
+    assert (fn.launches - before[0], fn.wgmma_launches - before[1]) == (
+        1, int(engine == "wgmma"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

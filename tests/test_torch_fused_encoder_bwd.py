@@ -414,6 +414,25 @@ def test_backward_launches_are_bit_equal_on_card(cuda_device, dtype, M, L):
             assert torch.equal(a, b), "the backward is not deterministic"
 
 
+def test_bf16_training_shapes_run_on_wgmma_on_card(cuda_device):
+    """One bf16 training step at NRMS's shapes (titles of 12 and 20 tokens,
+    histories of 50; D=300, 10 heads, Q=200) through autograd: every
+    forward and backward launch takes the wgmma engine."""
+    D, H, Q = 300, 10, 200
+    fns = (FE.fused_news_encoder, FE.fused_news_encoder_bwd)
+    before = [(fn.launches, fn.wgmma_launches) for fn in fns]
+    for L in (12, 20, 50):
+        x, mask, w, g, _ = _inputs(10, 32, L, D, Q, (3,))
+        ts = [torch.from_numpy(a).to(cuda_device).to(torch.bfloat16).requires_grad_()
+              for a in (x, *w)]
+        m = torch.from_numpy(mask).to(cuda_device)
+        out = FE.fused_news_encoder(ts[0], m, *ts[1:], num_heads=H, dropout_rate=0.2, seed=1)
+        (out.float() * torch.from_numpy(g).to(cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    counts = [(fn.launches - b[0], fn.wgmma_launches - b[1]) for fn, b in zip(fns, before)]
+    assert counts == [(3, 3), (3, 3)], counts
+
+
 def test_cuda_call_under_autograd_has_grad_fn_and_plain_gradients(cuda_device):
     """A CUDA call of the encoder with weights that require grad returns an
     output with a gradient node, and its gradients equal the plain
