@@ -1,4 +1,4 @@
-"""What the inputs need: operations and bytes of the encoder towers, and the
+"""What the inputs need: operations and bytes of a training step, and the
 chip's peaks.
 
 The work counted is what a batch's inputs need, not what the program
@@ -7,6 +7,24 @@ user tower over each impression's real history; the backward at twice the
 forward's operations. Padding, recomputation, the bf16 high/low passes of
 the weight gradients and the launched tile shapes are not counted, so a
 change to the program's padding or tiling cannot change what is counted.
+
+Each model family counts its own work. This module keeps the formulas and
+the sums and names no family: ``reference/<family>.py`` (the module that
+``reference.family(name)`` loads) gives ``work(work, model, lens, news,
+browsed, cand)``, which adds one slice's work to a :class:`Work`:
+
+* ``Work.add_tower`` for a tower that runs inside the program's fused
+  encoder (kernel #1 forward, #2 and #2a backward). Only these towers make
+  ``fwd_flops`` and ``fwd_bytes``, what the encoder rooflines divide;
+* ``Work.add_part(name, flops, nbytes)`` for forward work outside the fused
+  encoder (a family's own attention, pooling or recurrence), counted at
+  real token lengths with :func:`dense_flops` and
+  :func:`elementwise_bytes`; it enters the whole step's operations and
+  stays out of the encoder rooflines;
+* ``Work.other_flops`` for products outside any tower (the scores), and
+  ``Work.news_tokens`` for the real tokens of the news views it encodes.
+
+A module without ``work`` stops the run (:func:`family_work`).
 
 Per item of ``l`` real tokens, width ``D``, ``H`` heads of ``dh = D / H``,
 pooling query ``Q`` (PERF.md gives the same formulas):
@@ -21,7 +39,7 @@ pooling query ``Q`` (PERF.md gives the same formulas):
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
@@ -48,17 +66,33 @@ def tower_bytes(lengths: np.ndarray, D: int, Q: int, calls: int = 1) -> float:
     return float(BYTES_BF16 * ((l * D).sum() + D * len(l) + calls * weights))
 
 
+def dense_flops(rows, k: int, n: int) -> float:
+    """Operations of ``rows`` products of a ``k``-vector by a ``[k, n]``
+    matrix."""
+    return 2.0 * rows * k * n
+
+
+def elementwise_bytes(elements, inputs: int = 1, outputs: int = 1,
+                      itemsize: int = BYTES_BF16) -> float:
+    """Bytes of one elementwise pass over ``elements`` values: each of
+    ``inputs`` tensors read once, each of ``outputs`` written once."""
+    return float(itemsize * elements * (inputs + outputs))
+
+
 class Work:
-    """Forward operations and bytes of the encoder towers, summed over
-    steps; ``fwd_flops`` also feeds the whole step's count."""
+    """Forward operations and bytes of a step's work, summed over steps:
+    the fused encoder's towers (``fwd_flops``, ``fwd_bytes``), a family's
+    named parts outside it (``parts[name] = (flops, bytes)``) and the
+    products outside both (``other_flops``)."""
 
     def __init__(self):
         self.fwd_flops = 0.0
         self.fwd_bytes = 0.0
         self.other_flops = 0.0   # products outside the towers (the scores)
+        self.parts: Dict[str, Tuple[float, float]] = {}
         self.steps = 0
         self.news = 0            # distinct news encoded, summed over steps
-        self.news_tokens = 0     # their real tokens (title, and abstract for NAML)
+        self.news_tokens = 0     # their real tokens, every view the family encodes
         self.history_clicks = 0  # real history entries through the user tower
 
     def per_step(self) -> Dict[str, float]:
@@ -71,6 +105,10 @@ class Work:
         self.fwd_flops += tower_flops(lengths, D, H, Q)
         self.fwd_bytes += tower_bytes(lengths, D, Q, calls)
 
+    def add_part(self, name: str, flops: float, nbytes: float) -> None:
+        f, b = self.parts.get(name, (0.0, 0.0))
+        self.parts[name] = (f + float(flops), b + float(nbytes))
+
     @property
     def bwd_flops(self) -> float:
         return 2 * self.fwd_flops
@@ -82,7 +120,7 @@ class Work:
     @property
     def step_flops(self) -> float:
         """Forward and backward of the whole model."""
-        return 3 * (self.fwd_flops + self.other_flops)
+        return 3 * (self.fwd_flops + self.other_flops + sum(f for f, _ in self.parts.values()))
 
 
 def roofline_s(flops: float, nbytes: float) -> float:
@@ -91,27 +129,27 @@ def roofline_s(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
-def step_work(work: Work, model: Dict, feats: Dict[str, np.ndarray],
-              slices: Iterable[tuple], family: str) -> None:
+def family_work(fam):
+    """The family module's ``work``; a module without one stops the run."""
+    count = getattr(fam, "work", None)
+    if not callable(count):
+        raise TypeError(f"{fam.__name__} has no work(work, model, lens, news, browsed, cand): "
+                        "a family module counts its own work (h100bench/counting.py)")
+    return count
+
+
+def step_work(work: Work, model: Dict, lens: Dict[str, np.ndarray],
+              slices: Iterable[tuple], fam) -> None:
     """Adds one training step to ``work``: for each slice ``(browsed,
-    candidates)`` that one device encodes, its distinct news at their real
-    lengths through the news tower(s), the user tower over each impression's
-    real history, and the scores. ``feats`` holds ``title_len`` (and, for
-    NAML, ``abst_len``) by news id."""
-    D, H, Q = model["word_embed_size"], model["num_attention_heads"], model["query_vector_dim"]
+    candidates)`` that one device encodes, its distinct news and real
+    history clicks, and what family module ``fam`` counts for it. ``lens``
+    holds each feature's real token count by news id (``title_len``, and
+    ``abst_len`` where the corpus has abstracts)."""
+    count = family_work(fam)
     for browsed, cand in slices:
-        ids = np.unique(np.concatenate([browsed.ravel(), cand.ravel()]))
-        ids = ids[ids != 0]
-        work.news += len(ids)
-        work.add_tower(feats["title_len"][ids], D, H, Q)
-        work.news_tokens += int(feats["title_len"][ids].sum())
-        if family == "naml":
-            work.add_tower(feats["abst_len"][ids], D, H, Q)
-            work.news_tokens += int(feats["abst_len"][ids].sum())
-            UD, UQ = 2 * D + 2 * model["cate_embed_size"], model["query_vector_dim_large"]
-        else:
-            UD, UQ = D, Q
-        work.add_tower((browsed != 0).sum(1), UD, model["user_heads_num"], UQ)
+        news = np.unique(np.concatenate([browsed.ravel(), cand.ravel()]))
+        news = news[news != 0]
+        work.news += len(news)
         work.history_clicks += int((browsed != 0).sum())
-        work.other_flops += 2.0 * cand.size * UD
+        count(work, model, lens, news, browsed, cand)
     work.steps += 1

@@ -84,7 +84,8 @@ class Inputs:
     def __init__(self, cell: core.Cell, seed: int, ranks: int = 1):
         self.cell, self.seed, self.ranks = cell, seed, ranks
         cfgj = cell.config
-        self.family = cfgj["family"]
+        self.fam = reference.family(cfgj["family"])
+        counting.family_work(self.fam)   # a family that cannot count its work stops here
         self.model = cfgj["port"]["model"]
         self.corpus = T.make_corpus(cfgj, seed)
         self.log = T.make_click_log(cfgj, cell.traffic, self.corpus, seed)
@@ -110,12 +111,11 @@ class RankRun:
         self.inputs = Inputs(cell, seed, ranks)
         self.cell, self.seed, self.rank, self.ranks = cell, seed, rank, ranks
         cfgj = cell.config
-        self.fam = reference.family(cfgj["family"])
         self.cfg = port.config(cfgj, seed)
         self.ds = port.dataset(cfgj, self.inputs.corpus, self.inputs.log)
         self.trainer = Trainer(self.cfg, self.ds, device=device)
         self.device = self.trainer.device
-        self.W0 = weights.make(self.fam.leaves(self.inputs.model, cfgj["corpus"]), seed,
+        self.W0 = weights.make(self.inputs.fam.leaves(self.inputs.model, cfgj["corpus"]), seed,
                                self.device)
         self.state = self.trainer.init_state(params=self.W0)
         self.batches = device_prefetch(_feed(self.trainer, self.ds, self.cfg,
@@ -229,7 +229,7 @@ def work_of(inp: Inputs, first: int, steps: int, rank_slice: int | None) -> coun
         if rank_slice is not None:
             per = len(b) // inp.ranks
             b, c = b[rank_slice * per:(rank_slice + 1) * per], c[rank_slice * per:(rank_slice + 1) * per]
-        counting.step_work(w, inp.model, lens, [(b, c)], inp.family)
+        counting.step_work(w, inp.model, lens, [(b, c)], inp.fam)
     return w
 
 

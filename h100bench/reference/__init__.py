@@ -5,8 +5,28 @@ takes nothing the program made. From the benchmark's own inputs (the corpus,
 the click log, the requests and the seeded weights) it works out again what
 the program derives: the batch layout of each step, the dropout masks, the
 news and user vectors, the scores, the loss, the gradients and Adam's
-update. ``family(name)`` loads the towers of one model family from
-``reference/<name>.py``.
+update.
+
+A model family is one module, ``reference/<family>.py``, found by the
+configuration's ``family`` (:func:`family`); a new family is a new file. It
+gives:
+
+* ``FEATS``: the news features its news tower reads (``title``,
+  ``abst``, ``categ``, ``subcateg``);
+* ``leaves(model, corpus)``: ``(name, shape, law)`` of every weight, in
+  the program's state-dict names (``weights.make`` draws them);
+* ``encode(p, W, model, feats, seeds=None, rate=0.0)``: ``[M, ...]`` news
+  features to ``[M, D]`` vectors at precision ``p``. In training ``seeds``
+  is the step's seed stream (``common.step_seeds``): a call takes one seed
+  for each dropout draw the program's call makes, in the program's order
+  (one for NRMS and NAML); serving passes none and draws no dropout;
+* ``user(p, W, model, vecs, mask, for_top_k=False)``: ``[B, H, D]``
+  clicked-news vectors to ``[B, D]`` user vectors;
+* ``work(work, model, lens, news, browsed, cand)``: one slice's work for
+  ``counting.Work``. What runs inside the program's fused encoder (kernel
+  #1) is added as towers (``add_tower``), and only that is what the encoder
+  rooflines divide; the family's own work outside it as named parts
+  (``add_part``), the scores as ``other_flops`` (``counting.py``).
 """
 
 from __future__ import annotations

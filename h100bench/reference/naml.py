@@ -8,10 +8,12 @@ for corpus retrieval); the score a dot product."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from h100bench import counting
 from h100bench.reference import common as C
 from h100bench.reference.nrms import tower_leaves
 
@@ -40,10 +42,12 @@ def _view(p, W, model, ids):
 
 
 def encode(p: C.Precision, W: Dict[str, torch.Tensor], model: Dict,
-           feats: Dict[str, torch.Tensor], seed: Optional[int] = None,
+           feats: Dict[str, torch.Tensor], seeds: Optional[Iterator[int]] = None,
            rate: float = 0.0) -> torch.Tensor:
     """``{title [M, Lt], abst [M, La], categ [M], subcateg [M]}`` -> ``[M,
-    800]``; with ``seed``, the vector's dropout drawn where it lies."""
+    800]``; with ``seeds``, the step's seed stream, the vector's dropout
+    drawn where it lies from the one seed the call draws."""
+    seed = next(seeds) if seeds is not None else None
     vec = torch.cat([_view(p, W, model, feats["title"]), _view(p, W, model, feats["abst"]),
                      C.lookup(W["category_embedding.embedding"], feats["categ"]),
                      C.lookup(W["subcategory_embedding.embedding"], feats["subcateg"])], dim=-1)
@@ -57,3 +61,19 @@ def user(p: C.Precision, W: Dict[str, torch.Tensor], model: Dict,
     if not for_top_k:
         vecs = C.layer_norm(vecs, W["norm.scale"], W["norm.bias"])
     return C.tower(p, W, "user_encoder.tower.", vecs, mask, model["user_heads_num"])
+
+
+def work(work: counting.Work, model: Dict, lens: Dict[str, np.ndarray], news: np.ndarray,
+         browsed: np.ndarray, cand: np.ndarray) -> None:
+    """One slice's work (``counting.py``): the shared text tower over the
+    title and the abstract of each distinct news at their real lengths, the
+    800-wide user tower (query ``query_vector_dim_large``) over each
+    impression's real history, all in the fused encoder; the scores."""
+    D, H, Q = model["word_embed_size"], model["num_attention_heads"], model["query_vector_dim"]
+    for view in ("title_len", "abst_len"):
+        work.add_tower(lens[view][news], D, H, Q)
+        work.news_tokens += int(lens[view][news].sum())
+    N = news_dim(model)
+    work.add_tower((browsed != 0).sum(1), N, model["user_heads_num"],
+                   model["query_vector_dim_large"])
+    work.other_flops += counting.dense_flops(cand.size, N, 1)

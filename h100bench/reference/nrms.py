@@ -5,10 +5,12 @@ additive pooling; the user tower the same over the clicked news' vectors
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
+from h100bench import counting
 from h100bench.reference import common as C
 
 FEATS = ("title",)
@@ -37,13 +39,15 @@ def tower_leaves(prefix: str, D: int, Q: int):
 
 
 def encode(p: C.Precision, W: Dict[str, torch.Tensor], model: Dict,
-           feats: Dict[str, torch.Tensor], seed: Optional[int] = None,
+           feats: Dict[str, torch.Tensor], seeds: Optional[Iterator[int]] = None,
            rate: float = 0.0) -> torch.Tensor:
-    """``{title: [M, L]}`` -> ``[M, D]``; with ``seed``, the encoder's
-    hashed dropout of this call at ``rate``."""
+    """``{title: [M, L]}`` -> ``[M, D]``; with ``seeds``, the step's seed
+    stream, the encoder's hashed dropout of this call at ``rate``, from the
+    one seed the call draws (whatever the rate)."""
     ids = feats["title"]
     M, L = ids.shape
     D = model["word_embed_size"]
+    seed = next(seeds) if seeds is not None else None
     x = C.lookup(W["news_encoder.word_embedding.embedding"], ids)
     keep = (C.hash_keep_scale(seed, M, L, D, rate, ids.device)
             if seed is not None and rate > 0 else None)
@@ -55,3 +59,15 @@ def user(p: C.Precision, W: Dict[str, torch.Tensor], model: Dict,
          vecs: torch.Tensor, mask: torch.Tensor, for_top_k: bool = False) -> torch.Tensor:
     """``[B, H, D]`` clicked-news vectors and their mask -> ``[B, D]``."""
     return C.tower(p, W, "user_encoder.tower.", vecs, mask, model["user_heads_num"])
+
+
+def work(work: counting.Work, model: Dict, lens: Dict[str, np.ndarray], news: np.ndarray,
+         browsed: np.ndarray, cand: np.ndarray) -> None:
+    """One slice's work (``counting.py``): the title tower over its distinct
+    ``news`` at their real lengths and the user tower over each impression's
+    real history, both in the fused encoder; the scores."""
+    D, H, Q = model["word_embed_size"], model["num_attention_heads"], model["query_vector_dim"]
+    work.add_tower(lens["title_len"][news], D, H, Q)
+    work.news_tokens += int(lens["title_len"][news].sum())
+    work.add_tower((browsed != 0).sum(1), D, model["user_heads_num"], Q)
+    work.other_flops += counting.dense_flops(cand.size, D, 1)

@@ -15,8 +15,9 @@ from h100bench.reference import layout as LY
 
 
 def _slice_scores(fam, p, W, model, feats, lay: LY.Layout, seeds, rate, device):
-    """One rank's slice: every call of its layout encoded with its own
-    dropout seed, the slots gathered, the user tower, the scores."""
+    """One rank's slice: every call of its layout encoded, each drawing its
+    dropout seeds from the step's stream ``seeds`` in the program's order,
+    the slots gathered, the user tower, the scores."""
     outs = []
     for call in lay.calls:
         ids = torch.as_tensor(call.ids, device=device)
@@ -26,7 +27,7 @@ def _slice_scores(fam, p, W, model, feats, lay: LY.Layout, seeds, rate, device):
             if call.trunc and rows.ndim == 2 and k == "title":
                 rows = rows[:, :call.trunc]
             f[k] = rows
-        outs.append(fam.encode(p, W, model, f, next(seeds), rate))
+        outs.append(fam.encode(p, W, model, f, seeds, rate))
     vecs = torch.cat(outs)
     b_pos = torch.as_tensor(lay.browsed_pos, device=device)
     c_pos = torch.as_tensor(lay.cand_pos, device=device)
