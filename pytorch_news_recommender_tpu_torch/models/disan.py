@@ -17,7 +17,10 @@ jnp there.
   ``fc2(drop(elu(fc1(drop(u)))))`` (masked), pooling ``u``.
 * :class:`DiSANEncoder`: ``fw`` and ``bw`` concatenated, then Source2Token
   -> ``[..., 2·d_h]`` news vectors (float32), ``d_h = disan_hidden or
-  word_embed_size``.
+  word_embed_size``. Its spans (``utils/tracing.py``, on only while a
+  profiler records): ``newsrec.disan.encoder`` around the tower's forward,
+  holding ``newsrec.disan.fw``, ``.bw`` and ``.source2token``, and
+  ``newsrec.disan.encoder.backward`` around its backward.
 * :class:`DiSANRec`: that news tower, the fused encoder user tower at
   ``2·d_h`` (600 at the default widths: 10 heads of 60, query dim 200),
   dot-product scoring.
@@ -42,6 +45,7 @@ from pytorch_news_recommender_tpu_torch.models.layers import (
     Dense, UserEncoder, WordEmbedding, _draw, dropout,
 )
 from pytorch_news_recommender_tpu_torch.ops.attention import NEG_INF, dot_product_scores
+from pytorch_news_recommender_tpu_torch.utils import tracing
 
 C_SCALE = 5.0   # DiSA's non-trainable logit scale
 
@@ -134,9 +138,16 @@ class DiSANEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, rep_mask: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        u = torch.cat([self.fw(x, rep_mask, deterministic, generator),
-                       self.bw(x, rep_mask, deterministic, generator)], dim=-1)
-        return self.source2token(u, rep_mask, deterministic, generator)
+        with tracing.span("newsrec.disan.encoder"):
+            x, leave = tracing.backward_span("newsrec.disan.encoder.backward", x, self.fw.b1)
+            with tracing.span("newsrec.disan.fw"):
+                f = self.fw(x, rep_mask, deterministic, generator)
+            with tracing.span("newsrec.disan.bw"):
+                b = self.bw(x, rep_mask, deterministic, generator)
+            with tracing.span("newsrec.disan.source2token"):
+                out = self.source2token(torch.cat([f, b], dim=-1), rep_mask, deterministic,
+                                        generator)
+            return leave(out)
 
 
 class DiSANRec(RecModel):
