@@ -31,7 +31,13 @@
    backward call over the long block's R=81,920 token rows (dWqkv with bf16
    and f32 ``a``, dWo, daw with the bias fused, daq without) and over NAML's
    user tower's R=25,600 (K=800), against the plain version and
-   ``torch.mm``.
+   ``torch.mm``. Then DiSA's pair kernels (``ops/disa.py``) at the
+   ``disan-train-b512`` cell's two length blocks (M=6,144 at L=12, M=4,096
+   at L=20, d=300, real lengths from N(11.5, 4)), both directions, float32
+   and bfloat16: forward and backward against the plain chain, two launches
+   equal bit for bit, and in bfloat16 each kernel's time beside its bound
+   (the FP32 units', the SFUs' and the bytes' floors at real lengths) and
+   beside the plain chain's.
 6. Trains NRMS at the JAX package's default configuration (batch 512, bf16
    activations, f32 parameters, dropout 0.2, dedup and a length split at 12
    words) on a synthetic corpus with MIND's mean title length: one step
@@ -70,8 +76,10 @@
    ``eval`` / ``serve --model naml`` at the small synthetic size.
 13-15. The same for ``nrms_bert`` (768-wide BERT vectors in a trainable
    table, the user tower at D=512 with 4 heads of 128), ``disan`` (the
-   DiSAN news tower in plain PyTorch, the user tower at D=600 with 10 heads
-   of 60; its peak device memory printed) and ``lstur`` (a CNN news tower
+   DiSAN news tower, DiSA's pair chain through its kernels: one forward
+   launch a direction per encode call and one backward launch a direction
+   per training encode; the user tower at D=600 with 10 heads of 60; its
+   peak device memory printed) and ``lstur`` (a CNN news tower
    and a masked GRU over the history with a long-term embedding of 50,000
    users; no encoder kernel, its launch counts 0), on that corpus with
    BERT vectors and users: ``score_many`` with distinct user ids, ``top_k``
@@ -204,6 +212,16 @@ BWD_SHAPES = ([(M, L, WIDTH, (0.0, 0.2)) for M, L in TRAIN_SHAPES]
 FWD_LAUNCHES, FWD_KERNELS = 1, 3
 # backward kernel vs plain version, max|a - b| / max|b| per output
 BWD_TOLS = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+# phase 5's DiSA pair kernels: the disan-train-b512 cell's two length blocks
+# at d = 300, held to the plain chain at tests/test_torch_disa_pairs.py's
+# tolerances (max|a - b| / max|b|, real rows of res)
+DISA_SHAPES, DISA_D = [(6144, 12), (4096, 20)], 300
+DISA_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# work per pair value (PERF.md section 3): FP32 operations forward and
+# backward, and the two transcendentals (tanh, exp) each makes; one H100's
+# FP32 lanes and SFUs (128 and 16 an SM, 132 SMs, 1.98 GHz)
+DISA_OPS, DISA_TRANSCENDENTALS = (10, 20), 2
+FP32_OPS_PER_S, SFU_OPS_PER_S = 128 * 132 * 1.98e9, 16 * 132 * 1.98e9
 TRAIN_STEPS = 40
 # phases 9-11: the families trained beside NRMS, and the steps of each
 FAMILIES = ("nrms_entity", "tanr", "hierec")
@@ -623,19 +641,130 @@ def check_backward(FE):
     return errs, times
 
 
+def disa_inputs(seed, M, L, dtype):
+    """DiSA's pair-chain operands at ``[M, L, DISA_D]`` (``dep + head``
+    spread so the tanh bends, ``rep`` an elu of a normal, ``b1`` small), real
+    lengths from N(11.5, 4) cut to [0, L] (item 0 all pad, item 1 one token),
+    and a cotangent that is 0 on pad rows, as DiSA's output mask gives it ->
+    ((dep, head, rep, mask, b1), g, lengths)."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.rint(rng.normal(11.5, 4.0, size=M)), 0, L).astype(np.int64)
+    lens[:2] = 0, 1
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.float32)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)  # noqa: E731
+    dep, head = (t(rng.normal(size=(M, L, DISA_D)) * 2.0).to(dtype) for _ in range(2))
+    rep = torch.nn.functional.elu(t(rng.normal(size=(M, L, DISA_D)))).to(dtype)
+    b1 = t(rng.normal(size=DISA_D) * 0.3)
+    g = (t(rng.normal(size=(M, L, DISA_D))) * t(mask)[..., None]).to(dtype)
+    return (dep, head, rep, t(mask), b1), g, lens
+
+
+def disa_bound(lens, L, backward, itemsize=2):
+    """(ms, by, {floor: ms}): the least time for one direction's pair chain
+    at these real lengths, the largest of its floors: the pair values' FP32
+    operations over the FP32 lanes, their two transcendentals over the SFUs
+    (PERF.md section 3), and the bytes the kernels move: the real rows of
+    dep, head, rep (backward: and g) read, the mask read, and every row of
+    res (backward: of the three gradients) written; the backward also writes
+    ``db1``'s float32 partials, one row an item, which their sum reads."""
+    values = float(np.sum(lens * (lens - 1) // 2)) * DISA_D
+    real_rows, rows = float(np.sum(lens)) * DISA_D, len(lens) * L * DISA_D
+    nbytes = ((4 * real_rows + 3 * rows) * itemsize + 2 * len(lens) * DISA_D * 4
+              if backward else (3 * real_rows + rows) * itemsize) + len(lens) * L * 4
+    floors = {"fp32": DISA_OPS[backward] * values / FP32_OPS_PER_S * 1e3,
+              "sfu": DISA_TRANSCENDENTALS * values / SFU_OPS_PER_S * 1e3,
+              "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(floors, key=floors.get)
+    return floors[by], by, floors
+
+
+def check_disa(DP, tag):
+    """Phase 5, DiSA's pair kernels at DISA_SHAPES, both directions, float32
+    and bfloat16: the forward on real rows and the four gradients (through
+    ``disa_pairs_bwd``) against the plain chain and autograd through it (its
+    pad query rows masked, the kernel's function), pad rows 0, two launches
+    of each equal bit for bit, one wrapper launch a call; in bfloat16 the
+    kernels' times beside their bounds and the plain chain's times (forward,
+    and forward with autograd's backward). Returns (errs, times)."""
+    from pytorch_news_recommender_tpu_torch.models.disan import disa_pairs_reference
+    errs, times = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, L in DISA_SHAPES:
+            for direction in ("fw", "bw"):
+                args, g, lens = disa_inputs(M + L, M, L, dtype)
+                mask = args[3]
+                before = (DP.disa_pairs.launches, DP.disa_pairs_bwd.launches)
+                with torch.no_grad():
+                    fwd = lambda: DP.disa_pairs(*args, direction)  # noqa: E731
+                    got = fwd()
+                    torch.cuda.synchronize()
+                    expect = disa_pairs_reference(*args, direction)
+                    again = fwd()
+                real = mask > 0
+                fwd_err = rel_err(got[real], expect[real])
+                assert fwd_err < DISA_TOLS[dtype], (str(dtype), M, L, direction, fwd_err)
+                assert torch.all(got[~real] == 0), "a pad query row must give 0"
+                assert torch.equal(got, again), ("disa_pairs is not deterministic", M, L)
+                del expect, again
+                bwd = lambda: DP.disa_pairs_bwd(g, *args, direction)  # noqa: E731
+                grads = bwd()
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(grads, bwd())), \
+                    ("disa_pairs_bwd is not deterministic", M, L, direction)
+                assert (DP.disa_pairs.launches - before[0],
+                        DP.disa_pairs_bwd.launches - before[1]) == (2, 2)
+                leaves = [a.clone().requires_grad_() for a in (*args[:3], args[4])]
+
+                def plain_step():
+                    res = disa_pairs_reference(*leaves[:3], mask, leaves[3], direction)
+                    return torch.autograd.grad(
+                        ((res * mask[..., None].to(dtype)).float() * g.float()).sum(), leaves)
+                each = {name: rel_err(a, b) for name, a, b in zip(
+                    ("ddep", "dhead", "drep", "db1"), grads, plain_step())}
+                assert max(each.values()) < DISA_TOLS[dtype], (str(dtype), M, L, direction, each)
+                errs[(str(dtype), M, L, direction)] = {"res": fwd_err, **each}
+                print(f"disa_pairs vs plain {str(dtype):15s} {direction} M={M} L={L} "
+                      f"d={DISA_D}: res max rel err {fwd_err:.3g}, gradients "
+                      + ", ".join(f"{k} {v:.3g}" for k, v in each.items())
+                      + f" (tol {DISA_TOLS[dtype]}); two launches of each equal bit for bit",
+                      flush=True)
+                if dtype != torch.bfloat16:
+                    continue
+                with torch.no_grad():
+                    k_fwd = cuda_ms(fwd, 20)
+                    p_fwd = cuda_ms(lambda: disa_pairs_reference(*args, direction), 3)
+                times[(M, L, direction)] = {
+                    "ms": k_fwd, "bwd_ms": cuda_ms(bwd, 20), "plain_ms": p_fwd,
+                    "plain_train_ms": cuda_ms(plain_step, 3),
+                    "bound": disa_bound(lens, L, False), "bwd_bound": disa_bound(lens, L, True),
+                    "real_tokens": int(lens.sum())}
+                r = times[(M, L, direction)]
+                print(f"{tag} disa_pairs bf16 {direction} M={M} L={L} d={DISA_D} "
+                      f"({r['real_tokens']} real tokens): forward {r['ms']:.4f} ms, bound "
+                      f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in r["bound"][2].items())
+                      + f"), plain chain {r['plain_ms']:.4f} ms; backward {r['bwd_ms']:.4f} ms, "
+                      f"bound {r['bwd_bound'][0]:.4f} ms ({r['bwd_bound'][1]}; "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in r["bwd_bound"][2].items())
+                      + f"); plain chain forward + autograd backward {r['plain_train_ms']:.4f} "
+                      f"ms", flush=True)
+    return errs, times
+
+
 @contextlib.contextmanager
 def plain_kernels(FE, SS):
-    """The towers and the inverse gathers' backward through the plain
-    versions on the card (autograd differentiates the towers), for the
-    comparison steps of phases 6 and 7 only."""
-    from pytorch_news_recommender_tpu_torch.models import layers
-    kernels = layers.fused_news_encoder, SS.scatter_add_rows
+    """The towers (DiSA's pair chain too) and the inverse gathers' backward
+    through the plain versions on the card (autograd differentiates the
+    towers), for the comparison steps and the plain recommenders only."""
+    from pytorch_news_recommender_tpu_torch.models import disan, layers
+    kernels = layers.fused_news_encoder, SS.scatter_add_rows, disan.disa_pairs
     layers.fused_news_encoder = FE.fused_news_encoder_reference
     SS.scatter_add_rows = SS.scatter_add_rows_reference
+    disan.disa_pairs = disan.disa_pairs_reference
     try:
         yield
     finally:
-        layers.fused_news_encoder, SS.scatter_add_rows = kernels
+        layers.fused_news_encoder, SS.scatter_add_rows, disan.disa_pairs = kernels
 
 
 def loss_and_grads(trainer, state, batch, seed):
@@ -680,8 +809,11 @@ def training_data(steps=TRAIN_STEPS):
 def no_plain(FE, SS):
     """The plain versions of the kernels raise while the main path runs: on
     the card no wrapper may fall back to them."""
+    from pytorch_news_recommender_tpu_torch.models import disan
+    from pytorch_news_recommender_tpu_torch.ops import disa as DP
     names = {FE: ("fused_news_encoder_reference", "fused_news_encoder_bwd_reference",
-                  "weight_grad_reference"), SS: ("scatter_add_rows_reference",)}
+                  "weight_grad_reference"), SS: ("scatter_add_rows_reference",),
+             DP: ("disa_pairs_bwd_reference",), disan: ("disa_pairs_reference",)}
     saved = {(m, n): getattr(m, n) for m, ns in names.items() for n in ns}
 
     def refuse(name):
@@ -695,6 +827,33 @@ def no_plain(FE, SS):
     finally:
         for (m, n), fn in saved.items():
             setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def disan_encodes():
+    """Counts the DiSAN news tower's calls while open, by whether autograd
+    records (``"train"``) or not (``"eval"``): DiSA's pair kernels launch a
+    forward a direction per call and a backward a direction per training
+    call."""
+    from pytorch_news_recommender_tpu_torch.models.disan import DiSANEncoder
+    calls = collections.Counter()
+    inner = DiSANEncoder.forward
+
+    def forward(self, *args, **kwargs):
+        calls["train" if torch.is_grad_enabled() else "eval"] += 1
+        return inner(self, *args, **kwargs)
+    DiSANEncoder.forward = forward
+    try:
+        yield calls
+    finally:
+        DiSANEncoder.forward = inner
+
+
+def check_disa_launches(DP, encodes, launches, where):
+    """One forward launch a direction per encode call, one backward launch a
+    direction per training encode (0 for a family without DiSAN)."""
+    expect = (2 * (encodes["train"] + encodes["eval"]), 2 * encodes["train"])
+    assert (launches["disa"], launches["disa_bwd"]) == expect, (where, launches, encodes)
 
 
 def uses_encoder_kernels(model) -> bool:
@@ -718,6 +877,7 @@ def train_run(FE, SS, cfg, ds, phase):
         DEFAULT_UNIQUE_BUCKETS, train_batches,
     )
     from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
+    from pytorch_news_recommender_tpu_torch.ops import disa as DP
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer
 
     bs = cfg.train.batch_size
@@ -764,7 +924,8 @@ def train_run(FE, SS, cfg, ds, phase):
 
     # the main path: run_step over prefetched batches, then evaluate
     counted = {"fwd": FE.fused_news_encoder, "bwd": FE.fused_news_encoder_bwd,
-               "wgrad": FE.weight_grad, "scatter": SS.scatter_add_rows}
+               "wgrad": FE.weight_grad, "scatter": SS.scatter_add_rows,
+               "disa": DP.disa_pairs, "disa_bwd": DP.disa_pairs_bwd}
     for fn in counted.values():
         fn.launches = 0
     for fn in (FE.fused_news_encoder, FE.fused_news_encoder_bwd):
@@ -772,7 +933,7 @@ def train_run(FE, SS, cfg, ds, phase):
     losses, step_ms, widths = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with no_plain(FE, SS):
+    with no_plain(FE, SS), disan_encodes() as encodes:
         for batch in device_prefetch(itertools.chain([first], host), DEVICE):
             t0 = time.perf_counter()
             state, m = trainer.run_step(state, batch)
@@ -784,6 +945,7 @@ def train_run(FE, SS, cfg, ds, phase):
                            if "gnn_frontier_ids" in batch else 0))
         steps = len(ds.train) // bs
         step_launches = {k: fn.launches for k, fn in counted.items()}
+        check_disa_launches(DP, encodes, step_launches, f"{name}'s training steps")
         steps_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         assert len(losses) == steps and np.all(np.isfinite(losses)), losses
         q = max(1, steps // 4)
@@ -793,6 +955,7 @@ def train_run(FE, SS, cfg, ds, phase):
         metrics = trainer.evaluate(state)
         eval_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
+    check_disa_launches(DP, encodes, launches, f"{name}'s training and evaluation")
     # of #1's and #2's launches, those whose weight products ran on wgmma
     wgmma = {k: f"{counted[k].wgmma_launches}/{launches[k]}" for k in ("fwd", "bwd")}
     if uses_encoder_kernels(state.model):
@@ -937,6 +1100,7 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
     (``family_cli_run``); both off the counted paths. Returns the launch
     counts of both paths."""
     from pytorch_news_recommender_tpu_torch.config import FAMILY_TRAIN_DEFAULTS
+    from pytorch_news_recommender_tpu_torch.ops import disa as DP
     from pytorch_news_recommender_tpu_torch.serve import Recommender
 
     fcfg = dataclasses.replace(
@@ -986,8 +1150,8 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
     batch = [(h, rng.integers(1, N_NEWS, size=300).tolist(), int(u))
              for (h, _), u in zip(make_requests(rng, Recommender.BATCH_PAD, N_NEWS + 1), users)]
     hist = batch[0][0]
-    FE.fused_news_encoder.launches = 0
-    with no_plain(FE, SS):
+    FE.fused_news_encoder.launches = DP.disa_pairs.launches = DP.disa_pairs_bwd.launches = 0
+    with no_plain(FE, SS), disan_encodes() as encodes:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rec = Recommender(fcfg, ds, params, device=DEVICE)
@@ -1026,6 +1190,9 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
                 assert "external vector" in str(e), e
     serve_launches = FE.fused_news_encoder.launches
     assert (serve_launches > 0) == kernels, (name, serve_launches)
+    disa_serve = DP.disa_pairs.launches
+    check_disa_launches(DP, encodes, {"disa": disa_serve, "disa_bwd": DP.disa_pairs_bwd.launches},
+                        f"{name}'s serving")
     with plain_kernels(FE, SS):
         plain_rec = Recommender(fcfg, ds, params, device=DEVICE)
         plain = plain_rec.score_many(batch)
@@ -1072,7 +1239,8 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
     del rec
     print(f"[phase {phase}] {name} served at the trained weights: score_many vs the plain "
           f"towers max err {err:.3g} of scale, {top_note} (tol "
-          f"{SCORE_TOL['native']}){fresh_note}; fused_encoder_fwd launches {serve_launches}",
+          f"{SCORE_TOL['native']}){fresh_note}; fused_encoder_fwd launches {serve_launches}, "
+          f"disa_pairs launches {disa_serve} ({encodes['eval']} DiSAN encode calls)",
           flush=True)
     print(train_line, flush=True)
     top_p = f"top_k (k=10) p50 {top_k[0]:.2f} ms, p99 {top_k[1]:.2f} ms" if ranks else \
@@ -1081,8 +1249,8 @@ def family_run(FE, SS, cfg, ds, name, phase, tag, workflow=False, cli=False,
           f"{encode_ms:.1f} ms for {ds.news.n_news} news; score_many (32 x 300) p50 "
           f"{score_many[0]:.2f} ms, p99 {score_many[1]:.2f} ms; {top_p}", flush=True)
     print(f"[phase {phase}] {name} launches per training step: {per_step}", flush=True)
-    return {"train": run["launches"], "serve": serve_launches, "per_step": per_step,
-            "peak_gib": peak_gib}
+    return {"train": run["launches"], "serve": serve_launches, "disa_serve": disa_serve,
+            "per_step": per_step, "peak_gib": peak_gib}
 
 
 def scatter_bound(S, U, itemsize):
@@ -2367,6 +2535,7 @@ def main() -> int:
     from pytorch_news_recommender_tpu_torch.config import Config, DataConfig
     from pytorch_news_recommender_tpu_torch.data import synthetic
     from pytorch_news_recommender_tpu_torch.models import build_model
+    from pytorch_news_recommender_tpu_torch.ops import disa as DP
     from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
     from pytorch_news_recommender_tpu_torch.ops import segment_scatter as SS
 
@@ -2459,8 +2628,9 @@ def main() -> int:
               f"{bound(M, L, 2, width)[0]:.4f} ms", flush=True)
     del rec
 
-    # 5. backward and weight-gradient kernels vs plain
+    # 5. backward and weight-gradient kernels vs plain; DiSA's pair kernels
     bwd_errs, bwd_times = check_backward(FE)
+    disa_errs, disa_times = check_disa(DP, tag)
 
     # 6. training at full width
     cfg, ds = training_data()
@@ -2618,6 +2788,24 @@ def main() -> int:
                          "plain_max_rel_err_f64": bwd_errs[key + "_plain_f64"]}
     src = "pytorch_news_recommender_tpu_torch/ops/csrc/"
     tpu = "pytorch_news_recommender_tpu/ops/pallas/fused_encoder.py:"
+    disa_launches = {"disan_train": fam["disan"]["train"]["disa"],
+                     "disan_serve": fam["disan"]["disa_serve"]}
+    disa_bwd_launches = {"disan_train": fam["disan"]["train"]["disa_bwd"]}
+    disa_shape = (*DISA_SHAPES[1], "fw")
+
+    def disa_entry(name, key, bound_key, launches, outputs):
+        t = disa_times[disa_shape]
+        return {
+            "name": name, "route": "cuda", "source": src + "disa.cu", "replaces": None,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_rel_err": max(e[o] for e in disa_errs.values() for o in outputs),
+            "ms": t[key], "plain_ms": t["plain_ms" if key == "ms" else "plain_train_ms"],
+            "bound_ms": t[bound_key][0], "bound_by": t[bound_key][1], "library_ms": None,
+            "shape": {"M": disa_shape[0], "L": disa_shape[1], "d": DISA_D,
+                      "direction": "fw", "dtype": "bfloat16"},
+            "by_shape": {f"M={M},L={L},{dr}": {"ms": v[key], "bound_ms": v[bound_key][0],
+                                                "floors_ms": v[bound_key][2]}
+                         for (M, L, dr), v in disa_times.items()}}
     print(json.dumps({"kernels": [
         {"name": "fused_encoder_fwd", "route": "cuda", "source": src + "fused_encoder.cu",
          "replaces": tpu + "149",
@@ -2677,6 +2865,9 @@ def main() -> int:
                        "embedding_dense_backward_ms": sc["candidate_idx"]["edb_ms"],
                        "split_us": sc["candidate_idx"]["split"]}},
         ablation,
+        disa_entry("disa_pairs", "ms", "bound", disa_launches, ("res",)),
+        disa_entry("disa_pairs_bwd", "bwd_ms", "bwd_bound", disa_bwd_launches,
+                   ("ddep", "dhead", "drep", "db1")),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

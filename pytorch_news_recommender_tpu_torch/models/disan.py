@@ -1,15 +1,19 @@
 """DiSAN: a directional multi-dimensional self-attention news tower (port
-of the JAX package's ``models/disan.py``), in plain PyTorch, as it is plain
-jnp there.
+of the JAX package's ``models/disan.py``, plain jnp there): plain PyTorch
+around one hand-written pair of CUDA kernels, ``ops/disa.py``'s
+``disa_pairs``, which on the card runs DiSA's token-pair chain, forward and
+backward, without a pair tensor in device memory; on the CPU DiSA runs the
+plain chain, :func:`disa_pairs_reference`, which autograd differentiates.
 
 * :class:`DiSA`, one direction: ``rep = elu(fc(drop(x)))``; token-pair
   logits ``c·tanh((w1(rep') + w2(rep') + b1) / c)`` per hidden dimension
   with c = 5 (``rep'`` a second draw of ``drop(rep)``; the sum of the two
   products rounds in the compute dtype, then adds the float32 ``b1``, so the
   logits are float32, as in JAX); the strict upper (``fw``: j > i) or lower
-  (``bw``) pair mask intersected with the token mask; a ``-1e9`` fill, the
-  softmax over j, the product with the pair mask; ``res = Σ_j att·rep``
-  (att rounded to the compute dtype, float32 sums, rounded back); the
+  (``bw``) pair mask intersected with the token mask; the softmax over j
+  within it; ``res = Σ_j att·rep`` (att rounded to the compute dtype,
+  float32 sums, rounded back): that chain is ``disa_pairs`` (the kernels)
+  or :func:`disa_pairs_reference` (plain, on the CPU); then the
   fusion gate ``sigmoid(wf1(drop(rep)) + wf2(drop(res)) + bf)`` blending
   ``rep`` and ``res``, zero on pad tokens. Its output is float32 (the
   float32 gate promotes it).
@@ -26,9 +30,11 @@ jnp there.
   dot-product scoring.
 
 Every dropout is its own draw from the step's ``torch.Generator`` (another
-stream than the JAX package's), so parity runs with dropout off. The
-``[M, L, L, d_h]`` logits are the tower's cost: float32 tensors of L² d_h
-values per news and direction.
+stream than the JAX package's), so parity runs with dropout off. The pair
+values, L² d_h per news and direction, are the tower's elementwise work:
+the kernels keep them in registers and shared memory and recompute them in
+the backward, so the tower's device time is its ``Dense`` products and the
+kernels' arithmetic (PERF.md §5).
 """
 
 from __future__ import annotations
@@ -45,9 +51,29 @@ from pytorch_news_recommender_tpu_torch.models.layers import (
     Dense, UserEncoder, WordEmbedding, _draw, dropout,
 )
 from pytorch_news_recommender_tpu_torch.ops.attention import NEG_INF, dot_product_scores
+from pytorch_news_recommender_tpu_torch.ops.disa import C_SCALE, direction_mask, disa_pairs
 from pytorch_news_recommender_tpu_torch.utils import tracing
 
-C_SCALE = 5.0   # DiSA's non-trainable logit scale
+
+def disa_pairs_reference(dep, head, rep, rep_mask, b1, direction: str) -> torch.Tensor:
+    """DiSA's pair chain in plain PyTorch, the CPU's route and the kernels'
+    reference: ``dep``, ``head``, ``rep`` ``[..., L, d]`` in the compute
+    dtype, ``rep_mask [..., L]``, ``b1 [d]`` float32 -> ``res`` ``[..., L,
+    d]`` in the compute dtype. ``dep[j] + head[i]`` sums in the compute
+    dtype, then adds the float32 ``b1``; the logits ``c·tanh(s/c)`` are
+    float32; the softmax over j is float32 and per dimension, over the
+    strict upper (``fw``) or lower (``bw``) triangle met with the token
+    mask; ``att`` rounds to the compute dtype before the float32 sum over
+    j, which rounds back."""
+    cd = rep.dtype
+    L = rep.shape[-2]
+    # [B, i, j, d]: dep over j, head over i, summed in cd, then + f32 b1
+    pre = (dep[..., None, :, :] + head[..., :, None, :]).float() + b1.float()
+    logits = C_SCALE * torch.tanh(pre / C_SCALE)
+    pair = direction_mask(L, direction, rep.device) & (rep_mask[..., None, :] > 0)  # [B, i, j]
+    att = torch.softmax(torch.where(pair[..., None], logits, NEG_INF), dim=-2)
+    att = (att * pair[..., None]).to(cd)
+    return (att.float() * rep.float()[..., None, :, :]).sum(-2).to(cd)  # Σ_j
 
 
 class DiSA(nn.Module):
@@ -78,19 +104,10 @@ class DiSA(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cd = self.compute_dtype
         drop = lambda t: dropout(t, self.rate, deterministic, generator)  # noqa: E731
-        L = x.shape[-2]
         rep = F.elu(self.fc(drop(x)))
         rep_dp = drop(rep)
-        dep, head = self.w1(rep_dp), self.w2(rep_dp)
-        # [B, i, j, d]: dep over j, head over i, summed in cd, then + f32 b1
-        pre = (dep[..., None, :, :] + head[..., :, None, :]).float() + self.b1.float()
-        logits = C_SCALE * torch.tanh(pre / C_SCALE)
-        ar = torch.arange(L, device=x.device)
-        direct = ar[None, :] > ar[:, None] if self.direction == "fw" else ar[None, :] < ar[:, None]
-        pair = direct & (rep_mask[..., None, :] > 0)                        # [B, i, j]
-        att = torch.softmax(torch.where(pair[..., None], logits, NEG_INF), dim=-2)
-        att = (att * pair[..., None]).to(cd)
-        res = (att.float() * rep.float()[..., None, :, :]).sum(-2).to(cd)  # Σ_j
+        pairs = disa_pairs_reference if rep.device.type == "cpu" else disa_pairs
+        res = pairs(self.w1(rep_dp), self.w2(rep_dp), rep, rep_mask, self.b1, self.direction)
         gate = torch.sigmoid(self.wf1(drop(rep)) + self.wf2(drop(res)) + self.bf.float())
         out = gate * rep + (1 - gate) * res
         return out * rep_mask[..., None].to(cd)

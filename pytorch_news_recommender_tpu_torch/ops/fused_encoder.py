@@ -67,7 +67,8 @@ _CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 # every kernel of the port, built into one library: ninja compiles the
 # sources in parallel
 _CSRC = [_CSRC_DIR / "fused_encoder.cu", _CSRC_DIR / "fused_encoder_bwd.cu",
-         _CSRC_DIR / "segment_scatter.cu", _CSRC_DIR / "ablate_encoder.cu"]
+         _CSRC_DIR / "segment_scatter.cu", _CSRC_DIR / "ablate_encoder.cu",
+         _CSRC_DIR / "disa.cu"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # Hopper's shared-memory limit for one block (bytes)
 MAX_SMEM = 232_448
@@ -247,8 +248,8 @@ def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """Builds (once per checkout and source version) and loads the kernels
-    of the port, ``ops/segment_scatter.py``'s and ``ops/ablate_encoder.py``'s
-    included."""
+    of the port, ``ops/segment_scatter.py``'s, ``ops/ablate_encoder.py``'s
+    and ``ops/disa.py``'s included."""
     from torch.utils.cpp_extension import load
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -303,6 +304,11 @@ def _lib() -> ctypes.CDLL:
     lib.newsrec_ablate_encoder.restype = i
     lib.newsrec_ablate_encoder_smem_bytes.argtypes = [i] * 6
     lib.newsrec_ablate_encoder_smem_bytes.restype = ctypes.c_long
+    lib.newsrec_disa_max_len.argtypes = []
+    lib.newsrec_disa_max_len.restype = i
+    lib.newsrec_disa_fwd.argtypes = [i, i] + [p] * 6 + [lg, i, i, p]
+    lib.newsrec_disa_bwd.argtypes = [i, i] + [p] * 10 + [lg, i, i, p]
+    lib.newsrec_disa_fwd.restype = lib.newsrec_disa_bwd.restype = i
     lib.newsrec_cuda_error_string.argtypes = [i]
     lib.newsrec_cuda_error_string.restype = ctypes.c_char_p
     return lib
