@@ -35,6 +35,7 @@ import torch
 import chip_smoke as CS
 from pytorch_news_recommender_tpu_torch.ops import ablate_encoder as AE
 from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
 D, H, Q, L = CS.D, AE.H, CS.Q, AE.L
 SHAPES = ((28_672, False), (4096, True))   # (M, real mask)
@@ -164,7 +165,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = CS.card()
     print(f"card: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    FE.build()
+    K.build()
     for M, real_mask in SHAPES:
         report(M, real_mask, table(M, real_mask), f"[{gpu}]")
     return 0

@@ -590,7 +590,7 @@ def check_backward(FE):
                         cuda_ms(lambda: FE.fused_news_encoder_bwd_reference(
                             g, x, mask, o1, *w, num_heads=h, dropout_rate=rate, seed=1234), 5),
                         # the per-item kernels alone, without the weight gradients
-                        cuda_ms(lambda: FE._bwd_per_item(g, x, mask, o1, w, h, rate, 1234), 5))
+                        cuda_ms(lambda: FE.bwd_per_item(g, x, mask, o1, w, h, rate, 1234), 5))
                     if (M, L, width) == (*TRAIN_SHAPES[1], WIDTH):
                         times["fwd_train"] = cuda_ms(lambda: FE.fused_news_encoder(
                             *args, num_heads=h, dropout_rate=rate, seed=1234, save_o1=True), 10)
@@ -1837,6 +1837,7 @@ def rank_worker(rank, port, work):
     from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
     from pytorch_news_recommender_tpu_torch.models import layers
     from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.ops import kernels as K
     from pytorch_news_recommender_tpu_torch.parallel import distributed
     from pytorch_news_recommender_tpu_torch.train.loop import Trainer, step_generator
 
@@ -1844,7 +1845,7 @@ def rank_worker(rank, port, work):
     assert distributed.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, ds = training_data(RANK_STEPS)
-    FE.build()
+    K.build()
     out = {"rank": rank}
     for rate in (0.0, RANK_DROPOUT):
         rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=rate))
@@ -2065,6 +2066,7 @@ def mesh_worker(rank, world, port, work):
     from pytorch_news_recommender_tpu_torch.data.prefetch import device_prefetch
     from pytorch_news_recommender_tpu_torch.models import layers
     from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.ops import kernels as K
     from pytorch_news_recommender_tpu_torch.ops import segment_scatter as SS
     from pytorch_news_recommender_tpu_torch.parallel import distributed
     from pytorch_news_recommender_tpu_torch.train.checkpoint import CheckpointManager
@@ -2074,7 +2076,7 @@ def mesh_worker(rank, world, port, work):
     assert distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, ds = training_data(MESH_STEPS[world])
-    FE.build()
+    K.build()
     out = {"rank": rank}
 
     def config(sched, rate, capacity=MESH_CAPACITY):
@@ -2434,11 +2436,11 @@ def nccl_run(tag):
     hang shows where it waits. Then ``cli serve --mesh`` in this process
     splits the corpus cache over every card."""
     from pytorch_news_recommender_tpu_torch import cli, native
-    from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
     cards = torch.cuda.device_count()
     assert cards >= 2, f"--nccl needs two or more cards, found {cards}"
-    FE.build()
+    K.build()
     assert native.available()
     root = pathlib.Path(__file__).resolve().parent
     env = {**os.environ, "NCCL_DEBUG": "INFO", "PYTHONPATH": os.pathsep.join(
@@ -2537,6 +2539,7 @@ def main() -> int:
     from pytorch_news_recommender_tpu_torch.models import build_model
     from pytorch_news_recommender_tpu_torch.ops import disa as DP
     from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+    from pytorch_news_recommender_tpu_torch.ops import kernels as K
     from pytorch_news_recommender_tpu_torch.ops import segment_scatter as SS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2554,26 +2557,26 @@ def main() -> int:
 
     # 1. setup
     t0 = time.perf_counter()
-    FE.build()
+    K.build()
     print(f"kernel build+load: {time.perf_counter() - t0:.1f} s", flush=True)
     # the variants the kernels take: today's layout at NRMS's widths, the
     # wide variants where it does not fit one block (the user towers of
     # NAML, nrms_bert and disan), and the library's shared-memory need there
-    lib = FE._lib()
+    lib = K.lib()
     variants = {}
     for dt in (torch.bfloat16, torch.float32):
         for L in (12, 20, 40, 50):
             assert FE.variant(dt, L, *WIDTH) == (), (dt, L)
-        code = FE._DTYPE_CODE[dt]
+        code = K.DTYPE_CODE[dt]
         for fam, width in WIDE_USERS.items():
             variants[(fam, str(dt))] = FE.variant(dt, 50, *width)
             need = [getattr(lib, f"newsrec_fused_encoder{sfx}_smem_bytes")(code, 50, *width)
                     for sfx in ("", "_bwd")]
-            assert max(need) <= FE.MAX_SMEM, (dt, width, need)
+            assert max(need) <= K.MAX_SMEM, (dt, width, need)
             print(f"variants {str(dt)}: none at D=300 (L=12, 20, 40, 50); at {fam}'s user "
                   f"tower (L=50, D={width[0]}, {width[1]} heads, Q={width[2]}) "
                   f"{variants[(fam, str(dt))]}, shared memory forward {need[0]} and "
-                  f"backward {need[1]} bytes of one block's {FE.MAX_SMEM}", flush=True)
+                  f"backward {need[1]} bytes of one block's {K.MAX_SMEM}", flush=True)
     for fam in WIDE_USERS:
         assert variants[(fam, "torch.bfloat16")] == ("fwd_tail", "pool_bwd"), variants
         assert variants[(fam, "torch.float32")] == (

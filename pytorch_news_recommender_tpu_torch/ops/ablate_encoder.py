@@ -6,8 +6,9 @@ Replaces the TPU kernel ``build`` of the JAX package's
 ``benchmarks/ablate_encoder.py`` (its six bodies ``k_passthrough``,
 ``k_qkv``, ``k_attn``, ``k_tail``, ``k_attn_slices``,
 ``k_attn_nosoftmax``). The Hopper kernels are ``csrc/ablate_encoder.cu``,
-built into the port's one library (``fused_encoder._lib``); its header says
-what each stage computes, what bounds it and how it is laid out.
+built into the port's one library (``ops/kernels.py``); its header says
+what each stage computes, what bounds it and how it is laid out. They read
+the weights in the forward's layout (``fused_encoder.weight_scratch``).
 
 * :func:`ablate_encoder` is the wrapper: a tensor on the CPU goes to the
   plain version, a CUDA tensor to the kernel, or the call raises.
@@ -24,23 +25,29 @@ harness's ``L`` = 20 tokens per item and ``H`` = 10 heads. The output is
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
-from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
+from pytorch_news_recommender_tpu_torch.ops.fused_encoder import o2_scratch, weight_scratch
 
 L, H = 20, 10        # tokens per item, heads (the harness's)
 BM = 64              # items per grid step of the TPU kernel: M must be a multiple
 SUB = 160            # rows of an attention subtile (8 items)
 STAGES = ("passthrough", "qkv", "attn", "tail", "attn_slices", "attn_nosoftmax")
+_i, _p = ctypes.c_int, ctypes.c_void_p
+_ablate = K.declare("newsrec_ablate_encoder",
+                    [_i, _i] + [_p] * 13 + [_i] * 5 + [ctypes.c_float, _p])
+_smem = K.declare("newsrec_ablate_encoder_smem_bytes", [_i] * 6, ctypes.c_long)
 
 
 def _check(stage, x2, maskf, weights):
     """(M, D, Q), after checking the harness's layout."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
-    if x2.dim() != 2 or x2.dtype not in FE._DTYPE_CODE:
+    if x2.dim() != 2 or x2.dtype not in K.DTYPE_CODE:
         raise TypeError(f"x2 must be [M·L, D] float32 or bfloat16, got "
                         f"{tuple(x2.shape)} {x2.dtype}")
     rows, D = x2.shape
@@ -118,13 +125,12 @@ def ablate_encoder(stage, x2, maskf, wqkv, bqkv, wo, bo, aw, ab, aq):
     M, D, Q = _check(stage, x2, maskf, weights)
     if x2.device.type == "cpu":
         return ablate_encoder_reference(stage, x2, maskf, *weights)
-    FE._on_cuda(x2, "encoder ablation")
-    code, dcode = STAGES.index(stage), FE._DTYPE_CODE[x2.dtype]
-    lib = FE._lib()
-    smem = lib.newsrec_ablate_encoder_smem_bytes(code, dcode, L, D, H, Q)
-    if smem > FE.MAX_SMEM:
+    K.require_cuda(x2, "encoder ablation")
+    code = STAGES.index(stage)
+    smem = _smem(code, K.DTYPE_CODE[x2.dtype], L, D, H, Q)
+    if smem > K.MAX_SMEM:
         raise ValueError(f"D={D} Q={Q} needs {smem} bytes of shared memory; one block "
-                         f"has {FE.MAX_SMEM}")
+                         f"has {K.MAX_SMEM}")
     x2, maskf = x2.contiguous(), maskf.to(torch.float32).contiguous()
     weights = [t.contiguous() for t in weights]
     if any(t.data_ptr() % 16 for t in (x2, *weights)):
@@ -137,22 +143,15 @@ def ablate_encoder(stage, x2, maskf, wqkv, bqkv, wo, bo, aw, ab, aq):
     # wide variant, its f32 o2
     ws = o1 = o2 = None
     if stage != "passthrough":
-        ws = FE._weight_scratch(lib.newsrec_fused_encoder_fwd_ws_elems, x2.dtype, D, H, Q,
-                                x2.device)
+        ws = weight_scratch(x2.dtype, D, H, Q, x2.device)
     if stage == "tail":
         o1 = torch.empty((M * L, D), dtype=x2.dtype, device=x2.device)
-        o2_elems = lib.newsrec_fused_encoder_fwd_o2_elems(dcode, M, L, D, H, Q)
-        if o2_elems:
-            o2 = torch.empty(o2_elems, dtype=torch.float32, device=x2.device)
+        o2 = o2_scratch(x2.dtype, M, L, D, H, Q, x2.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(x2.device):
-        rc = lib.newsrec_ablate_encoder(
-            code, dcode, x2.data_ptr(), maskf.data_ptr(),
-            *(t.data_ptr() for t in weights), out.data_ptr(), ptr(ws), ptr(o1), ptr(o2),
-            M, L, D, H, Q, 1.0 / math.sqrt(D // H),
-            torch.cuda.current_stream(x2.device).cuda_stream)
-    FE._raise_on(lib, rc, f"encoder ablation ({stage})")
-    FE._count(ablate_encoder)
+    K.launch(_ablate, code, K.DTYPE_CODE[x2.dtype], x2.data_ptr(), maskf.data_ptr(),
+             *(t.data_ptr() for t in weights), out.data_ptr(), ptr(ws), ptr(o1), ptr(o2),
+             M, L, D, H, Q, 1.0 / math.sqrt(D // H), device=x2.device,
+             what=f"encoder ablation ({stage})", counter=ablate_encoder)
     return out
 
 

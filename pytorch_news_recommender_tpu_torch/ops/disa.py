@@ -23,22 +23,26 @@ One documented difference from the plain forward: a pad query row
 (``rep_mask[i] == 0``) gives ``res = 0`` in the kernel, where the plain
 chain gives it a value that DiSA's output mask zeroes; every gradient
 through such a row is 0 either way. Only real rows of ``res`` are
-comparable. The kernels build with the port's other kernels
-(``fused_encoder._lib``) at their first launch; importing this module
-builds nothing.
+comparable. The kernels build with the port's others at their first launch
+(``ops/kernels.py``); importing this module builds nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
-from pytorch_news_recommender_tpu_torch.ops.fused_encoder import (
-    _DTYPE_CODE, _count, _lib, _raise_on,
-)
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
 C_SCALE = 5.0   # DiSA's non-trainable logit scale
+_i, _p, _lg = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
+_max_len = K.declare("newsrec_disa_max_len", [])
+_fwd = K.declare("newsrec_disa_fwd", [_i, _i] + [_p] * 6 + [_lg, _i, _i, _p])
+_bwd = K.declare("newsrec_disa_bwd", [_i, _i] + [_p] * 10 + [_lg, _i, _i, _p])
+# where the plain chain runs instead, the end of the wrappers' refusal
+_ELSEWHERE = " (models/disan.py runs the plain chain, disa_pairs_reference, elsewhere)"
 
 
 def _is_fw(direction: str) -> bool:
@@ -87,13 +91,7 @@ def disa_pairs_bwd_reference(g, dep, head, rep, rep_mask, b1, direction: str
 def max_len() -> int:
     """The longest item (``L``) the kernels take (builds the library; needs
     ``nvcc``)."""
-    return _lib().newsrec_disa_max_len()
-
-
-def _on_cuda(rep, what: str) -> None:
-    if rep.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda, not {rep.device} (models/disan.py "
-                         f"runs the plain chain, disa_pairs_reference, elsewhere)")
+    return _max_len()
 
 
 def _prepare(tensors, rep_mask, b1):
@@ -101,7 +99,7 @@ def _prepare(tensors, rep_mask, b1):
     ``[M, L]`` and ``b1`` as float32, checked against what the kernels
     take."""
     rep = tensors[-1]
-    if rep.dtype not in _DTYPE_CODE:
+    if rep.dtype not in K.DTYPE_CODE:
         raise TypeError(f"DiSA's pair kernels take float32 or bfloat16, got {rep.dtype}")
     *lead, L, d = rep.shape
     for t in tensors:
@@ -113,30 +111,25 @@ def _prepare(tensors, rep_mask, b1):
                          f"{tuple(rep_mask.shape)} on {rep_mask.device}")
     if tuple(b1.shape) != (d,) or b1.device != rep.device:
         raise ValueError(f"b1 must be [{d}] on {rep.device}, got {tuple(b1.shape)}")
-    lib = _lib()
-    if L > lib.newsrec_disa_max_len():
+    if L > max_len():
         raise ValueError(f"DiSA's pair kernels take items of at most "
-                         f"{lib.newsrec_disa_max_len()} tokens, got L={L}")
+                         f"{max_len()} tokens, got L={L}")
     rows = [t.reshape(-1, L, d).contiguous() for t in tensors]
     mask = rep_mask.reshape(-1, L).to(torch.float32).contiguous()
-    return lib, rows, mask, b1.detach().to(torch.float32).contiguous()
+    return rows, mask, b1.detach().to(torch.float32).contiguous()
 
 
 def _forward(dep, head, rep, rep_mask, b1, direction):
     """The forward kernel on CUDA tensors: ``res`` in ``rep``'s shape."""
     fw = _is_fw(direction)
     shape = rep.shape
-    lib, (dep, head, rep), mask, b1 = _prepare((dep, head, rep), rep_mask, b1)
+    (dep, head, rep), mask, b1 = _prepare((dep, head, rep), rep_mask, b1)
     M, L, d = rep.shape
     res = torch.empty_like(rep)
     if M > 0 and d > 0:
-        with torch.cuda.device(rep.device):
-            rc = lib.newsrec_disa_fwd(
-                _DTYPE_CODE[rep.dtype], int(fw), dep.data_ptr(),
-                head.data_ptr(), rep.data_ptr(), mask.data_ptr(), b1.data_ptr(),
-                res.data_ptr(), M, L, d, torch.cuda.current_stream(rep.device).cuda_stream)
-        _raise_on(lib, rc, "DiSA pair kernel")
-        _count(disa_pairs)
+        K.launch(_fwd, K.DTYPE_CODE[rep.dtype], int(fw), dep.data_ptr(), head.data_ptr(),
+                 rep.data_ptr(), mask.data_ptr(), b1.data_ptr(), res.data_ptr(), M, L, d,
+                 device=rep.device, what="DiSA pair kernel", counter=disa_pairs)
     return res.reshape(shape)
 
 
@@ -152,7 +145,7 @@ def disa_pairs(dep, head, rep, rep_mask, b1, direction: str) -> torch.Tensor:
     forward kernel launches alone. A pad query row gives 0 (the module
     docstring)."""
     _is_fw(direction)
-    _on_cuda(rep, "DiSA pair kernel")
+    K.require_cuda(rep, "DiSA pair kernel", _ELSEWHERE)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (dep, head, rep, b1)):
         return DisaPairs.apply(dep, head, rep, rep_mask, b1, direction)
     return _forward(dep, head, rep, rep_mask, b1, direction)
@@ -166,24 +159,20 @@ def disa_pairs_bwd(g, dep, head, rep, rep_mask, b1, direction: str
     and writes each item's column sums of ``ds``; ``db1`` is their sum over
     the items, a reduction without atomics, so two calls give the same
     bits."""
-    _on_cuda(rep, "DiSA pair backward kernel")
+    K.require_cuda(rep, "DiSA pair backward kernel", _ELSEWHERE)
     fw = _is_fw(direction)
     shape = rep.shape
-    lib, (g, dep, head, rep), mask, b1 = _prepare(
+    (g, dep, head, rep), mask, b1 = _prepare(
         (g.to(rep.dtype), dep, head, rep), rep_mask, b1)
     M, L, d = rep.shape
     ddep, dhead, drep = (torch.empty_like(rep) for _ in range(3))
     part = torch.empty((M, d), dtype=torch.float32, device=rep.device)
     if M > 0 and d > 0:
-        with torch.cuda.device(rep.device):
-            rc = lib.newsrec_disa_bwd(
-                _DTYPE_CODE[rep.dtype], int(fw), g.data_ptr(),
-                dep.data_ptr(), head.data_ptr(), rep.data_ptr(), mask.data_ptr(),
-                b1.data_ptr(), ddep.data_ptr(), dhead.data_ptr(), drep.data_ptr(),
-                part.data_ptr(), M, L, d,
-                torch.cuda.current_stream(rep.device).cuda_stream)
-        _raise_on(lib, rc, "DiSA pair backward kernel")
-        _count(disa_pairs_bwd)
+        K.launch(_bwd, K.DTYPE_CODE[rep.dtype], int(fw), g.data_ptr(),
+                 dep.data_ptr(), head.data_ptr(), rep.data_ptr(), mask.data_ptr(),
+                 b1.data_ptr(), ddep.data_ptr(), dhead.data_ptr(), drep.data_ptr(),
+                 part.data_ptr(), M, L, d, device=rep.device,
+                 what="DiSA pair backward kernel", counter=disa_pairs_bwd)
     return ddep.reshape(shape), dhead.reshape(shape), drep.reshape(shape), part.sum(0)
 
 

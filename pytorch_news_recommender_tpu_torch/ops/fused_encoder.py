@@ -36,11 +36,8 @@ gradients); their headers say what bounds them and how they are laid out.
   seed, ``seed + rank * SHARD_SEED_STRIDE``, as the JAX package's sharded
   encoder folds ``axis_index`` (``_make_sharded_diff_encoder``): each rank
   drops out its own rows with its own mask, forward and backward alike.
-* The kernels are built at their first launch with
-  ``torch.utils.cpp_extension.load`` for ``sm_90a`` into ``build/`` at the
-  root of the checkout, and bound with ``ctypes`` (the sources have a plain
-  C interface, so no PyTorch header is compiled). Nothing is built when this
-  module is imported.
+* The kernels build with the port's others at their first launch
+  (``ops/kernels.py``); nothing is built when this module is imported.
 
 One documented difference from the plain forward, inherited from the TPU
 kernel: a news item whose tokens are all pad pools to **0** and gets zero
@@ -53,27 +50,36 @@ rounding: the forward kernel keeps each row's attention within its item.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-import pathlib
-import threading
 from typing import Optional, Tuple
 
 import torch
 
 from pytorch_news_recommender_tpu_torch.ops import attention as A
+from pytorch_news_recommender_tpu_torch.ops.kernels import (
+    DTYPE_CODE, MAX_SMEM, declare, launch, require_cuda,
+)
 
-_CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
-# every kernel of the port, built into one library: ninja compiles the
-# sources in parallel
-_CSRC = [_CSRC_DIR / "fused_encoder.cu", _CSRC_DIR / "fused_encoder_bwd.cu",
-         _CSRC_DIR / "segment_scatter.cu", _CSRC_DIR / "ablate_encoder.cu",
-         _CSRC_DIR / "disa.cu"]
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-# Hopper's shared-memory limit for one block (bytes)
-MAX_SMEM = 232_448
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_COUNT_LOCK = threading.Lock()  # serving threads launch concurrently
+_i, _p, _lg, _fl = ctypes.c_int, ctypes.c_void_p, ctypes.c_long, ctypes.c_float
+# seed, rows per block, threshold, keep scale
+_DROPOUT = [ctypes.c_uint32, _i, ctypes.c_uint32, _fl]
+_fwd = declare("newsrec_fused_encoder_fwd",
+               [_i] + [_p] * 13 + [_i] * 5 + [_fl] + _DROPOUT + [_p])
+_bwd = declare("newsrec_fused_encoder_bwd",
+               [_i] + [_p] * 20 + [_i] * 5 + [_fl] + _DROPOUT + [_p])
+_weight_grad = declare("newsrec_weight_grad", [_i, _p, _lg, _p, _lg, _lg, _i, _i, _i, _p, _p, _p])
+_weight_grad_splits = declare("newsrec_weight_grad_splits", [_lg, _i, _i])
+_fwd_ws_elems = declare("newsrec_fused_encoder_fwd_ws_elems", [_i] * 3, _lg)
+_bwd_ws_elems = declare("newsrec_fused_encoder_bwd_ws_elems", [_i] * 3, _lg)
+_fwd_o2_elems = declare("newsrec_fused_encoder_fwd_o2_elems", [_i, _lg, _i, _i, _i, _i], _lg)
+_fwd_smem = declare("newsrec_fused_encoder_smem_bytes", [_i] * 5, _lg)
+_bwd_smem = declare("newsrec_fused_encoder_bwd_smem_bytes", [_i] * 5, _lg)
+_variant = declare("newsrec_fused_encoder_variant", [_i] * 5)
+_variant_name = declare("newsrec_fused_encoder_variant_name", [_i], ctypes.c_char_p)
+_engine = declare("newsrec_fused_encoder_engine", [_i] * 5)
+_TILE = [_i, ctypes.POINTER(_i), ctypes.POINTER(_i)]
+_fwd_tile = declare("newsrec_fused_encoder_fwd_tile", _TILE, None)
+_bwd_tile = declare("newsrec_fused_encoder_bwd_tile", _TILE, None)
 
 
 # ---- dropout mask -----------------------------------------------------------
@@ -243,97 +249,10 @@ def weight_grad_reference(a: Optional[torch.Tensor], b: torch.Tensor,
     return (prod, b.float().sum(0)) if bias else prod
 
 
-# ---- build and bind ---------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """Builds (once per checkout and source version) and loads the kernels
-    of the port, ``ops/segment_scatter.py``'s, ``ops/ablate_encoder.py``'s
-    and ``ops/disa.py``'s included."""
-    from torch.utils.cpp_extension import load
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = load(
-        name="newsrec_fused_encoder",
-        sources=[str(p) for p in _CSRC],
-        build_directory=str(BUILD_DIR),
-        extra_cuda_cflags=["-O3", "-std=c++17",
-                           "-gencode=arch=compute_90a,code=sm_90a"],
-        is_python_module=False,
-        verbose=False,
-    )
-    lib = ctypes.CDLL(path)
-    p, i, u, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    dropout = [u, i, u, fl]  # seed, rows per block, threshold, keep scale
-    lib.newsrec_fused_encoder_fwd.argtypes = (
-        [i] + [p] * 13 + [i] * 5 + [fl] + dropout + [p])
-    lib.newsrec_fused_encoder_bwd.argtypes = (
-        [i] + [p] * 20 + [i] * 5 + [fl] + dropout + [p])
-    lg = ctypes.c_long
-    lib.newsrec_weight_grad.argtypes = [i, p, lg, p, lg, lg, i, i, i, p, p, p]
-    lib.newsrec_weight_grad_splits.argtypes = [lg, i, i]
-    for name in ("newsrec_fused_encoder_fwd_ws_elems", "newsrec_fused_encoder_bwd_ws_elems"):
-        getattr(lib, name).argtypes = [i, i, i]
-        getattr(lib, name).restype = lg
-    for name in ("newsrec_fused_encoder_fwd_tile", "newsrec_fused_encoder_bwd_tile"):
-        getattr(lib, name).argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
-        getattr(lib, name).restype = None
-    for name in ("newsrec_fused_encoder_fwd", "newsrec_fused_encoder_bwd",
-                 "newsrec_weight_grad", "newsrec_weight_grad_splits"):
-        getattr(lib, name).restype = i
-    for name in ("newsrec_fused_encoder_smem_bytes",
-                 "newsrec_fused_encoder_bwd_smem_bytes"):
-        getattr(lib, name).argtypes = [i] * 5
-        getattr(lib, name).restype = ctypes.c_long
-    for name in ("newsrec_fused_encoder_variant", "newsrec_fused_encoder_engine"):
-        getattr(lib, name).argtypes = [i] * 5
-        getattr(lib, name).restype = i
-    lib.newsrec_fused_encoder_variant_name.argtypes = [i]
-    lib.newsrec_fused_encoder_variant_name.restype = ctypes.c_char_p
-    lib.newsrec_fused_encoder_fwd_o2_elems.argtypes = [i, lg, i, i, i, i]
-    lib.newsrec_fused_encoder_fwd_o2_elems.restype = lg
-    lib.newsrec_segment_scatter.argtypes = [i, p, p, ctypes.c_long, i, i, p, p, p, p]
-    lib.newsrec_segment_scatter.restype = i
-    for name in ("newsrec_segment_scatter_ws_ints",
-                 "newsrec_segment_scatter_partial_floats"):
-        getattr(lib, name).argtypes = [ctypes.c_long, i]
-        getattr(lib, name).restype = ctypes.c_long
-    lib.newsrec_segment_scatter_seg.argtypes = [ctypes.c_long]
-    lib.newsrec_segment_scatter_seg.restype = i
-    lib.newsrec_ablate_encoder.argtypes = [i, i] + [p] * 13 + [i] * 5 + [fl, p]
-    lib.newsrec_ablate_encoder.restype = i
-    lib.newsrec_ablate_encoder_smem_bytes.argtypes = [i] * 6
-    lib.newsrec_ablate_encoder_smem_bytes.restype = ctypes.c_long
-    lib.newsrec_disa_max_len.argtypes = []
-    lib.newsrec_disa_max_len.restype = i
-    lib.newsrec_disa_fwd.argtypes = [i, i] + [p] * 6 + [lg, i, i, p]
-    lib.newsrec_disa_bwd.argtypes = [i, i] + [p] * 10 + [lg, i, i, p]
-    lib.newsrec_disa_fwd.restype = lib.newsrec_disa_bwd.restype = i
-    lib.newsrec_cuda_error_string.argtypes = [i]
-    lib.newsrec_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def build() -> None:
-    """Builds and loads the kernels now instead of at their first launch."""
-    _lib()
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           + lib.newsrec_cuda_error_string(rc).decode())
-
-
-def _count(fn, wgmma: bool = False) -> None:
-    with _COUNT_LOCK:
-        fn.launches += 1
-        if wgmma:
-            fn.wgmma_launches += 1
-
+# ---- checks -----------------------------------------------------------------
 
 def _check(x, mask, weights, num_heads):
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPE_CODE:
         raise TypeError(f"fused encoder takes float32 or bfloat16, got {x.dtype}")
     M, L, D = x.shape
     wqkv, bqkv, wo, bo, aw, ab, aq = weights
@@ -363,26 +282,20 @@ def _dropout_args(seed: int, L: int, rate: float):
     return [int(seed) & 0xFFFFFFFF, _block_geometry(L) * L, thr, scale]
 
 
-def _on_cuda(x, what: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
-
-
 def _prepare(x, mask, weights, num_heads, smem_fn):
     """Contiguous operands, checked against what the kernels take
-    (``smem_fn`` names the library's shared-memory need of the kernels)."""
+    (``smem_fn`` is the library's shared-memory need of the kernels)."""
     weights = [t.contiguous() for t in weights]
     M, L, D, Q = _check(x, mask, weights, num_heads)
     x = x.contiguous()
     mask = mask.to(torch.float32).contiguous()
-    lib = _lib()
-    smem = getattr(lib, smem_fn)(_DTYPE_CODE[x.dtype], L, D, num_heads, Q)
+    smem = smem_fn(DTYPE_CODE[x.dtype], L, D, num_heads, Q)
     if smem > MAX_SMEM:
         raise ValueError(f"L={L} D={D} needs {smem} bytes of shared memory; "
                          f"one block has {MAX_SMEM}")
     if any(t.data_ptr() % 16 for t in (x, *weights)):
         raise ValueError("fused encoder operands must be 16-byte aligned")
-    return lib, x, mask, weights, (M, L, D, Q)
+    return x, mask, weights, (M, L, D, Q)
 
 
 # ---- wrappers ---------------------------------------------------------------
@@ -406,37 +319,28 @@ def fused_news_encoder(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
         return fused_news_encoder_reference(
             x, mask, *weights, num_heads=num_heads, dropout_rate=dropout_rate,
             seed=seed, save_o1=save_o1)
-    _on_cuda(x, "fused encoder")
+    require_cuda(x, "fused encoder")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *weights)):
         if save_o1:
             raise ValueError("save_o1 returns the backward's residual, which "
                              "the autograd Function keeps itself")
         return fused_news_encoder_diff(x, mask, *weights, num_heads=num_heads,
                                        dropout_rate=dropout_rate, seed=seed)
-    lib, x, mask, weights, (M, L, D, Q) = _prepare(
-        x, mask, weights, num_heads, "newsrec_fused_encoder_smem_bytes")
+    x, mask, weights, (M, L, D, Q) = _prepare(x, mask, weights, num_heads, _fwd_smem)
     out = torch.empty((M, D), dtype=x.dtype, device=x.device)
     # o1 goes through device memory between the attention and the tail
     # kernels whether or not the caller keeps it
     o1 = torch.empty((M, L, D), dtype=x.dtype, device=x.device)
     if M == 0:
         return (out, o1) if save_o1 else out
-    ws = _weight_scratch(lib.newsrec_fused_encoder_fwd_ws_elems, x.dtype, D, num_heads, Q,
-                         x.device)
-    # the tail's wide variant keeps o2's f32 rows in device memory
-    o2_elems = lib.newsrec_fused_encoder_fwd_o2_elems(_DTYPE_CODE[x.dtype], M, L, D,
-                                                      num_heads, Q)
-    o2 = torch.empty(o2_elems, dtype=torch.float32, device=x.device) if o2_elems else None
-    with torch.cuda.device(x.device):
-        rc = lib.newsrec_fused_encoder_fwd(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
-            *(t.data_ptr() for t in weights), out.data_ptr(), o1.data_ptr(), ws.data_ptr(),
-            None if o2 is None else o2.data_ptr(),
-            M, L, D, num_heads, Q, 1.0 / math.sqrt(D // num_heads),
-            *_dropout_args(seed, L, dropout_rate),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, rc, "fused encoder")
-    _count(fused_news_encoder, _wgmma(lib, x.dtype, L, D, num_heads, Q))
+    ws = weight_scratch(x.dtype, D, num_heads, Q, x.device)
+    o2 = o2_scratch(x.dtype, M, L, D, num_heads, Q, x.device)
+    launch(_fwd, DTYPE_CODE[x.dtype], x.data_ptr(), mask.data_ptr(),
+           *(t.data_ptr() for t in weights), out.data_ptr(), o1.data_ptr(), ws.data_ptr(),
+           None if o2 is None else o2.data_ptr(),
+           M, L, D, num_heads, Q, 1.0 / math.sqrt(D // num_heads),
+           *_dropout_args(seed, L, dropout_rate), device=x.device, what="fused encoder",
+           counter=fused_news_encoder, wgmma=_wgmma(x.dtype, L, D, num_heads, Q))
     return (out, o1) if save_o1 else out
 
 
@@ -450,9 +354,9 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
     change from run to run."""
     if b.device.type == "cpu":
         return weight_grad_reference(a, b, bias)
-    _on_cuda(b, "weight_grad")
+    require_cuda(b, "weight_grad")
     if b.dim() != 2 or b.dtype != torch.float32 or (a is not None and (
-            a.dim() != 2 or a.dtype not in _DTYPE_CODE or a.shape[0] != b.shape[0]
+            a.dim() != 2 or a.dtype not in DTYPE_CODE or a.shape[0] != b.shape[0]
             or a.device != b.device)):
         raise TypeError("weight_grad takes a [R, K] float32/bfloat16 and a "
                         "[R, N] float32 on one device")
@@ -465,18 +369,13 @@ def weight_grad(a: Optional[torch.Tensor], b: torch.Tensor, bias: bool = False):
         raise ValueError(f"the kernel's copies need an even bfloat16 width, got K={K}")
     out = torch.empty((Kout, N), dtype=torch.float32, device=b.device)
     if Kout and N:
-        lib = _lib()
-        splits = lib.newsrec_weight_grad_splits(R, Kout, N)
+        splits = _weight_grad_splits(R, Kout, N)
         partial = (torch.empty((splits, Kout, N), dtype=torch.float32, device=b.device)
                    if splits > 1 else None)
-        with torch.cuda.device(b.device):
-            rc = lib.newsrec_weight_grad(
-                -1 if a is None else _DTYPE_CODE[a.dtype],
-                None if a is None else a.data_ptr(), K, b.data_ptr(), N, R, K,
-                int(bias), N, None if partial is None else partial.data_ptr(),
-                out.data_ptr(), torch.cuda.current_stream(b.device).cuda_stream)
-        _raise_on(lib, rc, "weight_grad")
-        _count(weight_grad)
+        launch(_weight_grad, -1 if a is None else DTYPE_CODE[a.dtype],
+               None if a is None else a.data_ptr(), K, b.data_ptr(), N, R, K,
+               int(bias), N, None if partial is None else partial.data_ptr(),
+               out.data_ptr(), device=b.device, what="weight_grad", counter=weight_grad)
     if a is None:
         return out[0]
     return (out[:K], out[K]) if bias else out
@@ -487,18 +386,17 @@ def variant(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> Tuple[str, ..
     shapes, as the built library chooses and names them (``tiles.cuh``'s
     ``kVar*``): none wherever each kernel's layout fits one block (builds
     the library; needs ``nvcc``)."""
-    lib = _lib()
-    bits = lib.newsrec_fused_encoder_variant(_DTYPE_CODE[dtype], L, D, H, Q)
+    bits = _variant(DTYPE_CODE[dtype], L, D, H, Q)
     names, i = [], 0
-    while (name := lib.newsrec_fused_encoder_variant_name(i)) is not None:
+    while (name := _variant_name(i)) is not None:
         if bits >> i & 1:
             names.append(name.decode())
         i += 1
     return tuple(names)
 
 
-def _wgmma(lib, dtype, L, D, H, Q) -> bool:
-    return bool(lib.newsrec_fused_encoder_engine(_DTYPE_CODE[dtype], L, D, H, Q))
+def _wgmma(dtype, L, D, H, Q) -> bool:
+    return bool(_engine(DTYPE_CODE[dtype], L, D, H, Q))
 
 
 def engine(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> str:
@@ -506,7 +404,7 @@ def engine(dtype: torch.dtype, L: int, D: int, H: int, Q: int) -> str:
     as the built library chooses it (``tiles.cuh``'s ``wgmma_engine``):
     ``"wgmma"`` for bfloat16 and tiles of at most 64 rows, else
     ``"mma.sync"`` (builds the library; needs ``nvcc``)."""
-    return "wgmma" if _wgmma(_lib(), dtype, L, D, H, Q) else "mma.sync"
+    return "wgmma" if _wgmma(dtype, L, D, H, Q) else "mma.sync"
 
 
 def _tile(fn, L: int) -> Tuple[int, int]:
@@ -519,30 +417,38 @@ def fwd_tile(L: int) -> Tuple[int, int]:
     """Whole items per block of the forward's kernels at item length
     ``L``, and the block's token rows, as the built kernels take them
     (builds the library; needs ``nvcc``)."""
-    return _tile(_lib().newsrec_fused_encoder_fwd_tile, L)
+    return _tile(_fwd_tile, L)
 
 
 def bwd_tile(L: int) -> Tuple[int, int]:
     """Whole items per block of the backward's pooling and attention
     kernels at item length ``L``, and the block's token rows, as the built
     kernels take them (builds the library; needs ``nvcc``)."""
-    return _tile(_lib().newsrec_fused_encoder_bwd_tile, L)
+    return _tile(_bwd_tile, L)
 
 
-def _weight_scratch(elems_fn, dtype, D, H, Q, device):
-    """Room for the weights as the kernels read them (bf16; f32 weights as
-    high and low parts), written once per call."""
+def weight_scratch(dtype, D: int, H: int, Q: int, device, backward: bool = False):
+    """Room for the weights as the forward's kernels (with ``backward``, the
+    backward's) read them: bf16, f32 weights as high and low parts, written
+    once per launch. The stage ablation takes the forward's layout too."""
     parts = 2 if dtype == torch.float32 else 1
-    return torch.empty(parts * elems_fn(D, H, Q), dtype=torch.bfloat16, device=device)
+    elems = (_bwd_ws_elems if backward else _fwd_ws_elems)(D, H, Q)
+    return torch.empty(parts * elems, dtype=torch.bfloat16, device=device)
 
 
-def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
+def o2_scratch(dtype, M: int, L: int, D: int, H: int, Q: int, device) -> Optional[torch.Tensor]:
+    """The forward tail's f32 ``o2`` rows in device memory where it takes
+    its wide variant at these shapes, else None."""
+    elems = _fwd_o2_elems(DTYPE_CODE[dtype], M, L, D, H, Q)
+    return torch.empty(elems, dtype=torch.float32, device=device) if elems else None
+
+
+def bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
     """The backward's per-item kernels (pooling, attention, dx) on a CUDA
     tensor: ``dx``, the contiguous ``x`` and ``o1``, and the f32
     intermediates the weight gradients read (o2, t, dpre, do2, d(logit),
     dqkv, each ``[M*L, *]``)."""
-    lib, x, mask, weights, (M, L, D, Q) = _prepare(
-        x, mask, weights, num_heads, "newsrec_fused_encoder_bwd_smem_bytes")
+    x, mask, weights, (M, L, D, Q) = _prepare(x, mask, weights, num_heads, _bwd_smem)
     if tuple(o1.shape) != (M, L, D) or o1.dtype != x.dtype or tuple(g.shape) != (M, D):
         raise ValueError(f"o1 must be [{M}, {L}, {D}] {x.dtype} and g [{M}, {D}]")
     g = g.to(torch.float32).contiguous()
@@ -555,21 +461,18 @@ def _bwd_per_item(g, x, mask, o1, weights, num_heads, dropout_rate, seed):
     o2_s, t_s, dpre_s, do2_s = empty(R, D), empty(R, Q), empty(R, Q), empty(R, D)
     ds_s, dqkv_s = empty(R, 1), empty(R, 3 * D)
     do1_s = torch.empty((R, D), dtype=x.dtype, device=dev)
-    ws = _weight_scratch(lib.newsrec_fused_encoder_bwd_ws_elems, x.dtype, D, num_heads, Q, dev)
+    ws = weight_scratch(x.dtype, D, num_heads, Q, dev, backward=True)
     if M > 0:
-        with torch.cuda.device(dev):
-            rc = lib.newsrec_fused_encoder_bwd(
-                _DTYPE_CODE[x.dtype], g.data_ptr(), x.data_ptr(), mask.data_ptr(),
-                o1.data_ptr(), *(t.data_ptr() for t in weights), dx.data_ptr(),
-                o2_s.data_ptr(), t_s.data_ptr(), dpre_s.data_ptr(),
-                do2_s.data_ptr(), ds_s.data_ptr(), dqkv_s.data_ptr(),
-                do1_s.data_ptr(), ws.data_ptr(),
-                M, L, D, num_heads, Q,
-                1.0 / math.sqrt(D // num_heads),
-                *_dropout_args(seed, L, dropout_rate),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(lib, rc, "fused encoder backward")
-        _count(fused_news_encoder_bwd, _wgmma(lib, x.dtype, L, D, num_heads, Q))
+        launch(_bwd, DTYPE_CODE[x.dtype], g.data_ptr(), x.data_ptr(), mask.data_ptr(),
+               o1.data_ptr(), *(t.data_ptr() for t in weights), dx.data_ptr(),
+               o2_s.data_ptr(), t_s.data_ptr(), dpre_s.data_ptr(),
+               do2_s.data_ptr(), ds_s.data_ptr(), dqkv_s.data_ptr(),
+               do1_s.data_ptr(), ws.data_ptr(),
+               M, L, D, num_heads, Q,
+               1.0 / math.sqrt(D // num_heads),
+               *_dropout_args(seed, L, dropout_rate), device=dev,
+               what="fused encoder backward", counter=fused_news_encoder_bwd,
+               wgmma=_wgmma(x.dtype, L, D, num_heads, Q))
     return dx, x, o1, (o2_s, t_s, dpre_s, do2_s, ds_s, dqkv_s)
 
 
@@ -585,8 +488,8 @@ def fused_news_encoder_bwd(g, x, mask, o1, wqkv, bqkv, wo, bo, aw, ab, aq, *,
         return fused_news_encoder_bwd_reference(
             g, x, mask, o1, *weights, num_heads=num_heads,
             dropout_rate=dropout_rate, seed=seed)
-    _on_cuda(x, "fused encoder backward")
-    dx, x, o1, (o2_s, t_s, dpre_s, do2_s, ds_s, dqkv_s) = _bwd_per_item(
+    require_cuda(x, "fused encoder backward")
+    dx, x, o1, (o2_s, t_s, dpre_s, do2_s, ds_s, dqkv_s) = bwd_per_item(
         g, x, mask, o1, weights, num_heads, dropout_rate, seed)
     R, D = dqkv_s.shape[0], x.shape[-1]
     # four weight-gradient launches, the bias gradients with their products
@@ -644,6 +547,6 @@ def fused_news_encoder_diff(x, mask, wqkv, bqkv, wo, bo, aw, ab, aq, *,
     if x.device.type == "cpu":
         return fused_news_encoder_reference(x, mask, *weights, num_heads=num_heads,
                                             dropout_rate=dropout_rate, seed=seed)
-    _on_cuda(x, "fused encoder")
+    require_cuda(x, "fused encoder")
     return FusedNewsEncoder.apply(x, mask, *weights, int(seed),
                                   float(dropout_rate), num_heads)

@@ -17,27 +17,31 @@ history slots).
 * :func:`dedup_gather` is ``table[idx]`` whose backward is
   :func:`scatter_add_rows`, cast to the gradient's dtype.
 
-The kernel is built with the port's other kernels (``fused_encoder._lib``)
-at the first launch; importing this module builds nothing.
+The kernel builds with the port's others at its first launch
+(``ops/kernels.py``); importing this module builds nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from pytorch_news_recommender_tpu_torch.ops.fused_encoder import (
-    _count, _lib, _on_cuda, _raise_on,
-)
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 1024  # the widest row the kernel takes
+_i, _p, _lg = ctypes.c_int, ctypes.c_void_p, ctypes.c_long
+_scatter = K.declare("newsrec_segment_scatter", [_i, _p, _p, _lg, _i, _i, _p, _p, _p, _p])
+_ws_ints = K.declare("newsrec_segment_scatter_ws_ints", [_lg, _i], _lg)
+_partial_floats = K.declare("newsrec_segment_scatter_partial_floats", [_lg, _i], _lg)
+_seg = K.declare("newsrec_segment_scatter_seg", [_lg])
 
 
 def segment_length(S: int) -> int:
     """Sorted positions per block of the kernel's reduction for ``S``
     sources, as the built kernel takes them (builds the library; needs
     ``nvcc``)."""
-    return _lib().newsrec_segment_scatter_seg(S)
+    return _seg(S)
 
 
 def scatter_add_rows_reference(idx: torch.Tensor, g: torch.Tensor,
@@ -56,11 +60,11 @@ def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor, num_rows: int) -> torch
     CUDA tensor the sum is the same bit for bit on every run."""
     if g.device.type == "cpu":
         return scatter_add_rows_reference(idx, g, num_rows)
-    _on_cuda(g, "scatter_add_rows")
+    K.require_cuda(g, "scatter_add_rows")
     if g.ndim != 2 or idx.ndim != 1 or idx.shape[0] != g.shape[0]:
         raise ValueError(f"scatter_add_rows takes idx [S] and g [S, D], got "
                          f"{tuple(idx.shape)} and {tuple(g.shape)}")
-    if g.dtype not in _DTYPE_CODE:
+    if g.dtype not in K.DTYPE_CODE:
         raise TypeError(f"scatter_add_rows takes float32 or bfloat16 g, got {g.dtype}")
     if idx.dtype not in (torch.int32, torch.int64) or idx.device != g.device:
         raise TypeError(f"idx must be int32 or int64 on {g.device}, got "
@@ -74,18 +78,12 @@ def scatter_add_rows(idx: torch.Tensor, g: torch.Tensor, num_rows: int) -> torch
         return out
     idx = idx.to(torch.int32).contiguous()
     g = g.contiguous()
-    lib = _lib()
     # one allocation: the int32 workspace, then the float32 partial sums
-    n_ws = lib.newsrec_segment_scatter_ws_ints(S, num_rows)
-    ws = torch.empty(n_ws + max(1, lib.newsrec_segment_scatter_partial_floats(S, D)),
-                     dtype=torch.int32, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = lib.newsrec_segment_scatter(
-            _DTYPE_CODE[g.dtype], idx.data_ptr(), g.data_ptr(), S, D, num_rows,
-            ws.data_ptr(), ws.data_ptr() + 4 * n_ws, out.data_ptr(),
-            torch.cuda.current_stream(g.device).cuda_stream)
-    _raise_on(lib, rc, "segment scatter")
-    _count(scatter_add_rows)
+    n_ws = _ws_ints(S, num_rows)
+    ws = torch.empty(n_ws + max(1, _partial_floats(S, D)), dtype=torch.int32, device=g.device)
+    K.launch(_scatter, K.DTYPE_CODE[g.dtype], idx.data_ptr(), g.data_ptr(), S, D, num_rows,
+             ws.data_ptr(), ws.data_ptr() + 4 * n_ws, out.data_ptr(), device=g.device,
+             what="segment scatter", counter=scatter_add_rows)
     return out
 
 

@@ -23,7 +23,7 @@ import torch
 
 import chip_ablate_encoder as CA
 from pytorch_news_recommender_tpu_torch.ops import ablate_encoder as AE
-from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -170,7 +170,7 @@ def test_cpu_tensors_take_the_plain_version_and_build_nothing():
         assert torch.equal(AE.ablate_encoder(stage, *args),
                            AE.ablate_encoder_reference(stage, *args))
     assert AE.ablate_encoder.launches == before
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
 
 
 def test_other_devices_raise():
@@ -211,8 +211,8 @@ def test_smem_needs_are_the_layouts_sums(cuda_device, dtype):
     sums, V1 / V2a x, the ring and the f32 q|k|v tile, V2 / V2b the 160-row
     layout (x whole in bf16, streamed in f32), V3 at least V1's and the
     forward's tail; all within one block."""
-    lib = FE._lib()
-    code = FE._DTYPE_CODE[dtype]
+    lib = K.lib()
+    code = K.DTYPE_CODE[dtype]
     need = {s: lib.newsrec_ablate_encoder_smem_bytes(i, code, L, D, AE.H, Q)
             for i, s in enumerate(AE.STAGES)}
     f32 = dtype == torch.float32
@@ -222,4 +222,4 @@ def test_smem_needs_are_the_layouts_sums(cuda_device, dtype):
     assert need["attn"] == need["attn_nosoftmax"] == (226_560 if f32 else 218_624)
     assert need["tail"] >= need["qkv"]
     assert need["tail"] >= lib.newsrec_fused_encoder_smem_bytes(code, L, D, AE.H, Q)
-    assert max(need.values()) <= FE.MAX_SMEM
+    assert max(need.values()) <= K.MAX_SMEM

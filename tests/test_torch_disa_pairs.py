@@ -21,7 +21,7 @@ import torch
 from pytorch_news_recommender_tpu_torch.models import disan as disan_mod
 from pytorch_news_recommender_tpu_torch.models.disan import DiSA, DiSANEncoder
 from pytorch_news_recommender_tpu_torch.ops import disa as DP
-from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
 torch.set_num_threads(2)
 
@@ -130,7 +130,7 @@ def test_cpu_tensors_take_the_plain_chain_and_launch_nothing(direction, dtype, m
     out.float().sum().backward()
     assert x.grad is not None and all(p.grad is not None for p in net.parameters())
     assert (DP.disa_pairs.launches, DP.disa_pairs_bwd.launches) == before
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
     with pytest.raises(ValueError, match="runs on cuda"):
         DP.disa_pairs(dep, head, rep, mask, b1, direction)
     with pytest.raises(ValueError, match="runs on cuda"):

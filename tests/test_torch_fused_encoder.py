@@ -18,6 +18,7 @@ import torch
 
 from pytorch_news_recommender_tpu_torch.models.layers import AttentionPoolTower
 from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
 torch.set_num_threads(1)
 
@@ -174,7 +175,7 @@ def test_cpu_tensors_take_the_plain_version_and_build_nothing():
     got = FE.fused_news_encoder(t[0], t[1], *t[2:], num_heads=4)
     np.testing.assert_array_equal(got.numpy(), _torch_plain(x, mask, w, 4))
     assert FE.fused_news_encoder.launches == before
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
 
 
 def test_cpu_calls_count_no_wgmma_launch():
@@ -190,7 +191,7 @@ def test_cpu_calls_count_no_wgmma_launch():
     assert [(fn.launches, fn.wgmma_launches) for fn in fns] == before
     if not torch.cuda.is_available():
         assert [fn.wgmma_launches for fn in fns] == [0, 0]
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
 
 
 def test_other_devices_raise():
@@ -207,11 +208,11 @@ def test_failed_build_raises(monkeypatch, tmp_path):
         raise RuntimeError("nvcc failed")
 
     monkeypatch.setattr(ext, "load", broken)
-    monkeypatch.setattr(FE, "BUILD_DIR", tmp_path / "kernels")
-    FE._lib.cache_clear()
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "kernels")
+    K.lib.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        FE.build()
-    assert FE._lib.cache_info().currsize == 0
+        K.build()
+    assert K.lib.cache_info().currsize == 0
 
 
 def test_import_loads_no_extension():
@@ -219,7 +220,7 @@ def test_import_loads_no_extension():
     isolation test checks the same in a fresh interpreter."""
     import pytorch_news_recommender_tpu_torch.cli  # noqa: F401
     import pytorch_news_recommender_tpu_torch.serve  # noqa: F401
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
     assert "newsrec_fused_encoder" not in pathlib.Path("/proc/self/maps").read_text()
 
 
@@ -298,11 +299,11 @@ def test_forward_takes_every_length_up_to_80_at_the_model_widths_on_card(cuda_de
     for every L up to 80 (the CUDA-core kernel before them took up to 73),
     each runs and holds the plain version, and the wrapper refuses an L that
     does not fit."""
-    lib = FE._lib()
+    lib = K.lib()
     need = lambda L: lib.newsrec_fused_encoder_smem_bytes(  # noqa: E731
-        FE._DTYPE_CODE[dtype], L, 300, 10, 200)
-    assert all(need(L) <= FE.MAX_SMEM for L in range(1, 81))
-    assert need(112) > FE.MAX_SMEM
+        K.DTYPE_CODE[dtype], L, 300, 10, 200)
+    assert all(need(L) <= K.MAX_SMEM for L in range(1, 81))
+    assert need(112) > K.MAX_SMEM
     for L in range(1, 81):
         x, mask, w, lens = _inputs(L, 3, L, 300, 200)
         t = [torch.from_numpy(a).to(cuda_device) for a in (x, mask, *w)]
@@ -347,7 +348,7 @@ def test_variant_chooser_widens_only_where_the_layout_does_not_fit_on_card(
     o2 scratch); at NAML's user tower the kernels whose layout does not fit
     one block take their wide variant, the forward asks for its [M * L, D]
     o2 scratch, and the library's need is then within one block."""
-    lib, code = FE._lib(), FE._DTYPE_CODE[dtype]
+    lib, code = K.lib(), K.DTYPE_CODE[dtype]
     for L in (1, 12, 20, 40, 50, 64, 65, 80):
         assert FE.variant(dtype, L, 300, 10, 200) == (), L
         assert lib.newsrec_fused_encoder_fwd_o2_elems(code, 7, L, 300, 10, 200) == 0, L
@@ -356,7 +357,7 @@ def test_variant_chooser_widens_only_where_the_layout_does_not_fit_on_card(
     assert lib.newsrec_fused_encoder_fwd_o2_elems(code, 7, *NAML_USER) == 7 * L * D
     need = (lib.newsrec_fused_encoder_smem_bytes(code, *NAML_USER),
             lib.newsrec_fused_encoder_bwd_smem_bytes(code, *NAML_USER))
-    assert need == NAML_SMEM[dtype] and max(need) <= FE.MAX_SMEM
+    assert need == NAML_SMEM[dtype] and max(need) <= K.MAX_SMEM
 
 
 # (dtype, L, D, H, Q) -> the engine: wgmma at every shape of the training
@@ -417,11 +418,11 @@ def test_variants_at_the_bert_and_disan_user_towers_on_card(cuda_device, D, H, Q
                                                             wide):
     """At D=512 (dh=128) and D=600 (dh=60) the kernels take NAML's wide
     variants, and the library's need is then within one block."""
-    lib, code = FE._lib(), FE._DTYPE_CODE[dtype]
+    lib, code = K.lib(), K.DTYPE_CODE[dtype]
     assert FE.variant(dtype, 50, D, H, Q) == wide
     need = (lib.newsrec_fused_encoder_smem_bytes(code, 50, D, H, Q),
             lib.newsrec_fused_encoder_bwd_smem_bytes(code, 50, D, H, Q))
-    assert need == NEW_USER_SMEM[(D, dtype)] and max(need) <= FE.MAX_SMEM
+    assert need == NEW_USER_SMEM[(D, dtype)] and max(need) <= K.MAX_SMEM
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,6 +18,7 @@ import torch
 
 from pytorch_news_recommender_tpu_torch.models.layers import AttentionPoolTower
 from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 
 torch.set_num_threads(1)
 
@@ -275,7 +276,7 @@ def test_cpu_backward_builds_and_counts_nothing():
     _, o1 = FE.fused_news_encoder(*_t([x, mask, *w]), num_heads=2, save_o1=True)
     FE.fused_news_encoder_bwd(*_t([g, x, mask]), o1, *_t(w), num_heads=2)
     assert (FE.fused_news_encoder_bwd.launches, FE.weight_grad.launches) == before
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
 
 
 # ---- on the card ------------------------------------------------------------
@@ -382,11 +383,11 @@ def test_backward_takes_every_length_up_to_80_at_the_model_widths_on_card(cuda_d
     """At D=300, 10 heads, Q=200 the kernels' shared memory fits one block
     for every L up to 80 (the CUDA-core kernels before them took up to 68),
     and the wrapper refuses an L that does not fit."""
-    lib = FE._lib()
+    lib = K.lib()
     need = lambda L: lib.newsrec_fused_encoder_bwd_smem_bytes(  # noqa: E731
-        FE._DTYPE_CODE[dtype], L, 300, 10, 200)
-    assert all(need(L) <= FE.MAX_SMEM for L in range(1, 81))
-    assert need(96) > FE.MAX_SMEM
+        K.DTYPE_CODE[dtype], L, 300, 10, 200)
+    assert all(need(L) <= K.MAX_SMEM for L in range(1, 81))
+    assert need(96) > K.MAX_SMEM
     x, mask, w, g, _ = _inputs(2, 2, 96, 300, 200)
     t = _t([x, mask, *w, g], cuda_device)
     w_ = [a.to(dtype) for a in t[2:9]]

@@ -29,8 +29,8 @@ def test_importing_every_module_loads_no_jax():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
-        "from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE\n"
-        "assert FE._lib.cache_info().currsize == 0  # no kernel built on import\n")
+        "from pytorch_news_recommender_tpu_torch.ops import kernels as K\n"
+        "assert K.lib.cache_info().currsize == 0  # no kernel built on import\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=ROOT)
 
 

@@ -16,7 +16,7 @@ from pytorch_news_recommender_tpu_torch.data import synthetic
 from pytorch_news_recommender_tpu_torch.data.loader import train_batches
 from pytorch_news_recommender_tpu_torch.models import build_model
 from pytorch_news_recommender_tpu_torch.models.convert import assign, from_flax
-from pytorch_news_recommender_tpu_torch.ops import fused_encoder as FE
+from pytorch_news_recommender_tpu_torch.ops import kernels as K
 from pytorch_news_recommender_tpu_torch.ops import segment_scatter as SS
 from pytorch_news_recommender_tpu_torch.train.loop import softmax_ce_loss
 
@@ -176,7 +176,7 @@ def test_cpu_tensors_take_the_plain_version_and_build_nothing():
     expect = SS.scatter_add_rows_reference(torch.from_numpy(idx), torch.from_numpy(g), 40)
     assert torch.equal(got, expect)
     assert SS.scatter_add_rows.launches == before
-    assert FE._lib.cache_info().currsize == 0
+    assert K.lib.cache_info().currsize == 0
 
 
 def test_other_devices_raise():
