@@ -33,7 +33,11 @@ Every dropout is its own draw from the step's ``torch.Generator`` (another
 stream than the JAX package's), so parity runs with dropout off. The pair
 values, L² d_h per news and direction, are the tower's elementwise work:
 the kernels keep them in registers and shared memory and recompute them in
-the backward, so the tower's device time is its ``Dense`` products and the
+the backward. The tower's twelve ``Dense`` products (``fc``, ``w1``,
+``w2``, ``wf1``, ``wf2`` of each direction, Source2Token's ``fc1`` and
+``fc2``) run on the card's tensor cores in bf16 with float32 sums, forward
+and backward, so what is left of its device time is mostly the gates,
+dropout draws and Source2Token's softmax and sums around them, and the
 kernels' arithmetic (PERF.md §5).
 """
 

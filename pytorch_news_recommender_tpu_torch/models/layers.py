@@ -22,6 +22,7 @@ folds ``axis_index``); the user tower has no dropout.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -90,10 +91,30 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+# cuBLAS may add a bf16 or fp16 product's split-K partial sums in 16 bits
+# (PyTorch's default); Dense's products sum in float32 throughout, as Flax's
+# nn.Dense(dtype=bf16) does, so that reduction stays off in the process.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+_COUNT_LOCK = threading.Lock()  # serving threads run products concurrently
+
+
 class Dense(nn.Module):
     """``x @ kernel (+ bias)`` in the compute dtype, in Flax's layout
     (``kernel [in, out]``, lecun-normal; ``bias [out]``, zeros, unless
-    ``bias`` is off); the product sums in float32."""
+    ``bias`` is off); the product sums in float32 and rounds once to the
+    compute dtype, as Flax's ``nn.Dense(dtype=...)``.
+
+    On a CUDA tensor at a 16-bit compute dtype the product takes both
+    operands in that dtype, so cuBLAS runs it (and autograd's two products
+    of the backward) on the tensor cores with float32 sums;
+    ``Dense.tensor_core_products`` counts those forwards. Elsewhere, and
+    at float32, both operands are widened to float32 first, which on the
+    CPU is the product the JAX package's parity tests hold. The two differ
+    only in the order of the float32 sums: products of 16-bit values are
+    exact in float32."""
+
+    tensor_core_products = 0
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype, bias: bool = True):
@@ -109,7 +130,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        y = torch.matmul(x.to(cd).float(), self.kernel.to(cd).float()).to(cd)
+        if x.device.type == "cuda" and cd in (torch.bfloat16, torch.float16):
+            y = torch.matmul(x.to(cd), self.kernel.to(cd))
+            with _COUNT_LOCK:
+                Dense.tensor_core_products += 1
+        else:
+            y = torch.matmul(x.to(cd).float(), self.kernel.to(cd).float()).to(cd)
         return y if self.bias is None else y + self.bias.to(cd)
 
 
