@@ -24,6 +24,11 @@ browsed, cand)``, which adds one slice's work to a :class:`Work`:
 * ``Work.other_flops`` for products outside any tower (the scores), and
   ``Work.news_tokens`` for the real tokens of the news views it encodes.
 
+``lens`` holds the corpus's per-news tables by news id
+(``port.feature_lengths``): the real token counts, and the news graph
+``neighbors [N+1, K]`` where the corpus has one, so that a family whose
+step encodes a neighbourhood counts it from the slice's news.
+
 A module without ``work`` stops the run (:func:`family_work`).
 
 Per item of ``l`` real tokens, width ``D``, ``H`` heads of ``dh = D / H``,
@@ -144,7 +149,8 @@ def step_work(work: Work, model: Dict, lens: Dict[str, np.ndarray],
     candidates)`` that one device encodes, its distinct news and real
     history clicks, and what family module ``fam`` counts for it. ``lens``
     holds each feature's real token count by news id (``title_len``, and
-    ``abst_len`` where the corpus has abstracts)."""
+    ``abst_len`` where the corpus has abstracts) and, where the corpus has a
+    news graph, its ``neighbors [N+1, K]`` table."""
     count = family_work(fam)
     for browsed, cand in slices:
         news = np.unique(np.concatenate([browsed.ravel(), cand.ravel()]))

@@ -1,5 +1,8 @@
 """Training cells: ``Trainer.run_step`` over the feed that ``Trainer.fit``
-uses, through ``device_prefetch``, with no evaluation in the window.
+uses, through ``device_prefetch``, with no evaluation in the window. As in
+``fit``, whatever the feed builds for a batch (the dedup layout, the length
+split, and for a family with a news graph the GNN frontier) is built in the
+prefetch thread, off the stepping thread.
 
 One rank (``traffic["ranks"]`` = 1) runs in the benchmark's process. More
 ranks run in processes of their own, one a card, over NCCL through the
@@ -46,6 +49,11 @@ SHUFFLE_STREAM = 7
 
 
 def _feed(trainer, ds, cfg, rng, sliced: bool):
+    """Every epoch's host batches, as ``fit`` makes them: one rank's
+    ``train_batches`` with ``trainer._maybe_frontier`` mapped over them (it
+    returns a batch as it is for a family without a frontier), or a rank's
+    ``sliced_batches``, which build the frontier themselves. Run inside
+    ``device_prefetch``, so all of it runs in the prefetch thread."""
     from pytorch_news_recommender_tpu_torch.data.loader import (
         DEFAULT_UNIQUE_BUCKETS, train_batches,
     )
@@ -55,9 +63,10 @@ def _feed(trainer, ds, cfg, rng, sliced: bool):
         if sliced:
             yield from trainer.sliced_batches(rng)
         else:
-            yield from train_batches(ds.train, tc.batch_size, rng, dedup=tc.dedup_batches,
-                                     unique_buckets=tc.unique_buckets or DEFAULT_UNIQUE_BUCKETS,
-                                     length_split=trainer._length_split)
+            yield from map(trainer._maybe_frontier, train_batches(
+                ds.train, tc.batch_size, rng, dedup=tc.dedup_batches,
+                unique_buckets=tc.unique_buckets or DEFAULT_UNIQUE_BUCKETS,
+                length_split=trainer._length_split))
 
 
 class Rows:

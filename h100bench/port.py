@@ -1,6 +1,7 @@
 """The benchmark's inputs handed to the system under test through its public
-types: the configuration file as the program's ``Config``, the corpus and
-the click log as its ``RecDataset``."""
+types: the configuration file as the program's ``Config``, the corpus (its
+news graph included, where it has one) and the click log as its
+``RecDataset``."""
 
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def dataset(cfg: Dict, corpus: T.Corpus, log: Optional[T.ClickLog] = None):
 
     c = cfg["corpus"]
     news = NewsFeatures(title=corpus.title, abst=corpus.abst, categ=corpus.categ,
-                        subcateg=corpus.subcateg)
+                        subcateg=corpus.subcateg, neighbors=corpus.neighbors)
     train = TrainData(log.browsed, log.candidates) if log is not None else None
     meta = ArtifactMeta(n_words=int(c["vocab"]), n_news=corpus.n_news,
                         category_nums=int(c.get("n_categories", 0)),
@@ -46,19 +47,24 @@ def dataset(cfg: Dict, corpus: T.Corpus, log: Optional[T.ClickLog] = None):
 
 
 def feature_lengths(corpus: T.Corpus) -> Dict[str, np.ndarray]:
-    """Real token counts by news id, for counting work."""
+    """Per-news tables for counting work, by news id: the real token counts
+    (``title_len``, ``abst_len``) and, where the corpus has a news graph,
+    ``neighbors [N+1, K]``."""
     out = {"title_len": (corpus.title != 0).sum(1)}
     if corpus.abst is not None:
         out["abst_len"] = (corpus.abst != 0).sum(1)
+    if corpus.neighbors is not None:
+        out["neighbors"] = corpus.neighbors
     return out
 
 
 def reference_feats(corpus: T.Corpus, device) -> Dict:
-    """The corpus tables as tensors for the reference."""
+    """The corpus tables as tensors for the reference, the news graph
+    (``neighbors``) among them where the corpus has one."""
     import torch
 
     out = {"title": corpus.title}
-    for k in ("abst", "categ", "subcateg"):
+    for k in ("abst", "categ", "subcateg", "neighbors"):
         if getattr(corpus, k) is not None:
             out[k] = getattr(corpus, k)
     return {k: torch.as_tensor(np.asarray(v, np.int64), device=device) for k, v in out.items()}

@@ -26,7 +26,24 @@ gives:
   ``counting.Work``. What runs inside the program's fused encoder (kernel
   #1) is added as towers (``add_tower``), and only that is what the encoder
   rooflines divide; the family's own work outside it as named parts
-  (``add_part``), the scores as ``other_flops`` (``counting.py``).
+  (``add_part``), the scores as ``other_flops`` (``counting.py``). ``lens``
+  carries the corpus's news graph as ``lens["neighbors"]`` where it has one.
+
+and, optionally, for a family whose training step is not laid out as
+``layout.single`` lays it out (a news graph's neighbourhood encoded in one
+buffer, say):
+
+* ``slice_vectors(p, W, model, feats, browsed, cand, title_len, trunc,
+  seeds, rate, device)``: one slice's ``(browsed [B, H, D], candidates [B,
+  S, D])`` vectors from its raw impressions (numpy ``browsed``, ``cand``),
+  the corpus tensors ``feats`` (``neighbors`` among them where the corpus
+  has a graph), ``title_len`` by news id and the title truncation ``trunc``:
+  the family's own frozen copy of the program's layout, its encode calls,
+  the dropout seeds drawn from ``seeds`` in the program's order, and the
+  gathers. Where a family has it, ``train.run`` calls it in place of its
+  own layout; it lays out one rank's step, so such a family stops a
+  reference of several ranks until it lays out theirs. Serving does not go
+  through it: ``serve.py`` encodes the corpus by ``encode``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """The first three training steps in plain float32, from the seeded
 weights and the raw impressions: each step's loss, the first step's
 gradient and the parameters after the third update, as Adam at the
-configuration's learning rate leaves them."""
+configuration's learning rate leaves them. A slice's vectors come from the
+frozen batch layout (``layout.py``), or from the family's own
+``slice_vectors`` where it has one (``reference/__init__.py``)."""
 
 from __future__ import annotations
 
@@ -43,6 +45,10 @@ def run(fam, model: Dict, lr: float, train_seed: int, W0: Dict[str, torch.Tensor
     ``grad`` (the first step's gradient by leaf) and ``params`` (the
     parameters after the last step), as tensors."""
     C.strict_fp32()
+    own = getattr(fam, "slice_vectors", None)
+    if own is not None and ranks > 1:
+        raise ValueError(f"{fam.__name__} lays out its own step (slice_vectors) for one rank "
+                         f"only, not for {ranks}")
     device = next(iter(W0.values())).device
     params = {n: w.detach().clone().float().requires_grad_(True) for n, w in W0.items()}
     opt = C.Adam(params, lr)
@@ -51,17 +57,22 @@ def run(fam, model: Dict, lr: float, train_seed: int, W0: Dict[str, torch.Tensor
     losses: List[float] = []
     grad0 = None
     for step, (browsed, cand) in enumerate(batches):
-        if ranks == 1:
+        if own is None and ranks == 1:
             lays = [LY.single(browsed, cand, title_len, trunc)]
-        else:
+        elif own is None:
             lays = LY.sliced(browsed, cand, title_len, trunc, ranks)
         per = browsed.shape[0] // ranks
         loss = 0.0
-        for r, lay in enumerate(lays):
+        for r in range(ranks):
             b_ids = torch.as_tensor(browsed[r * per:(r + 1) * per], device=device)
             c_ids = torch.as_tensor(cand[r * per:(r + 1) * per], device=device)
-            b_vecs, c_vecs = _slice_scores(fam, p, params, model, feats, lay,
-                                           C.step_seeds(train_seed, step, r), rate, device)
+            seeds = C.step_seeds(train_seed, step, r)
+            if own is not None:
+                b_vecs, c_vecs = own(p, params, model, feats, browsed, cand, title_len, trunc,
+                                     seeds, rate, device)
+            else:
+                b_vecs, c_vecs = _slice_scores(fam, p, params, model, feats, lays[r], seeds,
+                                               rate, device)
             user = fam.user(p, params, model, b_vecs, b_ids != 0)
             scores = torch.where(c_ids != 0, C.dot_scores(p, user, c_vecs), C.NEG_INF)
             loss = loss + (-torch.log_softmax(scores, dim=-1)[:, 0].mean()) / ranks

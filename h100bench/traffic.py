@@ -24,7 +24,8 @@ from typing import Dict
 import numpy as np
 
 # independent streams of one run's seed
-STREAM_CORPUS, STREAM_CLICKS, STREAM_REQUESTS, STREAM_WEIGHTS, STREAM_SAMPLE = range(5)
+(STREAM_CORPUS, STREAM_CLICKS, STREAM_REQUESTS, STREAM_WEIGHTS, STREAM_SAMPLE,
+ STREAM_GRAPH) = range(6)
 
 
 def rng_for(seed: int, stream: int) -> np.random.Generator:
@@ -73,9 +74,16 @@ class Popularity:
 
     def __init__(self, n: int, exponent: float, rng: np.random.Generator):
         self.n = int(n)
-        w = 1.0 / np.arange(1, self.n + 1, dtype=np.float64) ** float(exponent)
-        self.cdf = np.cumsum(w / w.sum())
+        self.rank_weight = 1.0 / np.arange(1, self.n + 1, dtype=np.float64) ** float(exponent)
+        self.cdf = np.cumsum(self.rank_weight / self.rank_weight.sum())
         self.ids = (rng.permutation(self.n) + 1).astype(np.int32)
+
+    def weights(self, power: float = 1.0) -> np.ndarray:
+        """``[n + 1]``: each id's weight ``1 / rank^a`` raised to ``power``
+        (0 for id 0)."""
+        w = np.zeros(self.n + 1)
+        w[self.ids] = self.rank_weight ** power
+        return w
 
     def draw(self, rng: np.random.Generator, size) -> np.ndarray:
         r = np.searchsorted(self.cdf, rng.random(size), side="right")
@@ -86,13 +94,15 @@ class Popularity:
 class Corpus:
     """Per-news tables, row 0 the pad news: ``title [N+1, Lt]``, ``abst
     [N+1, La]`` (or None), ``categ`` and ``subcateg`` ``[N+1]`` (or None),
-    and the popularity law that clicks and requests draw news from."""
+    the popularity law that clicks and requests draw news from, and the news
+    graph ``neighbors [N+1, K]`` int32 (or None)."""
 
     title: np.ndarray
     abst: np.ndarray | None
     categ: np.ndarray | None
     subcateg: np.ndarray | None
     popularity: Popularity
+    neighbors: np.ndarray | None = None
 
     @property
     def n_news(self) -> int:
@@ -109,7 +119,8 @@ def make_corpus(config: Dict, seed: int) -> Corpus:
     """The corpus of ``config["corpus"]`` from ``seed``: ``n_news`` news
     plus the pad row, words from a Zipf law over the vocabulary (word 0 is
     pad), titles (and, where ``abstract_len`` is given, abstracts) of the
-    stated length laws, categories and subcategories from Zipf laws."""
+    stated length laws, categories and subcategories from Zipf laws, and,
+    where ``graph`` is given, the news graph (module docstring)."""
     c = config["corpus"]
     rng = rng_for(seed, STREAM_CORPUS)
     n = int(c["n_news"])
@@ -129,7 +140,90 @@ def make_corpus(config: Dict, seed: int) -> Corpus:
         subcateg[1:] = Popularity(int(c["n_subcategories"]) - 1, c["category_zipf"],
                                   rng).draw(rng, n)
     pop = Popularity(n, c["news_zipf"], rng)
-    return Corpus(title, abst, categ, subcateg, pop)
+    corpus = Corpus(title, abst, categ, subcateg, pop)
+    if "graph" in c:
+        corpus.neighbors = news_graph(c["graph"], corpus, rng_for(seed, STREAM_GRAPH))
+    return corpus
+
+
+def news_graph(graph: Dict, corpus: Corpus, rng: np.random.Generator) -> np.ndarray:
+    """The news graph of ``graph`` (module docstring) over ``corpus``:
+    ``[N+1, K]`` int32, row 0 and missing neighbours 0.
+
+    Each row is the K smallest of independent keys ``E / w^s`` (``E``
+    exponential) over the news's group without itself: a weighted draw
+    without replacement, in the order drawn. The keys of each group's ``2K +
+    1`` heaviest members are drawn outright; the lighter members' keys, in
+    rising order, are the arrivals of one Poisson process whose rate is
+    their summed weight, each arrival naming a member by weight (a repeat or
+    the news itself is passed over), run until no later arrival can enter
+    the row. So no row looks at more of its group than it needs."""
+    K = int(graph["neighbors"])
+    n = corpus.n_news - 1
+    kind = graph["group"]
+    if kind == "none":
+        group = np.zeros(n, np.int64)
+    elif kind in ("categ", "subcateg"):
+        if getattr(corpus, kind) is None:
+            raise ValueError(f"graph group {kind!r} needs a corpus with categories")
+        group = getattr(corpus, kind)[1:].astype(np.int64)
+    else:
+        raise ValueError(f"unknown graph group {kind!r}")
+    w = corpus.popularity.weights(float(graph["sharpness"]))[1:]
+    degree = quantile_draw(graph["degree"], n, rng) if "degree" in graph else np.full(n, K)
+    if not 0 <= degree.min() <= degree.max() <= K:
+        raise ValueError(f"graph degree law outside 0..{K}")
+    # each group's members in a block, heaviest first; rows are worked out
+    # at their news's place p in that order (news id order[p] + 1)
+    order = np.lexsort((-w, group))
+    w, degree = w[order], degree[order]
+    starts, sizes = np.unique(group[order], return_index=True, return_counts=True)[1:]
+    block = np.repeat(np.arange(len(starts)), sizes)
+    first, size = starts[block], sizes[block]
+    p = np.arange(n)
+    T = 2 * K + 1
+    at = np.arange(T)[None, :]
+    head = np.minimum(first[:, None] + at, n - 1)
+    keys = rng.exponential(size=(n, T)) / w[head]
+    keys[(at >= size[:, None]) | (head == p[:, None])] = np.inf
+    # the lighter members: block b's cumulative weight share, plus b, so
+    # that one sorted array names a member from (block, uniform)
+    light = w * (p - first >= T)
+    share = np.zeros(n)
+    rate = np.zeros(len(starts))
+    for b, (a, m) in enumerate(zip(starts, sizes)):
+        c = np.cumsum(light[a:a + m])
+        rate[b] = c[-1]
+        share[a:a + m] = b + (c / c[-1] if c[-1] > 0 else 0.0)
+    bound = np.sort(keys, axis=1)
+    t_pos = np.full((n, K), -1)
+    t_keys = np.full((n, K), np.inf)
+    got = np.zeros(n, np.int64)
+    rows = np.flatnonzero(size > T)
+    t = np.zeros(len(rows))
+    while len(rows):
+        t += rng.exponential(size=len(rows)) / rate[block[rows]]
+        # with ``got`` arrivals in, one enters while it is below the
+        # (K - got)-th smallest head key; past that, no later one can
+        go = t < bound[rows, K - 1 - got[rows]]
+        rows, t = rows[go], t[go]
+        pick = np.searchsorted(share, block[rows] + rng.random(len(rows)), side="right")
+        seen = t_pos[rows, :got[rows].max(initial=0)] == pick[:, None]
+        new = (pick != rows) & ~seen.any(1)
+        r = rows[new]
+        t_pos[r, got[r]] = pick[new]
+        t_keys[r, got[r]] = t[new]
+        got[r] += 1
+        left = got[rows] < K
+        rows, t = rows[left], t[left]
+    pos = np.concatenate([head, t_pos], 1)
+    keys = np.concatenate([keys, t_keys], 1)
+    take = np.argsort(keys, axis=1, kind="stable")[:, :K]
+    filled = np.isfinite(np.take_along_axis(keys, take, 1))
+    filled &= np.arange(K)[None, :] < degree[:, None]
+    out = np.zeros((n + 1, K), np.int32)
+    out[order + 1] = np.where(filled, order[np.take_along_axis(pos, take, 1)] + 1, 0)
+    return out
 
 
 def histories(rng, corpus: Corpus, lengths: np.ndarray, width: int) -> np.ndarray:
