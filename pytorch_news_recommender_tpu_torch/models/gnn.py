@@ -24,6 +24,13 @@ Three encodes give the same vectors:
 A fresh news item (``encode_news_feats``) is an isolated node. Neighbor
 titles' lengths are not checked by the host's length split, so
 ``LENGTH_SPLIT_OK`` is False.
+
+The frontier form's spans (``utils/tracing.py``, on only while a profiler
+records): ``newsrec.gnn.titles`` around the closure's title encode,
+``newsrec.gnn.gat`` around the GAT levels (the neighbor gathers, every
+round and the gather of the batch's own positions), and
+``newsrec.gnn.gat.backward`` from the gradient's arrival at the GAT's
+output to its leaving for the title vectors.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from pytorch_news_recommender_tpu_torch.models.layers import (
     Dense, NewsEncoder, UserEncoder, _xavier_uniform,
 )
 from pytorch_news_recommender_tpu_torch.ops.attention import NEG_INF, dot_product_scores
+from pytorch_news_recommender_tpu_torch.utils import tracing
 
 
 class GATLayer(nn.Module):
@@ -147,12 +155,16 @@ class GNNRec(RecModel):
         the closure are masked), which no shallower level gathers."""
         fids = batch["gnn_frontier_ids"].long()                  # [F]
         nbr_pos = batch["gnn_nbr_pos"].long()                    # [F, K]
-        titles = self.news_encoder(news_feats["title"][fids], deterministic, generator)
-        mask = (fids[nbr_pos] != 0).float()
-        h = titles
-        for layer in reversed(self.gat_layers):
-            h = layer(titles, F.embedding(nbr_pos, h), mask)
-        return h[batch["gnn_self_pos"].long()]
+        with tracing.span("newsrec.gnn.titles"):
+            titles = self.news_encoder(news_feats["title"][fids], deterministic, generator)
+        with tracing.span("newsrec.gnn.gat"):
+            titles, leave = tracing.backward_span("newsrec.gnn.gat.backward", titles,
+                                                  self.gat_layers[0].a)
+            mask = (fids[nbr_pos] != 0).float()
+            h = titles
+            for layer in reversed(self.gat_layers):
+                h = layer(titles, F.embedding(nbr_pos, h), mask)
+            return leave(h[batch["gnn_self_pos"].long()])
 
     # ---- the levelwise corpus encode ----
     def encode_title_ids(self, ids: torch.Tensor, news_feats: Batch,
